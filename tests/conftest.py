@@ -14,3 +14,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout(seconds): abort the test after N seconds "
         "(pytest-timeout; inert when the plugin is absent)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's hand-written "
+        "kernels); skips without one")
