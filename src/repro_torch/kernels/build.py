@@ -12,6 +12,7 @@ raises.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -78,6 +79,15 @@ def build(name: str) -> Path:
             os.remove(tmp)
     build_logs[name] = proc.stdout + proc.stderr
     return out
+
+
+def build_all(names) -> dict[str, Path]:
+    """Compile several sources at once, one ``nvcc`` process each, all
+    started together; returns each build's path (raises as :func:`build`
+    does, once every compiler has finished)."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as ex:
+        return dict(zip(names, ex.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

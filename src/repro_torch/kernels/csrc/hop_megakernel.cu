@@ -27,6 +27,10 @@
 // the read-only cache.  The plan geometry is a runtime struct, so one build
 // serves every streamable plan.
 //
+// Stages past the first keep their windows as int8 (binary maps), so a
+// bit-serial input there (in_bits <= 8) is stored as its raw value mod 256
+// and coded at the MAC; carried tails are written from the int32 inputs.
+//
 // What bounds it on H100: the work is ~11M int MACs per slot per hop at
 // full KWS width (hop_frames=8), done here with scalar int32 multiply-add
 // on the CUDA cores; the tensor-core bound (int8, 1979 TOP/s) and the byte
@@ -88,7 +92,10 @@ __device__ __forceinline__ int code_of(int raw, const StageDesc& g) {
 
 // n_pos conv positions over `win` (row-major (rows, cin)), SA'd into
 // frm rows [0, n_pos) of width cout.  Must be called by the whole CTA.
-template <typename T>
+// CODED: `win` holds raw inputs of a bit-serial stage, turned into codes
+// here; an int8 window keeps each raw value mod 256, which is all the
+// code of an in_bits <= 8 input reads.
+template <typename T, bool CODED>
 __device__ void conv_sa(const T* win, const StageDesc& g, int n_pos,
                         const int8_t* __restrict__ w,
                         const float* __restrict__ thr,
@@ -111,7 +118,10 @@ __device__ void conv_sa(const T* win, const StageDesc& g, int n_pos,
       for (int ci = 0; ci < cin; ++ci) {
         const int wv = __ldg(wt + (size_t)ci * cout);
 #pragma unroll
-        for (int p = 0; p < TILE_P; ++p) acc[p] += (int)xt[rb[p] + ci] * wv;
+        for (int p = 0; p < TILE_P; ++p) {
+          const int xv = CODED ? code_of((int)xt[rb[p] + ci], g) : (int)xt[rb[p] + ci];
+          acc[p] += xv * wv;
+        }
       }
     }
     const float th = __ldg(thr + co);
@@ -124,6 +134,18 @@ __device__ void conv_sa(const T* win, const StageDesc& g, int n_pos,
       }
     }
   }
+}
+
+// Stage i's conv: layer 0 reads its int32 code window, later stages their
+// int8 window (coded at the MAC when bit-serial).
+__device__ void stage_conv(int i, const int32_t* win0, const int8_t* win,
+                           const StageDesc& g, int n_pos,
+                           const int8_t* __restrict__ w,
+                           const float* __restrict__ thr,
+                           const int32_t* __restrict__ flip, int8_t* frm) {
+  if (i == 0) conv_sa<int32_t, false>(win0, g, n_pos, w, thr, flip, frm);
+  else if (g.in_bits > 1) conv_sa<int8_t, true>(win, g, n_pos, w, thr, flip, frm);
+  else conv_sa<int8_t, false>(win, g, n_pos, w, thr, flip, frm);
 }
 
 // max-pool frm rows [0, n_out * pool) into dst rows [0, n_out).
@@ -209,8 +231,7 @@ __global__ void hop_megakernel_kernel(const HopParams P) {
         const float* thr = g.thr + (size_t)m * g.cout;
         const int32_t* flip = g.flip + (size_t)m * g.cout;
         int8_t* y = frm + g.phase * g.cout;
-        if (i == 0) conv_sa<int32_t>(win0, g, g.n_conv, w, thr, flip, y);
-        else conv_sa<int8_t>(src, g, g.n_conv, w, thr, flip, y);
+        stage_conv(i, win0, src, g, g.n_conv, w, thr, flip, y);
         // new tail: window rows [n_conv * stride, n_conv * stride + tail)
         {
           const int off = g.n_conv * g.stride;
@@ -223,7 +244,13 @@ __global__ void hop_megakernel_kernel(const HopParams P) {
               to[j] = r < g.tail ? t0[r * g.cin + c] : a0[(r - g.tail) * g.cin + c];
             }
           } else {
-            for (int j = tid; j < g.tail * g.cin; j += nt) to[j] = src[off * g.cin + j];
+            // rows below `tail` come from the carried tail, whose raw
+            // values an int8 window of a bit-serial stage keeps only mod 256
+            const int32_t* ti = g.tail_in + (size_t)b * g.tail * g.cin;
+            for (int j = tid; j < g.tail * g.cin; j += nt) {
+              const int r = j / g.cin + off;
+              to[j] = r < g.tail ? ti[j + off * g.cin] : (int32_t)src[off * g.cin + j];
+            }
           }
         }
         __syncthreads();
@@ -281,8 +308,8 @@ __global__ void hop_megakernel_kernel(const HopParams P) {
       const float* thr = g.thr + (size_t)m * g.cout;
       const int32_t* flip = g.flip + (size_t)m * g.cout;
       int8_t* y = frm + g.phase * g.cout;
-      if (i == 0) conv_sa<int32_t>(win0, g, g.flush_conv, w, thr, flip, y);
-      else conv_sa<int8_t>(bin[(i - 1) & 1], g, g.flush_conv, w, thr, flip, y);
+      stage_conv(i, win0, i == 0 ? nullptr : bin[(i - 1) & 1], g, g.flush_conv,
+                 w, thr, flip, y);
     }
     __syncthreads();
     pool_into(frm, g.flush_out, g.pool, g.cout, dst + next_tail * g.cout);

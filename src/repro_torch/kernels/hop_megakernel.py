@@ -349,10 +349,12 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
     if not 1 <= ns <= MAX_STAGES or nf > MAX_FC:
         raise ValueError(f"kernel takes 1..{MAX_STAGES} conv stages and at "
                          f"most {MAX_FC} fc layers; got {ns} and {nf}")
-    if any(g.in_bits > 1 for g in geoms[1:]):
-        # later stages' windows are int8 binary maps: no offset codes
-        raise ValueError("the CUDA kernel takes a multi-bit (bit-serial) "
-                         "input on the first conv stage only")
+    if any(g.in_bits > 8 for g in geoms[1:]):
+        # later stages' windows are int8: a raw input kept mod 256 still
+        # gives the code of an in_bits <= 8 stage, not of a wider one
+        raise ValueError("the CUDA kernel keeps the windows of conv stages "
+                         "past the first as int8, so their bit-serial "
+                         "inputs must have in_bits <= 8")
     b, gap_c = gap.shape
     dev = gap.device
     pooled = model_idx is not None

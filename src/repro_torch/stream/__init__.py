@@ -12,8 +12,9 @@ Modules:
              per-stream facade over the shared RingArena)
   state      stream plan, ring buffers + shared RingArena, the numpy
              per-stream reference (StreamState) and the batched primer
-  scheduler  elastic continuous-batching scheduler (megakernel or dense
-             torch backend, finalization in the step)
+  scheduler  elastic continuous-batching scheduler (megakernel,
+             per-stage kernels or dense torch backend, finalization in
+             the step)
   detector   posterior smoothing + hysteresis/refractory event logic
   metrics    fleet counters split host-pack vs device per hop + EnergyLedger
   async_plane  not ported yet (queue item A.7)

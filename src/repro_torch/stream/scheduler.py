@@ -19,7 +19,7 @@ and advances them with ONE batched step per hop:
     (``runtime.SlotPool``); a resize pads/slices the batched ring state,
     so results stay bit-exact across the resize boundary.
 
-Two backends compute the hop:
+Three backends compute the hop:
 
   * ``"megakernel"`` (default): ONE launch of the hand-written CUDA hop
     kernel per hop (``kernels/hop_megakernel.py``) — bit-serial layer 0,
@@ -27,6 +27,13 @@ Two backends compute the hop:
     hops, the ghost flush and the classifier.  Hop-boundary peeks that no
     emit covers take one launch of the same kernel in finalize mode.  On
     CPU tensors the kernel's plain PyTorch version stands in for it.
+  * ``"per_stage"``: the reference's per-stage kernel backend (its
+    ``"pallas"``), an independent oracle of the megakernel — one launch
+    per conv stage per hop (the bit-serial B.3 step for a multi-bit
+    input, else the B.4 popcount conv in raw mode), SA, pooling, GAP and
+    the mask merge as tensor ops, and on emit hops one launch per
+    ghost-flush conv plus the B.5 classifier tail
+    (``kernels/bnn_conv1d.py``).  Chosen only when asked for.
   * ``"torch"``: the dense twin of the reference's ``"jnp"`` backend —
     plain tensor ops, integer contractions in float64 (exact here: every
     accumulator is far below 2^53), no hand-written kernel.
@@ -38,8 +45,7 @@ stays the exact fallback for peeks over leftover sub-hop samples.
 
 Not ported yet, and refused with ``NotImplementedError``: a device mesh
 (queue item A.9), the multi-tenant weight pool (``max_models > 1``, A.8),
-donated state buffers and the async plane (A.7), and the per-stage
-``"pallas"`` backend (A.6, kernels B.3-B.5).
+and donated state buffers and the async plane (A.7).
 """
 from __future__ import annotations
 
@@ -71,7 +77,7 @@ from repro_torch.stream.state import (
     quantize_pcm,
     remap_rows,
 )
-BACKENDS = ("torch", "megakernel")
+BACKENDS = ("torch", "megakernel", "per_stage")
 
 # ---------------------------------------------------------------------------
 # Memoized parameter prep (exported numpy dicts -> device tensors)
@@ -217,8 +223,15 @@ class _BatchedModel:
             self._kw = tuple(w.to(torch.int8) for w in self._w)
             self._kflip = tuple(f.to(torch.int32) for f in self._flip)
             self._kfc_w = tuple(w.to(torch.int8) for w in self._fc_w)
+        elif backend == "per_stage":
+            # the per-stage kernels' operands, prepared once: int8
+            # weights, packed pos/neg planes and sum(w) per conv layer,
+            # int8 fc weights (thresholds are float32 and fc flips int32
+            # in the prepared params already)
+            self._cw = tuple(ops.conv_weights(w) for w in self._w)
+            self._kfc_w = tuple(w.to(torch.int8) for w in self._fc_w)
 
-    # -- shared conv math (dense backend) -----------------------------------
+    # -- shared conv math (dense and per-stage backends) --------------------
 
     @staticmethod
     def _contract(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -229,8 +242,17 @@ class _BatchedModel:
 
     def _conv_raw(self, i: int, window: torch.Tensor, n_conv: int
                   ) -> torch.Tensor:
-        """(B, len, Cin) window -> (B, n_conv, Cout) raw conv."""
+        """(B, len, Cin) window -> (B, n_conv, Cout) raw conv: one B.3
+        or B.4 launch on the per-stage backend, a dense contraction on the
+        torch backend."""
         st = self.plan.convs[i]
+        if self.backend == "per_stage":
+            if st.in_bits > 1:
+                return ops.bitserial_conv1d_batched(
+                    window, self._cw[i], bits=st.in_bits,
+                    offset=st.in_offset, stride=st.stride)
+            return ops.bnn_conv1d_batched(window, self._cw[i],
+                                          stride=st.stride, mode="raw")
         x = window - st.in_offset if st.in_bits > 1 else window
         taps = [
             x[:, t : t + (n_conv - 1) * st.stride + 1 : st.stride]
@@ -345,6 +367,9 @@ class _BatchedModel:
 
     def _classifier(self, gap_f: torch.Tensor) -> torch.Tensor:
         """Saturated GAP counts (B, C) -> raw logits (B, n_classes)."""
+        if self.backend == "per_stage":
+            return ops.classifier_tail(gap_f, self._kfc_w, self._fc_thr,
+                                       self._fc_flip, out_raw=self._fc_raw)
         h = gap_f
         for j, st in enumerate(self.plan.fcs):
             raw = self._contract("bc,co->bo", h, self._fc_w[j])
@@ -359,8 +384,22 @@ class _BatchedModel:
     def dispatches_per_hop(self, emit: bool) -> int:
         """Hand-written kernel launches one hop makes: 1 for the
         megakernel (emit's flush + classifier ride the same launch), 0 for
-        the dense backend.  The scheduler counts the real launches of every
-        hop through ``kernels.dispatch`` and the tests hold the two equal."""
+        the dense backend, and for the per-stage backend one per conv
+        stage plus, on emit, a finalization's launches.  The scheduler
+        counts the real launches of every hop through ``kernels.dispatch``
+        and the tests hold the two equal."""
+        if self.backend == "per_stage":
+            n = len(self.plan.convs)
+            return n + (self.dispatches_per_finalize() if emit else 0)
+        return 1 if self.backend == "megakernel" else 0
+
+    def dispatches_per_finalize(self) -> int:
+        """Launches of one standalone finalization (a hop-boundary peek no
+        emit covers): 1 for the megakernel, 0 for the dense backend, and
+        for the per-stage backend one per ghost-flush conv with
+        ``flush_conv > 0`` plus the classifier tail."""
+        if self.backend == "per_stage":
+            return sum(1 for st in self.plan.convs if st.flush_conv > 0) + 1
         return 1 if self.backend == "megakernel" else 0
 
 
@@ -409,9 +448,9 @@ class StreamScheduler:
         device="cuda",
     ) -> None:
         if backend == "pallas":
-            raise NotImplementedError(
-                "backend='pallas' (per-stage kernels B.3-B.5) is not ported "
-                "yet: ROADMAP queue item A.6")
+            raise ValueError(
+                "backend='pallas' names the reference's TPU kernels; the "
+                "port's per-stage kernel backend is 'per_stage'")
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         if mesh is not None:
@@ -931,7 +970,8 @@ class StreamScheduler:
 
         On a hop boundary (empty inbox) this reads the last emit step's
         cached logits, or runs the finalization (one finalize launch on
-        the megakernel backend) when no emit covers this slot yet; with
+        the megakernel backend, ``dispatches_per_finalize`` launches on the
+        per-stage backend) when no emit covers this slot yet; with
         leftover sub-hop samples it drops to the exact numpy fallback
         (``StreamState.peek_logits``)."""
         s = self._require(sid)

@@ -88,3 +88,175 @@ def random_spec(seed: int):
 
 #: seeds of random_spec that reach a steady state (checked by the tests)
 RANDOM_SEEDS = (0, 1, 2, 3)
+
+
+# ---------------------------------------------------------------------------
+# Scheduler parity: the same operations on reference and port schedulers
+# ---------------------------------------------------------------------------
+
+def expected_launches(port, *, emit: bool, peek: bool = False) -> dict:
+    """Launches by kernel name that one hop of the port's scheduler ``port``
+    (or, with ``peek``, one standalone finalization) must make: what the
+    reference's ``dispatches_per_hop`` counts, per kernel."""
+    from repro_torch.kernels import bnn_conv1d as bk
+    from repro_torch.kernels import hop_megakernel as mk
+
+    if port.backend == "torch":
+        return {}
+    if port.backend == "megakernel":
+        return {mk.FINALIZE_KERNEL if peek else mk.HOP_KERNEL: 1}
+    out: dict[str, int] = {}
+
+    def add(st):
+        name = bk.BITSERIAL_KERNEL if st.in_bits > 1 else bk.CONV_STEP_KERNEL
+        out[name] = out.get(name, 0) + 1
+
+    if not peek:
+        for st in port.plan.convs:
+            add(st)
+    if peek or emit:
+        for st in port.plan.convs:
+            if st.flush_conv > 0:
+                add(st)
+        out[bk.TAIL_KERNEL] = 1
+    return out
+
+
+class SchedulerPair:
+    """The same operations applied to reference schedulers (one per backend
+    in ``ref_backends``) and a port scheduler, with every result compared
+    on the spot and every hop's launches held to ``dispatches_per_hop``."""
+
+    def __init__(self, spec, weights, thresholds, backend, emit_logits,
+                 device="cpu", ref_backends=("jnp",), hop_frames=1):
+        from repro.stream import StreamScheduler as RefScheduler
+        from repro_torch.stream import StreamScheduler as PortScheduler
+
+        kw = dict(capacity=8, initial_capacity=2, min_capacity=2,
+                  hop_frames=hop_frames, emit_logits=emit_logits)
+        self.refs = [RefScheduler(spec, weights, thresholds, backend=rb,
+                                  **kw) for rb in ref_backends]
+        self.port = PortScheduler(port_spec(spec), weights, thresholds,
+                                  backend=backend, device=device, **kw)
+        self.emit = emit_logits
+        self.hops = 0
+        self.launches = {}
+
+    def add(self, sid):
+        for ref in self.refs:
+            assert ref.add_stream(sid) == sid
+        assert self.port.add_stream(sid) == sid
+
+    def push(self, sids, chunks):
+        for ref in self.refs:
+            ref.push_audio_batch(sids, chunks)
+        self.port.push_audio_batch(sids, chunks)
+
+    def step(self):
+        from repro_torch.kernels import dispatch
+
+        refs = [ref.step_batch() for ref in self.refs]
+        with dispatch.counting() as launched:
+            port = self.port.step_batch()
+        if port is None:
+            assert all(r is None for r in refs) and not launched()
+            return None
+        self.hops += 1
+        assert launched() == expected_launches(self.port, emit=self.emit)
+        assert sum(launched().values()) == \
+            self.port._model.dispatches_per_hop(self.emit)
+        for ref in refs:
+            np.testing.assert_array_equal(port.sids, ref.sids)
+            np.testing.assert_array_equal(port.frames, ref.frames)
+            if self.emit:
+                assert port.logits.dtype == np.int32
+                np.testing.assert_array_equal(port.logits,
+                                              np.asarray(ref.logits))
+                np.testing.assert_allclose(port.posteriors,
+                                           np.asarray(ref.posteriors),
+                                           atol=1e-6, rtol=1e-5)
+            else:
+                assert port.logits is None and ref.logits is None
+            assert [(d.stream_id, d.cls, d.frame)
+                    for d in port.detections] == [
+                (d.stream_id, d.cls, d.frame) for d in ref.detections]
+        return port
+
+    def peek(self, sid):
+        from repro_torch.kernels import dispatch
+
+        with dispatch.counting() as launched:
+            got = self.port.peek(sid)
+        for k, v in launched().items():
+            self.launches[k] = self.launches.get(k, 0) + v
+        for ref in self.refs:
+            np.testing.assert_array_equal(got, np.asarray(ref.peek(sid)))
+        return got, launched()
+
+    def close(self, sid):
+        got = self.port.close_stream(sid)
+        for ref in self.refs:
+            want = ref.close_stream(sid)
+            np.testing.assert_array_equal(got.logits, want.logits)
+            assert (got.frames, got.samples) == (want.frames, want.samples)
+            assert [(d.cls, d.frame) for d in got.events] == [
+                (d.cls, d.frame) for d in want.events]
+            assert self.port.capacity == ref.capacity
+        return got
+
+
+def drive_scheduler(pair: SchedulerPair, seed: int, min_hops: int = 10
+                    ) -> None:
+    """The seeded script: ragged pushes, joins mid-run (pool grows 2 -> 8),
+    closes (pool shrinks), peeks on and off a hop boundary."""
+    rng = np.random.default_rng(seed)
+    hop = pair.port.plan.hop_samples
+    live = [0, 1]
+    for sid in live:
+        pair.add(sid)
+
+    def feed(rounds):
+        for _ in range(rounds):
+            sids = [s for s in live if rng.random() < 0.85]
+            chunks = [rng.integers(0, 256, int(rng.integers(1, 3 * hop)),
+                                   dtype=np.uint8) for _ in sids]
+            pair.push(sids, chunks)
+            while pair.step() is not None:
+                pass
+
+    feed(6)
+    for sid in (2, 3, 4):       # join mid-run: grows 2 -> 4 -> 8
+        pair.add(sid)
+        live.append(sid)
+    assert pair.port.capacity == 8
+    feed(6)
+    # off a hop boundary: leftover sub-hop samples take the numpy fallback
+    for sid in live:
+        pair.peek(sid)
+    # on a hop boundary: top a primed inbox up to a whole hop
+    s = pair.port._streams[live[0]]
+    if not s.primed:            # a long first receptive field: prime it
+        pair.push([live[0]], [rng.integers(
+            0, 256, pair.port.plan.prime_samples, dtype=np.uint8)])
+        while pair.step() is not None:
+            pass
+    assert s.primed
+    pair.push([live[0]], [rng.integers(0, 256, hop - len(s.frontend) % hop,
+                                       dtype=np.uint8)])
+    while pair.step() is not None:
+        pass
+    assert len(pair.port._streams[live[0]].frontend) == 0
+    _, launched = pair.peek(live[0])
+    # cached emit logits, or one standalone finalization
+    assert launched == ({} if pair.emit else
+                        expected_launches(pair.port, emit=False, peek=True))
+    assert sum(launched.values()) == (
+        0 if pair.emit else pair.port._model.dispatches_per_finalize())
+    for sid in (1, 3, 4):       # leave: pool shrinks back
+        pair.close(sid)
+        live.remove(sid)
+    assert pair.port.capacity == 4  # 2 live of 8: halves once
+    feed(4)
+    for sid in list(live):
+        pair.close(sid)
+    assert pair.hops > min_hops

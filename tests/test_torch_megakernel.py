@@ -221,15 +221,46 @@ def test_non_cuda_device_raises_instead_of_falling_back():
         _port_finalize(pplan, o, p, None, None, device="meta")
 
 
+def _multibit_later_stage_spec():
+    """The smoke spec with conv stage 1 taking an 8-bit offset-binary
+    input (``in_bits=8, in_offset=128``) instead of binary maps."""
+    spec = ref_kws.build_kws_smoke_spec()
+    layers = list(spec.layers)
+    conv = [i for i, lay in enumerate(layers) if hasattr(lay, "k")]
+    layers[conv[1]] = dataclasses.replace(layers[conv[1]], in_bits=8,
+                                          in_offset=128)
+    return dataclasses.replace(spec, layers=tuple(layers),
+                               name="smoke-multibit-b1")
+
+
+@pytest.mark.parametrize("emit", [True, False])
+def test_plain_hop_matches_reference_multibit_later_stage(emit):
+    """A bit-serial input past the first conv stage: the plain hop and
+    finalize against the reference's megakernel, with raw 8-bit codes in
+    that stage's carried tail (as its offset pad leaves there)."""
+    spec = _multibit_later_stage_spec()
+    plan, o, p = _operands(spec, 1, 6, seed=21 + emit)
+    assert plan.convs[1].in_bits == 8 and plan.convs[1].tail
+    o["tails"][1] = np.random.default_rng(3).integers(
+        0, 256, o["tails"][1].shape, dtype=np.int32)
+    pplan = port_plan_stream(cases.port_spec(spec), hop_frames=1)
+    ref = _ref_hop(plan, o, p, emit, None, 4)
+    _assert_hop_equal(ref, _port_hop(pplan, o, p, emit, None, 4), emit)
+    np.testing.assert_array_equal(
+        _port_finalize(pplan, o, p, None, 4).numpy(),
+        np.asarray(_ref_finalize(plan, o, p, None, 4)))
+
+
 def test_cuda_wrapper_refuses_multibit_later_stage():
-    """The CUDA kernel keeps later stages' windows as int8 binary maps, so
-    a bit-serial input past the first stage is refused, not miscomputed."""
+    """The CUDA kernel keeps the windows of later stages as int8, which
+    holds the code of an input of at most 8 bits: a wider bit-serial
+    input past the first stage is refused, not miscomputed."""
     pplan = port_plan_stream(
         cases.port_spec(ref_kws.build_kws_smoke_spec()), hop_frames=1)
     geoms = [mk.stage_geom(s) for s in pplan.convs]
-    geoms[1] = dataclasses.replace(geoms[1], in_bits=8, in_offset=128)
+    geoms[1] = dataclasses.replace(geoms[1], in_bits=9, in_offset=256)
     gap = torch.zeros((2, pplan.gap_channels), dtype=torch.int32,
                       device="meta")
-    with pytest.raises(ValueError, match="first conv stage"):
+    with pytest.raises(ValueError, match="in_bits <= 8"):
         mk.hop_megakernel_packed(None, None, (), (), gap, (), (), (),
                                  geoms=tuple(geoms), emit=False)
