@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build, check and drive the KWS stream
-hop on one CUDA card.
+hop and the kernel library on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (each prints one line, any failure exits non-zero):
 
 1. device   — a CUDA card must be present; its name and power limit.
-2. build    — nvcc builds ``hop_megakernel.cu`` and ``bnn_conv1d.cu``
-              from ``src/repro_torch/kernels/csrc`` into ``build/``, one
-              compiler process each, started together.
+2. build    — nvcc builds ``hop_megakernel.cu``, ``bnn_conv1d.cu`` and
+              ``twm_matmul.cu`` from ``src/repro_torch/kernels/csrc`` into
+              ``build/``, one compiler process each, started together.
 3. kernels  — the CUDA hop kernel (B.1, emit and steady) and its finalize
               mode (B.2) are bit-equal to their plain PyTorch versions on
               the card: the full-width KWS plan (``build_kws_spec()``,
@@ -31,7 +31,25 @@ Phases (each prints one line, any failure exits non-zero):
 4. launches — megakernel: one counted launch per hop (emit included) and
               per peek; per-stage on the KWS plan: 4 per steady hop, 9
               per emit hop, 5 per hop-boundary peek.
-5. main     — ``StreamScheduler(build_kws_spec(), ..., capacity=256,
+5. library  — the kernel library (B.6 fused conv -> SA -> pool, B.7
+              popcount GEMM, B.8 int8 tensor-core GEMM): each bit-equal
+              to its plain version at the launch shapes of a full-width
+              utterance, at ``benchmarks/kernel_bench.py``'s GEMMs and
+              (8192, 1024, 4096), at ``tests/test_kernels.py``'s unaligned
+              GEMMs, and B.6 at pool 1, 2 and 4 with k=7 stride=2 pad=3
+              and an even k=2.  Then the library path, counted: one 1 s
+              utterance through ``models.kws.offline_logits`` on the card
+              (1 B.3, 3 B.6, 2 B.7 launches), its logits equal to the same
+              composition on CPU tensors (the plain versions) and to the
+              numpy ``StreamState``; then the bench's two GEMMs through
+              ``ops.twm_linear`` and ``ops.twm_linear_mxu`` (2 B.7, 2 B.8).
+              Each kernel is timed at the path's shapes and at (8192,
+              1024, 4096) beside its plain version, its bound and the one
+              PyTorch call computing its contraction (``conv1d`` or a
+              matmul in float32, TF32 off; ``torch._int_mm`` where its
+              shape rules allow), and for each GEMM shape the path
+              ``ops.pick_path`` picks is printed beside the faster kernel.
+6. main     — ``StreamScheduler(build_kws_spec(), ..., capacity=256,
               hop_frames=8)``: 256 streams join, each gets 2 s of seeded
               audio in ragged chunks, the scheduler steps until starved,
               two peeks, 8 closes; run with ``backend="megakernel"`` (and
@@ -47,16 +65,22 @@ The model is made here from ``--seed`` with numpy: random ternary weights
 and integer thresholds near the middle of each layer's accumulator range
 with random flips.  The script imports nothing of JAX or of the reference
 package.  Before its last line it prints one JSON object with each
-kernel's launches on the main path, error, time, plain time, bound and
-library-call time (for the conv step: the sum over its three launches of
-a hop), and the card's name and power limit as ``nvidia-smi`` reports
-them; the last line is ``{"ok": true, "device": {...}}``.  The same record is
-written to ``chiprun_out/chip_smoke.json``.
+kernel's launches on the main paths (the stream backends' and the
+library's), error, time, plain time, bound and library-call time (each
+summed over a kernel's launch shapes on its path: the conv step's three
+of a hop, B.6's three of an utterance, B.7's and B.8's of the library
+path; a library time only where every one of them has one), and the
+card's name and power limit as ``nvidia-smi`` reports them; the last line
+is ``{"ok": true, "device": {...}}``.  The same record, with every timed
+launch shape and the ``pick_path`` finding, is written to
+``chip_smoke.json`` in the output directory beside the script.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -341,7 +365,7 @@ def per_stage_launches(plan, models, b, seed, device, torch,
     one ``model_tensors`` dict per tenant.  Each entry carries the
     kernel's prepared operands, its MAC count and whether the per-stage
     main path launches it at these shapes on every hop (``main``)."""
-    from repro_torch.kernels import bnn_conv1d as bk
+    bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(seed)
@@ -460,7 +484,7 @@ def library_call(e, torch):
     unpacked bits (B.4) — as (callable, its output in the kernel's
     layout), operands made ahead of the timed call."""
     from repro_torch.core.quant import unpack_bits
-    from repro_torch.kernels import bnn_conv1d as bk
+    bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
 
     F = torch.nn.functional
     if e["name"] == bk.BITSERIAL_KERNEL:
@@ -479,7 +503,238 @@ def library_call(e, torch):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the main path
+# Phase 5: the kernel library (B.6-B.8, and B.3 through ops)
+# ---------------------------------------------------------------------------
+
+#: ``benchmarks/kernel_bench.py``'s two GEMMs, then one where the
+#: reference's cost model picks the int8 path
+GEMM_SHAPES = ((1, 1024, 512), (256, 1024, 512), (8192, 1024, 4096))
+BENCH_GEMMS = GEMM_SHAPES[:2]
+#: ``tests/test_kernels.py``'s unaligned GEMMs
+UNALIGNED_GEMMS = ((7, 100, 12), (33, 513, 65))
+
+
+def library_entries(spec, weights, thresholds, seed, device, torch):
+    """Every kernel-library launch the phase checks, as entries like
+    ``per_stage_launches``': the kernel's prepared operands, its MACs, and
+    whether the library path launches it at these shapes (``main``).
+
+    B.6 at the utterance's three conv blocks (``sa`` pool 2, the path, and
+    raw), and with k=7 stride=2 pad=3 and an even k=2 at pool 1, 2 and 4
+    and raw; B.7 raw and ``sa`` and B.8 at ``GEMM_SHAPES`` and
+    ``UNALIGNED_GEMMS``, and B.7 raw at the utterance's fc1 (8 bit-plane
+    rows) and fc2."""
+    from repro_torch.core import quant
+    from repro_torch.core.cnn_spec import Conv1DSpec, FCSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import twm_matmul as tm
+
+    bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
+    rng = np.random.default_rng(seed)
+    put = lambda x, dt: torch.as_tensor(np.asarray(x)).to(device, dt)  # noqa: E731,E501
+    out = []
+
+    def conv(label, l, w, thr, flip, stride, pad, pool, mode, main=False,
+             timed=False):
+        k, cin, cout = w.shape
+        cw = ops.conv_weights(put(w, torch.int32))
+        x = put(rng.integers(0, 2, (l, cin)), torch.int32)
+        l_out = (l + 2 * pad - k) // stride + 1
+        sa = mode == "sa"
+        used = (l_out // pool) * pool if sa else l_out
+        out.append(dict(
+            label=label, name=bk.CONV_KERNEL,
+            args=(ops.pack_activations(x).contiguous(), cw.wp, cw.wn,
+                  put(thr, torch.float32) if sa else None,
+                  put(flip, torch.int32) if sa else None),
+            kw=dict(k=k, stride=stride, pad=pad, l_out=l_out,
+                    pool=pool if sa else 1, mode=mode),
+            macs=used * cout * k * cin, main=main, timed=timed,
+            lib=dict(x=x, w=cw.w, stride=stride, pad=pad)))
+
+    length = spec.in_len
+    for li, lay in enumerate(spec.layers):
+        if not isinstance(lay, Conv1DSpec):
+            continue
+        if lay.in_bits == 1:
+            w = weights[li].reshape(lay.k, lay.cin, lay.cout)
+            thr, flip = thresholds[li]
+            for mode in ("sa", "raw"):
+                conv(f"{lay.name} {mode}", length, w, thr, flip,
+                     lay.stride, lay.pad, lay.pool, mode, main=mode == "sa",
+                     timed=True)
+        length = lay.out_len(length)
+    for label, (l, cin, cout, k, stride, pad) in (
+            ("k7 s2 p3", (2000, 64, 128, 7, 2, 3)),
+            ("k2 s2 p0", (1001, 100, 65, 2, 2, 0))):
+        w = rng.integers(-1, 2, (k, cin, cout))
+        thr = np.round(rng.normal(0, 4, cout))
+        thr[:2] = [np.inf, -np.inf]
+        flip = rng.random(cout) < 0.3
+        for pool in (1, 2, 4):
+            conv(f"{label} sa pool{pool}", l, w, thr, flip, stride, pad,
+                 pool, "sa")
+        conv(f"{label} raw", l, w, thr, flip, stride, pad, 1, "raw")
+
+    def gemm(label, x, w, thr, flip, main_mode=None, timed=False,
+             mxu=True):
+        m, kdim = x.shape
+        n = w.shape[1]
+        xt, wt = put(x, torch.int32), put(w, torch.int32)
+        xq = ops.pack_activations(xt).contiguous()
+        wp, wn = (p.contiguous() for p in ops.pack_weight_planes(wt))
+        t32, f32 = put(thr, torch.float32), put(flip, torch.int32)
+        xf, wf = xt.float(), wt.float()
+        for mode in ("raw", "sa"):
+            out.append(dict(
+                label=f"{label} {mode}", name=tm.POPCOUNT_KERNEL,
+                args=(xq, wp, wn) + ((t32, f32) if mode == "sa" else ()),
+                kw=dict(mode=mode), macs=m * kdim * n,
+                main=mode == main_mode, timed=timed, shape=(m, kdim, n),
+                lib=dict(xf=xf, wf=wf)))
+        if not mxu:
+            return
+        x8 = quant.pad_to_multiple(xt.to(torch.int8), tm.MXU_K,
+                                   1).contiguous()
+        wt8 = quant.pad_to_multiple(wt.to(torch.int8).t(), tm.MXU_K,
+                                    1).contiguous()
+        out.append(dict(
+            label=f"{label} sa", name=tm.MXU_KERNEL,
+            args=(x8, wt8, t32, f32), kw={}, macs=m * kdim * n,
+            main=main_mode == "sa", timed=timed, shape=(m, kdim, n),
+            lib=None))
+
+    def dense(m, kdim, n):
+        x = rng.integers(0, 2, (m, kdim))
+        w = rng.integers(-1, 2, (kdim, n))
+        thr = np.round(rng.normal(0, 3, n))
+        thr[:2] = [np.inf, -np.inf]
+        return x, w, thr, rng.random(n) < 0.4
+
+    for shape in GEMM_SHAPES + UNALIGNED_GEMMS:
+        gemm(str(shape), *dense(*shape),
+             main_mode="sa" if shape in BENCH_GEMMS else None,
+             timed=shape in GEMM_SHAPES)
+    (l1, fc1), (l2, fc2) = [(li, lay) for li, lay in enumerate(spec.layers)
+                            if isinstance(lay, FCSpec)]
+    no_sa = lambda n: (np.zeros(n), np.zeros(n, bool))  # noqa: E731
+    gemm("fc1 bit planes", rng.integers(0, 2, (fc1.in_bits, fc1.cin)),
+         weights[l1], *no_sa(fc1.cout), main_mode="raw", timed=True,
+         mxu=False)
+    gemm("fc2", rng.integers(0, 2, (1, fc2.cin)), weights[l2],
+         *no_sa(fc2.cout), main_mode="raw", timed=True, mxu=False)
+    return out
+
+
+def library_fns(bk, tm):
+    """kernel name -> (kernel entry point, plain version)."""
+    return {bk.CONV_KERNEL: (bk.bnn_conv1d, bk.conv1d_plain),
+            tm.POPCOUNT_KERNEL: (tm.twm_matmul, tm.twm_matmul_plain),
+            tm.MXU_KERNEL: (tm.twm_matmul_mxu, tm.twm_matmul_mxu_plain)}
+
+
+def check_library(entries, torch, fns, dispatch):
+    """Each library kernel vs its plain version on the same operands on
+    the card; returns the max |kernel - plain| per kernel name."""
+    err = {}
+    for e in entries:
+        kernel, plain = fns[e["name"]]
+        with dispatch.counting() as launched:
+            got = kernel(*e["args"], **e["kw"])
+        if launched() != {e["name"]: 1}:
+            raise RuntimeError(f"library {e['label']}: launched {launched()}")
+        want = plain(*e["args"], **e["kw"])
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or got.shape != want.shape:
+            raise RuntimeError(f"library {e['label']}: output {got.dtype} "
+                               f"{tuple(got.shape)} vs {tuple(want.shape)}")
+        d = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        err[e["name"]] = max(err.get(e["name"], 0), d)
+        if d:
+            raise RuntimeError(f"library {e['label']} ({e['name']}): kernel "
+                               f"disagrees with plain by {d}")
+    phase("library", f"{len(entries)} launches bit-equal to their plain "
+          f"versions: " + ", ".join(f"{e['name']} {e['label']}"
+                                    for e in entries))
+    return err
+
+
+def library_yardstick(e, out, torch, tm):
+    """The one PyTorch call computing a library launch's contraction --
+    ``conv1d`` (B.6) or a matmul (B.7), float32 with TF32 off, exact as
+    every partial sum is below 2^24, or ``torch._int_mm`` (B.8) where its
+    shape rules allow -- checked, with the SA and pool applied where the
+    kernel applies them, against the kernel's output; returns the
+    callable or None."""
+    F = torch.nn.functional
+    if e["name"] == tm.MXU_KERNEL:
+        x8, wt8, thr, flip = e["args"]
+        m, kp = x8.shape
+        if m <= 16 or kp % 8 or wt8.shape[0] % 8:
+            return None
+        w8 = wt8.t()
+
+        def call():
+            return torch._int_mm(x8, w8)
+        got = ((call().float() >= thr) ^ (flip != 0)).to(torch.int32)
+    elif e["name"] == tm.POPCOUNT_KERNEL:
+        xf, wf = e["lib"]["xf"], e["lib"]["wf"]
+
+        def call():
+            return xf @ wf
+        got = call().to(torch.int32)
+        if e["kw"]["mode"] == "sa":
+            thr, flip = e["args"][3:]
+            got = ((got.float() >= thr) ^ (flip != 0)).to(torch.int32)
+    else:
+        lib = e["lib"]
+        xf = lib["x"].float().t()[None].contiguous()           # (1, Cin, L)
+        wf = lib["w"].float().permute(2, 1, 0).contiguous()    # (Cout, Cin, K)
+
+        def call():
+            return F.conv1d(xf, wf, stride=lib["stride"], padding=lib["pad"])
+        got = call()[0].t().to(torch.int32)
+        if e["kw"]["mode"] == "sa":
+            thr, flip = e["args"][3:]
+            pool = e["kw"]["pool"]
+            y = ((got.float() >= thr) ^ (flip != 0)).to(torch.int32)
+            n = y.shape[0] // pool
+            got = y[:n * pool].reshape(n, pool, -1).amax(1)
+    if not torch.equal(got, out):
+        raise RuntimeError(f"the PyTorch yardstick disagrees with "
+                           f"{e['name']} {e['label']}")
+    return call
+
+
+def run_library_path(spec, weights, thresholds, audio, seed, dev, torch,
+                     kws, ops, dispatch):
+    """The library path, counted: one utterance through
+    ``kws.offline_logits`` on the card, then ``kernel_bench.py``'s two
+    GEMMs through ``ops.twm_linear`` and ``ops.twm_linear_mxu`` (``sa``,
+    as the bench runs them).  Returns (logits, GEMM outputs, launches of
+    the utterance, launches of the GEMMs)."""
+    rng = np.random.default_rng(seed)
+    gemm_in = []
+    for m, k, n in BENCH_GEMMS:
+        gemm_in.append(tuple(torch.as_tensor(a, device=dev) for a in (
+            rng.integers(0, 2, (m, k), dtype=np.int32),
+            rng.integers(-1, 2, (k, n), dtype=np.int32),
+            np.round(rng.normal(0, 3, n)).astype(np.float32),
+            (rng.random(n) < 0.4).astype(np.int32))))
+    audio_t = torch.as_tensor(audio, device=dev)
+    torch.cuda.synchronize()
+    dispatch.reset()   # the utterance's counts start here
+    logits = kws.offline_logits(spec, weights, thresholds, audio_t)
+    utt = dispatch.counts()
+    dispatch.reset()   # the GEMMs' counts start here
+    gemms = [(ops.twm_linear(*a, mode="sa"), ops.twm_linear_mxu(*a))
+             for a in gemm_in]
+    torch.cuda.synchronize()
+    return logits, gemms, gemm_in, utt, dispatch.counts()
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the main path
 # ---------------------------------------------------------------------------
 
 def drive(sched, audio, chunk_plan, hop, torch):
@@ -532,9 +787,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.kernels import bnn_conv1d as bk
+        bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
         from repro_torch.kernels import build, dispatch
         from repro_torch.kernels import hop_megakernel as mk
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import twm_matmul as tm
         from repro_torch.models import kws
         from repro_torch.stream import StreamScheduler, StreamState
         from repro_torch.stream.state import plan_stream
@@ -550,7 +807,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = build.build_all([mk.HOP_KERNEL, bk.SOURCE])
+    libs = build.build_all([mk.HOP_KERNEL, bk.SOURCE, tm.SOURCE])
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in build.build_logs.get(name,
                                                             "").splitlines()
@@ -564,7 +821,8 @@ def main() -> int:
     weights, thresholds = random_model(spec, args.seed)
     params = model_tensors(plan, weights, thresholds, dev, torch)
     err = {mk.HOP_KERNEL: 0, mk.FINALIZE_KERNEL: 0, bk.BITSERIAL_KERNEL: 0,
-           bk.CONV_STEP_KERNEL: 0, bk.TAIL_KERNEL: 0}
+           bk.CONV_STEP_KERNEL: 0, bk.TAIL_KERNEL: 0, bk.CONV_KERNEL: 0,
+           tm.POPCOUNT_KERNEL: 0, tm.MXU_KERNEL: 0}
 
     def merge(e):
         for k, v in e.items():
@@ -747,7 +1005,115 @@ def main() -> int:
               f"{n_want} launches each {per_hop[0]}; hop-boundary peek -> "
               f"{launched() or 'cached logits'}")
 
-    # 5. the main path
+    # 5. the kernel library
+    t_lib = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # exact float32 yardstick
+    lib_entries = library_entries(spec, weights, thresholds, args.seed + 11,
+                                  dev, torch)
+    lib_fns = library_fns(bk, tm)
+    merge(check_library(lib_entries, torch, lib_fns, dispatch))
+    audio1 = np.random.default_rng(args.seed + 12).integers(
+        0, 256, spec.in_len, dtype=np.uint8)
+    logits, gemms, gemm_in, utt_launches, gemm_launches = run_library_path(
+        spec, weights, thresholds, audio1, args.seed + 13, dev, torch, kws,
+        ops, dispatch)
+    want_utt = {bk.BITSERIAL_KERNEL: 1, bk.CONV_KERNEL: 3,
+                tm.POPCOUNT_KERNEL: 2}
+    if utt_launches != want_utt:
+        raise RuntimeError(f"utterance launches {utt_launches} != "
+                           f"{want_utt}")
+    if gemm_launches != {tm.POPCOUNT_KERNEL: 2, tm.MXU_KERNEL: 2}:
+        raise RuntimeError(f"GEMM launches {gemm_launches}")
+    plain_logits = kws.offline_logits(spec, weights, thresholds,
+                                      torch.as_tensor(audio1))
+    oracle = StreamState(plan, weights, thresholds)
+    oracle.advance(audio1, flush=True)
+    if (logits.dtype != torch.int32 or tuple(logits.shape) != (12,)
+            or not torch.equal(logits.cpu(), plain_logits)):
+        raise RuntimeError(f"utterance logits {logits} differ from the "
+                           f"plain composition {plain_logits}")
+    if not np.array_equal(plain_logits.numpy(), oracle.logits()):
+        raise RuntimeError("utterance logits differ from StreamState")
+    i32 = lambda t: t.view(torch.int32).cpu()  # noqa: E731
+    for (pop, mxu), a in zip(gemms, gemm_in):
+        cpu = tuple(t.cpu() for t in a)
+        if not (torch.equal(i32(pop), i32(ops.twm_linear(*cpu, mode="sa")))
+                and torch.equal(i32(mxu), i32(ops.twm_linear_mxu(*cpu)))
+                and torch.equal(i32(pop), i32(mxu))):
+            raise RuntimeError(f"library GEMM {tuple(a[0].shape)} x "
+                               f"{tuple(a[1].shape)} differs from plain")
+    phase("library", f"utterance ({spec.in_len} samples, width 64): "
+          f"logits {logits.tolist()} == plain composition == StreamState; "
+          f"launches {utt_launches}; kernel_bench GEMMs {BENCH_GEMMS} "
+          f"through twm_linear and twm_linear_mxu: equal, launches "
+          f"{gemm_launches}")
+    lib_launches = dict(collections.Counter(utt_launches)
+                        + collections.Counter(gemm_launches))
+    # one utterance as a caller issues it, model already on the card
+    on_card = lambda d: {li: (tuple(torch.as_tensor(v, device=dev)  # noqa: E731,E501
+                                    for v in x) if isinstance(x, tuple)
+                              else torch.as_tensor(x, device=dev))
+                         for li, x in d.items()}
+    w_dev, t_dev = on_card(weights), on_card(thresholds)
+    audio_dev = torch.as_tensor(audio1, device=dev)
+    utt_ms = call_ms(lambda: kws.offline_logits(spec, w_dev, t_dev,
+                                                audio_dev), torch)
+    phase("library", f"utterance issued from Python: {utt_ms:.4f} ms per "
+          f"call (1 B.3, 3 B.6, 2 B.7 launches and the host's glue); {card}")
+    lib_times = []
+    for e in lib_entries:
+        if not e["timed"]:
+            continue
+        kernel, plain = lib_fns[e["name"]]
+        out = kernel(*e["args"], **e["kw"])
+        bms, t_b, t_o = launch_bound_ms(e, out)
+        yard = library_yardstick(e, out, torch, tm)
+        rec = dict(label=e["label"], name=e["name"], main=e["main"],
+                   shape=e.get("shape"), macs=e["macs"],
+                   ms=time_ms(lambda: kernel(*e["args"], **e["kw"]), torch),
+                   call_ms=call_ms(lambda: kernel(*e["args"], **e["kw"]),
+                                   torch),
+                   plain_ms=time_ms(lambda: plain(*e["args"], **e["kw"]),
+                                    torch, iters=5),
+                   bound_ms=bms, bytes_s=t_b, ops_s=t_o,
+                   library_ms=None if yard is None else time_ms(yard, torch))
+        lib_times.append(rec)
+        phase("library", f"time {e['label']} ({e['name']}): kernel "
+              f"{rec['ms']:.4f} ms (issued from Python {rec['call_ms']:.4f}"
+              f" ms), plain {rec['plain_ms']:.4f} ms, bound {bms:.6f} ms "
+              f"({'bytes' if t_b >= t_o else 'operations'}), library call "
+              f"{rec['library_ms']}")
+    by_label = {(r["name"], r["label"]): r for r in lib_times}
+    pick = {}
+    for shape in GEMM_SHAPES:
+        pop = by_label[(tm.POPCOUNT_KERNEL, f"{shape} sa")]
+        mxu = by_label[(tm.MXU_KERNEL, f"{shape} sa")]
+        pick[str(shape)] = dict(
+            pick_path=ops.pick_path(*shape),
+            faster=("popcount" if pop["ms"] <= mxu["ms"] else "mxu"),
+            popcount_ms=pop["ms"], mxu_ms=mxu["ms"],
+            popcount_macs_per_s=pop["macs"] / (pop["ms"] * 1e-3))
+        phase("library", f"pick_path{shape} = {pick[str(shape)]['pick_path']}"
+              f"; on the card B.7 sa {pop['ms']:.4f} ms, B.8 "
+              f"{mxu['ms']:.4f} ms: {pick[str(shape)]['faster']} faster; "
+              f"B.7 at {pick[str(shape)]['popcount_macs_per_s']:.4e} MAC/s")
+    lib_kernel = {}
+    for rec in lib_times:
+        if not rec["main"]:
+            continue
+        agg = lib_kernel.setdefault(rec["name"], dict(
+            ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_s=0.0,
+            ops_s=0.0, library_ms=0.0))
+        for key in ("ms", "call_ms", "plain_ms", "bound_ms", "bytes_s",
+                    "ops_s"):
+            agg[key] += rec[key]
+        # a library time only where every launch of the path has one
+        agg["library_ms"] = (None if agg["library_ms"] is None
+                             or rec["library_ms"] is None
+                             else agg["library_ms"] + rec["library_ms"])
+    phase("library", f"phase took {time.perf_counter() - t_lib:.1f} s")
+
+    # 6. the main path
     rng = np.random.default_rng(args.seed + 5)
     audio = [rng.integers(0, 256, 32000, dtype=np.uint8)
              for _ in range(B_MAIN)]
@@ -851,17 +1217,29 @@ def main() -> int:
          "plain_ms": fpms, "bound_ms": fbms, "bound_by": fby,
          "library_ms": None},
     ]
-    for name, replaces in ((bk.BITSERIAL_KERNEL,
-                            "src/repro/kernels/bnn_conv1d.py:425"),
-                           (bk.CONV_STEP_KERNEL,
-                            "src/repro/kernels/bnn_conv1d.py:189"),
-                           (bk.TAIL_KERNEL,
-                            "src/repro/kernels/bnn_conv1d.py:315")):
-        agg = per_kernel[name]
+    conv_cu = "src/repro_torch/kernels/csrc/bnn_conv1d.cu"
+    twm_cu = "src/repro_torch/kernels/csrc/twm_matmul.cu"
+    for name, source, replaces, agg in (
+            (bk.BITSERIAL_KERNEL, conv_cu,
+             "src/repro/kernels/bnn_conv1d.py:425",
+             per_kernel[bk.BITSERIAL_KERNEL]),
+            (bk.CONV_STEP_KERNEL, conv_cu,
+             "src/repro/kernels/bnn_conv1d.py:189",
+             per_kernel[bk.CONV_STEP_KERNEL]),
+            (bk.TAIL_KERNEL, conv_cu,
+             "src/repro/kernels/bnn_conv1d.py:315",
+             per_kernel[bk.TAIL_KERNEL]),
+            (bk.CONV_KERNEL, conv_cu, "src/repro/kernels/bnn_conv1d.py:64",
+             lib_kernel[bk.CONV_KERNEL]),
+            (tm.POPCOUNT_KERNEL, twm_cu,
+             "src/repro/kernels/twm_matmul.py:69",
+             lib_kernel[tm.POPCOUNT_KERNEL]),
+            (tm.MXU_KERNEL, twm_cu, "src/repro/kernels/twm_matmul.py:140",
+             lib_kernel[tm.MXU_KERNEL])):
         entries.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/bnn_conv1d.cu",
-            "replaces": replaces, "launches": ps_launches.get(name, 0),
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": ps_launches.get(name, 0) + lib_launches.get(name, 0),
             "max_abs_err": err[name], "ms": agg["ms"],
             "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
             "bound_by": ("bytes" if agg["bytes_s"] >= agg["ops_s"]
@@ -875,6 +1253,12 @@ def main() -> int:
                   phase_ms_p50=phases, per_stage_hop_ms_p50=ps_p50,
                   per_stage_phase_ms_p50=ps_phases,
                   per_stage_launch_shapes=per_launch,
+                  library_launches=dict(utterance=utt_launches,
+                                        gemms=gemm_launches),
+                  library_launch_shapes=lib_times, pick_path=pick,
+                  utterance_call_ms=utt_ms,
+                  library_call_ms={k: v["call_ms"]
+                                   for k, v in lib_kernel.items()},
                   steady_hop=dict(zip(("ms", "plain_ms", "bound_ms",
                                        "bound_by"),
                                       timing[("hop", False)])))

@@ -1,8 +1,11 @@
 """Bit packing and ternary planes for the popcount kernels (PyTorch).
 
 The port's copy of the parts of the reference's ``repro/core/quant.py``
-that the per-stage kernels need: ``PACK``, ``pack_bits``,
-``ternary_planes`` and ``pad_to_multiple``.
+that the kernels and their oracles need: ``PACK``, ``pack_bits`` (with
+``unpack_bits`` and the numpy ``np_pack_bits``), ``ternary_planes`` and
+``planes_to_ternary``, ``pad_to_multiple``, and the folded batch-norm
+threshold (``fold_bn_to_threshold``, ``apply_threshold``).  The
+straight-through quantizers wait for the training slice.
 
 Packed words are carried as ``int32`` bit patterns, not ``uint32``: CUDA
 PyTorch has few ``uint32`` ops, and the kernels cast each word to
@@ -12,6 +15,7 @@ PyTorch has few ``uint32`` ops, and the kernels cast each word to
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PACK = 32  # bits per packed word
@@ -21,6 +25,11 @@ def ternary_planes(w_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Split a ternary {-1, 0, 1} tensor into (positive, negative) 0/1
     int32 planes: the TWM cell pair of each weight."""
     return (w_t > 0).to(torch.int32), (w_t < 0).to(torch.int32)
+
+
+def planes_to_ternary(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`ternary_planes`: int32 ``pos - neg``."""
+    return pos.to(torch.int32) - neg.to(torch.int32)
 
 
 def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int
@@ -62,3 +71,42 @@ def unpack_bits(words: torch.Tensor, axis: int = -1) -> torch.Tensor:
     shifts = torch.arange(PACK, dtype=torch.int32, device=words.device)
     lanes = (moved.unsqueeze(-1) >> shifts) & 1
     return lanes.reshape(*moved.shape[:-1], -1).movedim(-1, axis)
+
+
+def np_pack_bits(bits: np.ndarray, axis: int = -1) -> np.ndarray:
+    """NumPy twin of :func:`pack_bits` for host-side weight preparation:
+    ``uint32`` words (the reference's dtype)."""
+    axis = axis % bits.ndim
+    n = bits.shape[axis]
+    if n % PACK:
+        raise ValueError(f"pack axis length {n} not a multiple of {PACK}")
+    moved = np.moveaxis(bits, axis, -1).astype(np.uint32)
+    grouped = moved.reshape(*moved.shape[:-1], n // PACK, PACK)
+    shifts = np.arange(PACK, dtype=np.uint32)
+    packed = (grouped << shifts).sum(axis=-1).astype(np.uint32)
+    return np.moveaxis(packed, -1, axis)
+
+
+# ---------------------------------------------------------------------------
+# Folded batch-norm threshold (the "theta" the SA compares against)
+# ---------------------------------------------------------------------------
+
+def fold_bn_to_threshold(gamma, beta, mean, var, eps: float = 1e-5):
+    """Fold BN + sign into a popcount threshold: ``sign(gamma * (s - mean)
+    / sqrt(var + eps) + beta)`` is ``s >= mean - beta * sqrt(var + eps) /
+    gamma`` for gamma > 0, and the inverted compare for gamma < 0.
+    Returns ``(threshold, flip)``."""
+    gamma, beta, mean, var = (torch.as_tensor(v)
+                              for v in (gamma, beta, mean, var))
+    std = torch.sqrt(var + eps)
+    safe = torch.where(gamma == 0, torch.full_like(gamma, 1e-9), gamma)
+    thr = mean - beta * std / safe
+    return thr, gamma < 0
+
+
+def apply_threshold(s: torch.Tensor, thr, flip) -> torch.Tensor:
+    """Binary SA output of the popcount difference ``s``: ``s >= thr``
+    xor ``flip``, as ``torch.uint32`` {0, 1} (the reference's dtype)."""
+    ge = s >= torch.as_tensor(thr, device=s.device)
+    out = ge ^ (torch.as_tensor(flip, device=s.device) != 0)
+    return out.to(torch.int32).view(torch.uint32)

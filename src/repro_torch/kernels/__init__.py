@@ -1,4 +1,25 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: ``hop_megakernel.py`` (the kernel binding and the plain twin),
-``ops.py`` (the public entry points), ``dispatch.py`` (launch counters),
-``build.py`` (nvcc + ctypes) and ``csrc/`` (the CUDA sources)."""
+version: ``hop_megakernel.py``, ``bnn_conv1d.py`` and ``twm_matmul.py``
+(the kernel bindings and their plain versions), ``ops.py`` (the public
+entry points), ``ref.py`` (plain oracles), ``dispatch.py`` (launch
+counters), ``build.py`` (nvcc + ctypes) and ``csrc/`` (the CUDA sources).
+
+The kernel library's public names are those of the reference's
+``repro.kernels``."""
+from repro_torch.kernels.ops import (
+    bitserial_conv1d,
+    bnn_conv1d,
+    bnn_conv1d_batched,
+    pick_path,
+    twm_linear,
+    twm_linear_mxu,
+)
+
+__all__ = [
+    "twm_linear",
+    "twm_linear_mxu",
+    "bnn_conv1d",
+    "bnn_conv1d_batched",
+    "bitserial_conv1d",
+    "pick_path",
+]

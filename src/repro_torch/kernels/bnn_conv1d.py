@@ -1,13 +1,15 @@
-"""Per-stage stream kernels, CUDA on Hopper: the bit-serial first-layer
-step (B.3), the batched popcount conv step (B.4) and the classifier tail
-(B.5).
+"""Popcount conv kernels, CUDA on Hopper: the per-stage stream kernels --
+the bit-serial first-layer step (B.3), the batched popcount conv step
+(B.4) and the classifier tail (B.5) -- and the kernel library's
+single-stream fused conv -> SA -> pool (B.6).
 
 The port of the reference's Pallas kernels in
 ``repro/kernels/bnn_conv1d.py``: ``bnn_bitserial_step_packed``,
-``bnn_conv1d_step_packed`` and ``classifier_tail_packed``.  The
-per-stage stream backend launches one of the two conv steps per conv
-stage and hop, one per ghost-flush conv and one classifier tail on an
-emit hop or a peek.
+``bnn_conv1d_step_packed``, ``classifier_tail_packed`` and
+``bnn_conv1d_packed``.  The per-stage stream backend launches one of the
+two conv steps per conv stage and hop, one per ghost-flush conv and one
+classifier tail on an emit hop or a peek; the kernel library's
+``ops.bnn_conv1d`` launches B.6 once per layer.
 
 Each kernel has two versions here:
 
@@ -29,6 +31,10 @@ Operands are what ``kernels/ops.py`` prepares:
 * ``classifier_tail``: GAP counts ``(B, C)`` int32 and per fc layer int8
   weights ``([M,] Cin, Cout)``, float32 thresholds and int32 flips
   ``([M,] Cout)``.
+* ``bnn_conv1d``: the packed unpadded input ``(L, Cw)`` int32 words and
+  packed weight planes ``(K, Cw, Cout)``; the kernel reads rows outside
+  ``[0, L)`` as the conv's zero padding, so neither a padded copy nor a
+  tap view is materialised.
 
 With a tenant pool, ``model_idx`` is a per-slot ``(B,)`` int32 pool row
 (``ops`` expands the reference's per-block rule) and every weight operand
@@ -54,7 +60,12 @@ SOURCE = "bnn_conv1d"
 BITSERIAL_KERNEL = "bnn_bitserial_step"
 CONV_STEP_KERNEL = "bnn_conv1d_step"
 TAIL_KERNEL = "classifier_tail"
+CONV_KERNEL = "bnn_conv1d"
 THREADS = 256
+#: B.6 launch shape: at most this many output channels per CTA, and
+#: enough position blocks for about one CTA per SM of an H100
+CONV_BN = 128
+CONV_TARGET_CTAS = 132
 MAX_FC = 8
 
 
@@ -127,6 +138,17 @@ def conv_step_plain(x, wp, wn, thr=None, flip=None, model_idx=None, *,
     return y[:, :n * pool].reshape(b, n, pool, c).amax(2)
 
 
+def conv1d_plain(x, wp, wn, thr=None, flip=None, *, k: int, stride: int,
+                 pad: int, l_out: int, pool: int = 1, mode: str = "sa"
+                 ) -> torch.Tensor:
+    """Plain version of B.6: the single-stream conv is B.4's on a batch of
+    one, over the input with ``pad`` zero rows at each end.  ``raw`` ->
+    (l_out, Cout) int32; ``sa`` -> (l_out // pool, Cout) int32 {0,1}."""
+    x = torch.nn.functional.pad(x, (0, 0, pad, pad))
+    return conv_step_plain(x[None], wp, wn, thr, flip, k=k, stride=stride,
+                           l_out=l_out, pool=pool, mode=mode)[0]
+
+
 def classifier_tail_plain(gap, fc_ws, fc_thrs, fc_flips, model_idx=None, *,
                           out_raw) -> torch.Tensor:
     """Plain version of B.5: ``min(gap, 255)``, then each fc layer's
@@ -163,9 +185,10 @@ def _lib():
         lib.bnn_conv1d_step_launch.argtypes = [P] * 7 + [I] * 10 + [P]
         lib.bnn_bitserial_step_launch.argtypes = [P] * 4 + [I] * 9 + [P]
         lib.classifier_tail_launch.argtypes = [P, I, I, I, P]
+        lib.bnn_conv1d_launch.argtypes = [P] * 6 + [I] * 13 + [P]
         for fn in (lib.bnn_conv1d_step_launch, lib.bnn_bitserial_step_launch,
                    lib.classifier_tail_launch,
-                   lib.classifier_tail_params_size):
+                   lib.classifier_tail_params_size, lib.bnn_conv1d_launch):
             fn.restype = I
         size = lib.classifier_tail_params_size()
         if size != ctypes.sizeof(_TailParams):
@@ -275,6 +298,57 @@ def _tail_cuda(gap, fc_ws, fc_thrs, fc_flips, model_idx, *, out_raw):
     return out
 
 
+def conv1d_tiles(cw: int, k: int, stride: int, cout: int, n_pos: int,
+                 pool: int) -> tuple[int, int, int, int]:
+    """B.6's launch shape: ``(bn, bp, ty, smem bytes)`` -- output channels
+    and pooled positions per CTA, thread rows, and the shared memory of
+    the block's staged weight planes and input rows.  Halves ``bn`` (down
+    to one warp) and then ``bp`` until the block fits."""
+    bn = min(CONV_BN, -(-cout // 32) * 32)
+    blocks = -(-cout // bn)
+    ty = THREADS // bn
+    bp = max(ty, min(16 * ty, -(-n_pos * blocks // CONV_TARGET_CTAS)))
+
+    def smem(bn, bp):
+        rows = (bp * pool - 1) * stride + k
+        return 4 * (2 * k * cw * bn + rows * cw)
+
+    while smem(bn, bp) > MAX_SMEM and bn > 32:
+        bn //= 2
+    while smem(bn, bp) > MAX_SMEM and bp > 1:
+        bp //= 2
+    if smem(bn, bp) > MAX_SMEM:
+        raise ValueError(
+            f"a k={k} conv over {cw} words needs {smem(bn, bp)} B of shared "
+            f"memory at its smallest block, more than the {MAX_SMEM} B a "
+            "block can have")
+    return bn, bp, THREADS // bn, smem(bn, bp)
+
+
+def _conv1d_cuda(x, wp, wn, thr, flip, *, k, stride, pad, l_out, pool,
+                 mode):
+    l_in, cw = x.shape
+    cout = wp.shape[-1]
+    _check(x, "x", torch.int32, (l_in, cw))
+    _check(wp, "wp", torch.int32, (k, cw, cout))
+    _check(wn, "wn", torch.int32, (k, cw, cout))
+    sa = mode == "sa"
+    if (l_out - 1) * stride + k > l_in + 2 * pad:
+        raise ValueError(f"{l_out} positions of a k={k} stride={stride} "
+                         f"conv need more than {l_in} rows padded by {pad}")
+    if sa:
+        _check(thr, "thr", torch.float32, (cout,))
+        _check(flip, "flip", torch.int32, (cout,))
+    n_pos = l_out // pool
+    out = torch.empty((n_pos, cout), dtype=torch.int32, device=x.device)
+    bn, bp, ty, smem = conv1d_tiles(cw, k, stride, cout, n_pos, pool)
+    _run(_lib().bnn_conv1d_launch, CONV_KERNEL, x.device, x.data_ptr(),
+         wp.data_ptr(), wn.data_ptr(), _ptr(thr), _ptr(flip),
+         out.data_ptr(), l_in, cw, k, stride, pad, cout, n_pos, pool,
+         int(sa), bn, bp, ty, smem)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Entry points: CPU tensors take the plain version, CUDA tensors the kernel
 # ---------------------------------------------------------------------------
@@ -323,4 +397,24 @@ def classifier_tail(gap, fc_ws, fc_thrs, fc_flips, model_idx=None, *,
     out = _tail_cuda(gap, fc_ws, fc_thrs, fc_flips, model_idx,
                      out_raw=out_raw)
     dispatch.record(TAIL_KERNEL)
+    return out
+
+
+def bnn_conv1d(x, wp, wn, thr=None, flip=None, *, k: int, stride: int,
+               pad: int, l_out: int, pool: int = 1, mode: str = "sa"
+               ) -> torch.Tensor:
+    """B.6, ONE launch: the single-stream fused conv -> SA -> OR-pool of
+    the packed input ``x`` (L, Cw).  ``raw`` (pool 1) -> (l_out, Cout)
+    int32; ``sa`` -> (l_out // pool, Cout) int32 {0,1}."""
+    if mode not in ("raw", "sa"):
+        raise ValueError(f"mode {mode!r}")
+    if mode == "raw" and pool != 1:
+        raise ValueError("raw mode has no SA output to pool")
+    if x.device.type == "cpu":
+        dispatch.record(CONV_KERNEL)
+        return conv1d_plain(x, wp, wn, thr, flip, k=k, stride=stride,
+                            pad=pad, l_out=l_out, pool=pool, mode=mode)
+    out = _conv1d_cuda(x, wp, wn, thr, flip, k=k, stride=stride, pad=pad,
+                       l_out=l_out, pool=pool, mode=mode)
+    dispatch.record(CONV_KERNEL)
     return out

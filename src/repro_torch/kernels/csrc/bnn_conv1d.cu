@@ -1,25 +1,30 @@
-// Per-stage stream kernels for Hopper (sm_90a): the batched popcount conv
-// step, the bit-serial first-layer step and the fused classifier tail.
+// Popcount conv kernels for Hopper (sm_90a): the per-stage stream kernels
+// (batched popcount conv step, bit-serial first-layer step, fused
+// classifier tail) and the kernel library's single-stream fused
+// conv -> SA -> pool.
 //
 // Replaces the reference's Pallas kernels
 //   src/repro/kernels/bnn_conv1d.py::bnn_conv1d_step_packed     (B.4)
 //   src/repro/kernels/bnn_conv1d.py::bnn_bitserial_step_packed  (B.3)
 //   src/repro/kernels/bnn_conv1d.py::classifier_tail_packed     (B.5)
-// which the reference's per-stage stream backend launches once per conv
+//   src/repro/kernels/bnn_conv1d.py::bnn_conv1d_packed          (B.6)
+// The reference's per-stage stream backend launches B.3-B.5 once per conv
 // stage per hop, plus once per ghost-flush conv and once for the
-// classifier on an emit hop.
+// classifier on an emit hop; its kernel library (ops.bnn_conv1d) launches
+// B.6 once per layer of an utterance.
 //
 // Inputs are the packed windows themselves, not the reference's
 // materialised (B, K, L_out, Cw) tap views: each thread indexes its K taps
 // as rows p * stride + t of the (B, L_in, Cw) window, so the input costs
 // L_in rows instead of K * L_out.
 //
-// Design.  One thread per (slot, output position, output channel), with
-// adjacent threads on adjacent output channels: the weights are laid out
-// (K, Cw|Cin, Cout), so a warp's weight loads are one coalesced line, its
-// input loads one broadcast word, and its output stores one line.  The
-// classifier runs one CTA per slot with the saturated GAP vector and each
-// fc layer's activations in shared memory, one thread per output.
+// Design (B.3-B.5).  One thread per (slot, output position, output
+// channel), with adjacent threads on adjacent output channels: the
+// weights are laid out (K, Cw|Cin, Cout), so a warp's weight loads are
+// one coalesced line, its input loads one broadcast word, and its output
+// stores one line.  The classifier runs one CTA per slot with the
+// saturated GAP vector and each fc layer's activations in shared memory,
+// one thread per output.
 //
 // What bounds them on H100: the conv steps do K * Cw popcount pairs (B.4)
 // or K * Cin scalar multiply-adds (B.3) per output, on the CUDA cores; at
@@ -29,6 +34,13 @@
 // launch once per stage, so they sit far above that; tiling positions per
 // thread, weights in shared memory and fusing the stages are later work
 // (the hop megakernel fuses them).
+//
+// B.6 is laid out differently (see its kernel): one CTA per block of
+// pooled positions and output channels, with the block's weight planes
+// and input rows staged once in shared memory.  Its bound at the KWS
+// layer shapes is the same kind: a few hundred KB of input, weights and
+// output (well under a microsecond at HBM rate), against K * Cw popcount
+// pairs per pre-pool output on the CUDA cores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -165,6 +177,94 @@ __global__ void classifier_tail_kernel(const TailParams P) {
     P.out[(size_t)b * P.n_out + o] = hin[o];
 }
 
+// ---- B.6: single-stream fused conv -> SA -> OR-pool (PWB) -----------------
+//
+// x     (l_in, cw) packed words of the unpadded binary input; rows outside
+//       [0, l_in) are the conv's zero padding
+// wp/wn (k, cw, cout) packed positive / negative weight planes
+// out   raw: (n_pos, cout) int32 popcount difference (pool == 1)
+//       sa:  (n_pos, cout) {0,1}, n_pos = l_out / pool pooled positions
+//
+// Grid: (position blocks of bp pooled outputs, channel blocks of bn).  The
+// block's k * cw * bn pos/neg plane words are staged once in shared memory
+// and read by every position of the block (B.4 re-reads them from L2 per
+// output), and the input rows the block's taps touch are staged beside
+// them.  Thread (tx, ty) owns channel tx of the block and pooled outputs
+// ty, ty + blockDim.y, ...; the pool pre-pool positions of one output are
+// accumulated R at a time with each weight word loaded once per R, then
+// SA'd and OR-reduced in registers before the single write (the PWB
+// write-back).  R divides pool, so no position is computed twice.
+//
+// Position p's taps are input rows p * stride - pad + t, so tap t, word c
+// of position p is staged word (p - p0) * stride * cw + t * cw + c: the
+// k * cw words of a position are contiguous, as in B.4.
+template <int R>
+__global__ void bnn_conv1d_kernel(
+    const uint32_t* __restrict__ x, const uint32_t* __restrict__ wp,
+    const uint32_t* __restrict__ wn, const float* __restrict__ thr,
+    const int32_t* __restrict__ flip, int32_t* __restrict__ out, int l_in,
+    int cw, int k, int stride, int pad, int cout, int n_pos, int pool,
+    int sa, int bn, int bp) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int kc = k * cw;
+  uint32_t* wp_s = smem;                 // (kc, bn)
+  uint32_t* wn_s = smem + kc * bn;       // (kc, bn)
+  uint32_t* x_s = smem + 2 * kc * bn;    // (rows, cw)
+  const int n0 = blockIdx.x * bp;
+  const int c0 = blockIdx.y * bn;
+  const int nb = min(bp, n_pos - n0);
+  const int p0 = n0 * pool;              // first pre-pool position
+  const int rows = (nb * pool - 1) * stride + k;
+  const int row0 = p0 * stride - pad;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  for (int i = tid; i < kc * bn; i += nt) {
+    const int j = i / bn, c = i % bn;
+    const bool in = c0 + c < cout;
+    wp_s[i] = in ? __ldg(wp + (size_t)j * cout + c0 + c) : 0u;
+    wn_s[i] = in ? __ldg(wn + (size_t)j * cout + c0 + c) : 0u;
+  }
+  for (int i = tid; i < rows * cw; i += nt) {
+    const int r = row0 + i / cw;
+    x_s[i] = (r >= 0 && r < l_in) ? __ldg(x + (size_t)r * cw + i % cw)
+                                  : 0u;
+  }
+  __syncthreads();
+  const int tx = threadIdx.x;
+  const int co = c0 + tx;
+  if (tx >= bn || co >= cout) return;
+  const float th = sa ? __ldg(thr + co) : 0.f;
+  const bool fl = sa ? __ldg(flip + co) != 0 : false;
+  const uint32_t* wpc = wp_s + tx;
+  const uint32_t* wnc = wn_s + tx;
+  const int xstep = stride * cw;
+  for (int n = threadIdx.y; n < nb; n += blockDim.y) {
+    int y = 0;
+    for (int q = 0; q < pool; q += R) {
+      const uint32_t* xr = x_s + (n * pool + q) * xstep;
+      int acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0;
+      for (int j = 0; j < kc; ++j) {
+        const uint32_t vp = wpc[j * bn], vn = wnc[j * bn];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const uint32_t xv = xr[r * xstep + j];
+          acc[r] += __popc(xv & vp) - __popc(xv & vn);
+        }
+      }
+      if (!sa) {
+        y = acc[0];
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          y |= (int)((__int2float_rn(acc[r]) >= th) != fl);
+      }
+    }
+    out[(size_t)(n0 + n) * cout + co] = y;
+  }
+}
+
 // ---- plain C interface (ctypes) -------------------------------------------
 
 static int grid_for(long long total, int threads) {
@@ -212,6 +312,33 @@ extern "C" int classifier_tail_launch(const TailParams* p, int batch,
   }
   classifier_tail_kernel<<<batch, threads, smem_bytes,
                            (cudaStream_t)stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bnn_conv1d_launch(
+    const void* x, const void* wp, const void* wn, const void* thr,
+    const void* flip, void* out, int l_in, int cw, int k, int stride,
+    int pad, int cout, int n_pos, int pool, int sa, int bn, int bp, int ty,
+    int smem_bytes, void* stream) {
+  if (n_pos <= 0 || cout <= 0) return 0;
+  const dim3 grid((n_pos + bp - 1) / bp, (cout + bn - 1) / bn);
+  const dim3 block(bn, ty);
+  // R pre-pool positions per pass, R | pool
+  const int r = pool % 4 == 0 ? 4 : (pool % 2 == 0 ? 2 : 1);
+  void (*kern)(const uint32_t*, const uint32_t*, const uint32_t*,
+               const float*, const int32_t*, int32_t*, int, int, int, int,
+               int, int, int, int, int, int, int) =
+      r == 4 ? bnn_conv1d_kernel<4>
+             : (r == 2 ? bnn_conv1d_kernel<2> : bnn_conv1d_kernel<1>);
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, block, smem_bytes, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const uint32_t*)wp, (const uint32_t*)wn,
+      (const float*)thr, (const int32_t*)flip, (int32_t*)out, l_in, cw, k,
+      stride, pad, cout, n_pos, pool, sa, bn, bp);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,17 @@
 """Public entry points of the port's kernels (the reference's
 ``repro/kernels/ops.py``): the host side of each kernel contract.
 
+Kernel library (single stream, ``kernels/twm_matmul.py`` and
+``kernels/bnn_conv1d.py``), one launch per call:
+
+* ``twm_linear`` -- dense layer on the packed popcount GEMM (B.7), raw or
+  ``sa``; ``twm_linear_mxu`` -- the same ``sa`` layer on the int8 tensor
+  cores (B.8); ``pick_path`` chooses between them from the shape;
+* ``bnn_conv1d`` -- fused conv -> SA -> OR-pool, the paper's PWB write-back
+  (B.6), or its raw conv;
+* ``bitserial_conv1d`` -- multi-bit input conv, the single-stream form of
+  ``bitserial_conv1d_batched`` (B.3).
+
 Per-stage kernels (B.3-B.5, ``kernels/bnn_conv1d.py``):
 
 * ``bitserial_conv1d_batched`` -- multi-bit input conv, one launch; the
@@ -14,8 +25,14 @@ its shapes and dtypes (``sa`` mode gives ``torch.uint32`` bits).  Conv
 weights are ternary ``([M,] K, Cin, Cout)`` tensors, or the
 :class:`ConvWeights` that :func:`conv_weights` prepares from them once
 (int8 weights, packed planes, the offset fold's ``sum(w)``), which a
-caller that runs every hop passes instead.  CPU tensors take each
-kernel's plain version, CUDA tensors the kernel.
+caller that runs every hop passes instead.
+
+Device rule, the same for every entry point: a ``torch.Tensor`` input
+keeps its device -- a CPU tensor is how a caller asks for the kernels'
+plain versions, a CUDA tensor launches the kernel -- and any other input
+(a numpy array, a list) goes to the card.  A ``device=`` keyword
+overrides both.  A call bound for the card raises when there is none; it
+never falls back to the CPU.
 
 Hop megakernel (B.1, B.2, ``kernels/hop_megakernel.py``):
 ``hop_megakernel`` / ``finalize_megakernel`` take one tail and one
@@ -39,11 +56,30 @@ import torch
 from repro_torch.core import quant
 from repro_torch.kernels import bnn_conv1d as _conv
 from repro_torch.kernels import hop_megakernel as _mega
+from repro_torch.kernels import twm_matmul as _mm
 
 #: the reference megakernel's slot block (``hop_megakernel.DEFAULT_BB``)
 DEFAULT_BB = 256
 #: the reference per-stage kernels' slot block (``bnn_conv1d.DEFAULT_BB``)
 STEP_BB = 8
+
+
+def resolve_device(x, device=None) -> torch.device:
+    """Where an entry point runs: ``device`` when given, else the device
+    of ``x`` when it is a tensor, else the card.  Raises when that is a
+    CUDA device and there is none."""
+    if device is not None:
+        dev = torch.device(device)
+    elif isinstance(x, torch.Tensor):
+        dev = x.device
+    else:
+        dev = torch.device("cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port's kernels run on a CUDA device and none is "
+            "available; pass CPU tensors or device='cpu' to run their "
+            "plain versions")
+    return dev
 
 
 def _as(x, dtype, device) -> torch.Tensor:
@@ -68,6 +104,19 @@ def pack_weight_planes(w_t) -> tuple[torch.Tensor, torch.Tensor]:
     pos = quant.pad_to_multiple(pos, quant.PACK, -2)
     neg = quant.pad_to_multiple(neg, quant.PACK, -2)
     return quant.pack_bits(pos, axis=-2), quant.pack_bits(neg, axis=-2)
+
+
+def shifted_strided_views(x_packed, k: int, stride: int, pad: int
+                          ) -> torch.Tensor:
+    """(L, Cw) packed -> (K, L_out, Cw) tap views, ``out[t, p] =
+    x_pad[p * stride + t]`` (the line-buffer mirror).  The reference's conv
+    kernel reads these views; B.6 indexes the taps of the (L, Cw) input
+    itself, so the library path does not build them."""
+    x = torch.as_tensor(x_packed)
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad))
+    l_out = (x.shape[0] + 2 * pad - k) // stride + 1
+    span = (l_out - 1) * stride + 1
+    return torch.stack([xp[t:t + span:stride] for t in range(k)], 0)
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -119,13 +168,11 @@ class ConvWeights:
 
 
 def conv_weights(w_t, device=None) -> ConvWeights:
-    """Prepare ternary conv weights ``([M,] K, Cin, Cout)`` for the
-    per-stage kernels (on ``w_t``'s device unless ``device`` is given)."""
+    """Prepare ternary conv weights ``([M,] K, Cin, Cout)`` for the conv
+    kernels (on the device the module's rule gives)."""
     if isinstance(w_t, ConvWeights):
         return w_t
-    w = torch.as_tensor(w_t)
-    if device is not None:
-        w = w.to(device)
+    w = torch.as_tensor(w_t).to(resolve_device(w_t, device))
     wp, wn = pack_weight_planes(w)
     return ConvWeights(
         w=w.to(torch.int8).contiguous(), wp=wp.contiguous(),
@@ -135,7 +182,8 @@ def conv_weights(w_t, device=None) -> ConvWeights:
 
 def bitserial_conv1d_batched(x_u, w_t, model_idx=None, *, bits: int,
                              offset: int = 0, stride: int = 1, pad: int = 0,
-                             bb: int | None = None) -> torch.Tensor:
+                             bb: int | None = None, device=None
+                             ) -> torch.Tensor:
     """Batched multi-bit-input raw conv, all bit planes in ONE launch.
 
     x_u (B, L, Cin) integer codes in [0, 2^bits); w_t (K, Cin, Cout)
@@ -144,8 +192,8 @@ def bitserial_conv1d_batched(x_u, w_t, model_idx=None, *, bits: int,
     :class:`ConvWeights`.  Spatial padding uses the offset code.  Returns
     (B, L_out, Cout) int32 with the offset folded out
     (``acc - offset * sum(w)``, per tenant when pooled)."""
-    x = torch.as_tensor(x_u)
-    device = x.device
+    device = resolve_device(x_u, device)
+    x = torch.as_tensor(x_u).to(device)
     cw = conv_weights(w_t, device)
     b, l, cin = x.shape
     k, cin2, _ = cw.w.shape[-3:]
@@ -173,8 +221,8 @@ def bitserial_conv1d_batched(x_u, w_t, model_idx=None, *, bits: int,
 
 def bnn_conv1d_batched(x_bits, w_t, thr=None, flip=None, model_idx=None, *,
                        stride: int = 1, pad: int = 0, pool: int = 1,
-                       mode: str = "sa", bb: int | None = None
-                       ) -> torch.Tensor:
+                       mode: str = "sa", bb: int | None = None,
+                       device=None) -> torch.Tensor:
     """Batched binary conv1d with weights shared across the batch axis.
 
     x_bits (B, L, Cin) {0,1}; w_t (K, Cin, Cout) ternary (or its
@@ -184,8 +232,8 @@ def bnn_conv1d_batched(x_bits, w_t, thr=None, flip=None, model_idx=None, *,
     (B, L_out, Cout) int32 popcount difference; with ``model_idx`` ((B,)
     tenant ids, constant per ``bb`` slot block) ``w_t`` is a pooled
     (M, K, Cin, Cout) stack (raw mode only)."""
-    x = torch.as_tensor(x_bits)
-    device = x.device
+    device = resolve_device(x_bits, device)
+    x = _as(x_bits, torch.int32, device)
     cw = conv_weights(w_t, device)
     pooled = model_idx is not None
     if pooled and mode == "sa":
@@ -213,7 +261,8 @@ def bnn_conv1d_batched(x_bits, w_t, thr=None, flip=None, model_idx=None, *,
 
 
 def classifier_tail(gap, fc_ws, fc_thrs, fc_flips, model_idx=None, *,
-                    out_raw, bb: int | None = None) -> torch.Tensor:
+                    out_raw, bb: int | None = None, device=None
+                    ) -> torch.Tensor:
     """GAP counts -> raw logits in ONE launch: saturate at the 8-bit PWB
     ceiling, then the whole fc cascade.
 
@@ -222,8 +271,8 @@ def classifier_tail(gap, fc_ws, fc_thrs, fc_flips, model_idx=None, *,
     With ``model_idx`` ((B,) tenant ids, constant per ``bb`` slot block)
     the fc params are pooled (M, ...) stacks.  Returns (B, n_classes)
     int32."""
+    device = resolve_device(gap, device)
     gap = torch.as_tensor(gap)
-    device = gap.device
     ws = tuple(_as(w, torch.int8, device) for w in fc_ws)
     thrs = tuple(None if raw else _as(t, torch.float32, device)
                  for t, raw in zip(fc_thrs, out_raw))
@@ -252,7 +301,8 @@ def _mega_prep(stages, ws, thrs, flips, fc_ws, fc_thrs, fc_flips, device):
 
 def hop_megakernel(audio, mask, tails, pendings, gap, ws, thrs, flips,
                    fc_ws=(), fc_thrs=(), fc_flips=(), model_idx=None, *,
-                   stages, emit: bool, fc_raw=(), bb: int | None = None):
+                   stages, emit: bool, fc_raw=(), bb: int | None = None,
+                   device=None):
     """One fused launch for a whole streaming hop.
 
     audio (B, hop, Cin0) codes; mask (B,) advance flags; tails/pendings
@@ -262,7 +312,7 @@ def hop_megakernel(audio, mask, tails, pendings, gap, ws, thrs, flips,
     tenant ids) every weight operand carries a leading pool axis.
     Returns ``(tails, pendings, gap)`` plus int32 logits when ``emit``.
     """
-    device = gap.device
+    device = resolve_device(gap, device)
     geoms, params = _mega_prep(stages, ws, thrs, flips, fc_ws, fc_thrs,
                                fc_flips, device)
     b = gap.shape[0]
@@ -290,9 +340,10 @@ def hop_megakernel(audio, mask, tails, pendings, gap, ws, thrs, flips,
 
 def finalize_megakernel(tails, pendings, gap, ws, thrs, flips, fc_ws,
                         fc_thrs, fc_flips, model_idx=None, *, stages,
-                        fc_raw, bb: int | None = None) -> torch.Tensor:
+                        fc_raw, bb: int | None = None, device=None
+                        ) -> torch.Tensor:
     """Standalone ghost-flush + classifier launch (hop-boundary peeks)."""
-    device = gap.device
+    device = resolve_device(gap, device)
     geoms, params = _mega_prep(stages, ws, thrs, flips, fc_ws, fc_thrs,
                                fc_flips, device)
     b = gap.shape[0]
@@ -306,3 +357,115 @@ def finalize_megakernel(tails, pendings, gap, ws, thrs, flips, fc_ws,
     return _mega.finalize_megakernel_packed(
         t_in, p_in, _as(gap, torch.int32, device), *params, mi,
         geoms=geoms, fc_raw=tuple(fc_raw))
+
+
+# ---------------------------------------------------------------------------
+# Kernel library, single stream (B.6-B.8, B.3)
+# ---------------------------------------------------------------------------
+
+def _sa_operands(thr, flip, device):
+    if thr is None or flip is None:
+        raise ValueError("sa mode needs thr and flip")
+    return _as(thr, torch.float32, device), _as(flip, torch.int32, device)
+
+
+def twm_linear(x_bits, w_t, thr=None, flip=None, *, mode: str = "sa",
+               device=None) -> torch.Tensor:
+    """Binary-activation ternary-weight dense layer on the packed popcount
+    GEMM (B.7), ONE launch.
+
+    x_bits (M, K) {0,1}; w_t (K, N) {-1,0,1}.  Returns (M, N):
+    ``torch.uint32`` bits in ``sa`` mode, int32 popcount difference in
+    ``raw`` mode.  The kernel masks the ragged tile edges itself, so
+    nothing is padded beyond the 32-lane word."""
+    device = resolve_device(x_bits, device)
+    xq = pack_activations(_as(x_bits, torch.int32, device)).contiguous()
+    wp, wn = pack_weight_planes(_as(w_t, torch.int32, device))
+    if mode == "sa":
+        out = _mm.twm_matmul(xq, wp.contiguous(), wn.contiguous(),
+                             *_sa_operands(thr, flip, device), mode="sa")
+        return out.view(torch.uint32)
+    return _mm.twm_matmul(xq, wp.contiguous(), wn.contiguous(), mode=mode)
+
+
+def twm_linear_mxu(x_bits, w_t, thr, flip, *, device=None) -> torch.Tensor:
+    """The same ``sa`` dense layer on the int8 tensor cores (B.8), ONE
+    launch: x_bits (M, K) {0,1}, w_t (K, N) {-1,0,1} -> (M, N)
+    ``torch.uint32`` bits.  K is zero-padded to the MMA's 32 (inactive
+    wordlines) and the weights go K-contiguous, as the MMA reads them."""
+    device = resolve_device(x_bits, device)
+    x8 = quant.pad_to_multiple(_as(x_bits, torch.int8, device), _mm.MXU_K,
+                               1).contiguous()
+    wt8 = quant.pad_to_multiple(_as(w_t, torch.int8, device).t(),
+                                _mm.MXU_K, 1).contiguous()
+    out = _mm.twm_matmul_mxu(x8, wt8, *_sa_operands(thr, flip, device))
+    return out.view(torch.uint32)
+
+
+def bnn_conv1d(x_bits, w_t, thr=None, flip=None, *, stride: int = 1,
+               pad: int = 0, pool: int = 1, mode: str = "sa", device=None
+               ) -> torch.Tensor:
+    """Fused binary conv1d -> SA -> max-pool, the paper's conv + PWB
+    pipeline (B.6), ONE launch.
+
+    x_bits (L, Cin) {0,1}; w_t (K, Cin, Cout) ternary (or its
+    :class:`ConvWeights`).  Output (L_out // pool, Cout) ``torch.uint32``
+    bits, or (L_out, Cout) int32 when ``mode='raw'`` (which ignores
+    ``pool``, as the reference does)."""
+    device = resolve_device(x_bits, device)
+    x = _as(x_bits, torch.int32, device)
+    cw = conv_weights(w_t, device)
+    k, cin, _ = cw.w.shape
+    if x.shape[1] != cin:
+        raise ValueError(f"input has {x.shape[1]} channels, weights take "
+                         f"{cin}")
+    l_out = (x.shape[0] + 2 * pad - k) // stride + 1
+    xq = pack_activations(x).contiguous()
+    geom = dict(k=k, stride=stride, pad=pad, l_out=l_out)
+    if mode == "sa":
+        out = _conv.bnn_conv1d(xq, cw.wp, cw.wn,
+                               *_sa_operands(thr, flip, device), pool=pool,
+                               mode="sa", **geom)
+        return out.view(torch.uint32)
+    return _conv.bnn_conv1d(xq, cw.wp, cw.wn, pool=1, mode=mode, **geom)
+
+
+def bitserial_conv1d(x_u, w_t, bits: int, offset: int = 0, *,
+                     stride: int = 1, pad: int = 0, device=None
+                     ) -> torch.Tensor:
+    """Multi-bit-input conv in ONE launch (B.3), the first-layer path:
+    x_u (L, Cin) codes < 2^bits, w_t (K, Cin, Cout) ternary -> (L_out,
+    Cout) int32 with the offset folded out.  Spatial padding uses the
+    offset code."""
+    device = resolve_device(x_u, device)
+    x = torch.as_tensor(x_u).to(device)
+    return bitserial_conv1d_batched(x[None], w_t, bits=bits, offset=offset,
+                                    stride=stride, pad=pad)[0]
+
+
+# ---------------------------------------------------------------------------
+# Path selector: packed popcount (bandwidth) vs int8 tensor cores (compute)
+# ---------------------------------------------------------------------------
+
+#: H100 SXM HBM rate, bytes/s (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense int8 tensor-core rate, ops/s (NVIDIA's data sheet)
+INT8_OPS_PER_S = 1979e12
+#: MACs per second the popcount GEMM kernel (B.7) reached at (M, K, N) =
+#: (8192, 1024, 4096), measured by ``chip_smoke.py`` on an NVIDIA H100
+#: 80GB HBM3 at a 700.00 W power limit
+POPCOUNT_MACS_PER_S = 6.328e13
+
+
+def pick_path(m: int, k: int, n: int) -> str:
+    """``"popcount"`` or ``"mxu"``: the path with the lower predicted time
+    on an H100, each ``max(bytes / HBM rate, work / its rate)``.  The
+    popcount path moves 1-bit activations and two 1-bit weight planes and
+    does ``m * k * n`` MACs at the rate B.7 reached; the MXU path moves
+    int8 operands and does ``2 * m * k * n`` ops at the int8 tensor-core
+    peak."""
+    t_pop = max((m * k / 8 + 2 * k * n / 8) / HBM_BYTES_PER_S,
+                m * k * n / POPCOUNT_MACS_PER_S)
+    t_mxu = max((m * k + k * n) / HBM_BYTES_PER_S,
+                2 * m * k * n / INT8_OPS_PER_S)
+    return "popcount" if t_pop <= t_mxu else "mxu"

@@ -4,6 +4,7 @@ spec conversion between the two packages.  Everything crosses between JAX
 and PyTorch as numpy."""
 import dataclasses
 import functools
+import importlib
 
 import jax
 import numpy as np
@@ -98,7 +99,7 @@ def expected_launches(port, *, emit: bool, peek: bool = False) -> dict:
     """Launches by kernel name that one hop of the port's scheduler ``port``
     (or, with ``peek``, one standalone finalization) must make: what the
     reference's ``dispatches_per_hop`` counts, per kernel."""
-    from repro_torch.kernels import bnn_conv1d as bk
+    bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
     from repro_torch.kernels import hop_megakernel as mk
 
     if port.backend == "torch":

@@ -1,27 +1,32 @@
-"""Card tests of the port (marker ``gpu``): the CUDA hop kernel and the
+"""Card tests of the port (marker ``gpu``): the CUDA hop kernel, the
 per-stage kernels (B.3 bit-serial step, B.4 conv step raw and ``sa``,
-B.5 classifier tail) against their plain PyTorch versions on the card,
-bit for bit, and the megakernel and per-stage schedulers against the
-dense backend on the card.  They skip without a
-CUDA device.  This file imports neither JAX nor the reference package, so
+B.5 classifier tail) and the kernel library's (B.6 fused conv -> SA ->
+pool, B.7 popcount GEMM raw and ``sa``, B.8 int8 tensor-core GEMM)
+against their plain PyTorch versions on the card, bit for bit, and the
+megakernel and per-stage schedulers against the dense backend on the
+card.  They skip without a CUDA device.  This file imports neither JAX nor the reference package, so
 it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.cnn_spec import CNN1DSpec, Conv1DSpec, FCSpec, GAPSpec
-from repro_torch.kernels import bnn_conv1d as bk
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import hop_megakernel as mk
 from repro_torch.kernels import ops
 from repro_torch.models import kws
 from repro_torch.stream import StreamScheduler
 from repro_torch.stream.state import plan_stream
+
+# the package's ``bnn_conv1d`` is the library entry point, as in the
+# reference, so the kernel module is imported by its full name
+bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
 
 pytestmark = pytest.mark.gpu
 
@@ -352,3 +357,69 @@ def test_cuda_per_stage_scheduler_matches_dense_backend():
                     assert y is None
                 else:
                     np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# Kernel library (B.6-B.8)
+# ---------------------------------------------------------------------------
+
+# (L, Cin, Cout, k, stride, pad): the full-width utterance's b1-b3, k=7
+# stride 2, an even k, and unaligned channels
+LIB_CONV = [(2000, 64, 128, 3, 1, 1), (1000, 128, 256, 5, 1, 2),
+            (500, 256, 352, 3, 1, 1), (300, 40, 48, 7, 2, 3),
+            (33, 8, 12, 2, 2, 0), (129, 100, 65, 5, 1, 2)]
+
+
+@pytest.mark.parametrize("pool,mode", [(1, "raw"), (1, "sa"), (2, "sa"),
+                                       (4, "sa")])
+@pytest.mark.parametrize("l,cin,cout,k,stride,pad", LIB_CONV,
+                         ids=["-".join(map(str, c)) for c in LIB_CONV])
+def test_cuda_bnn_conv1d_matches_plain(l, cin, cout, k, stride, pad, pool,
+                                       mode):
+    dev = _cuda()
+    rng = np.random.default_rng(l + cin)
+    x = torch.as_tensor(rng.integers(0, 2, (l, cin), dtype=np.int32))
+    w = torch.as_tensor(rng.integers(-1, 2, (k, cin, cout), dtype=np.int32))
+    thr = torch.as_tensor(np.round(rng.normal(0, 4, cout)).astype(
+        np.float32))
+    thr[:2] = torch.tensor([np.inf, -np.inf])
+    flip = torch.as_tensor((rng.random(cout) < 0.3).astype(np.int32))
+    kw = dict(stride=stride, pad=pad, pool=pool, mode=mode)
+    want = ops.bnn_conv1d(x, w, thr, flip, **kw)
+    with dispatch.counting() as launched:
+        got = ops.bnn_conv1d(x.to(dev), w.to(dev), thr.to(dev),
+                             flip.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert launched() == {bk.CONV_KERNEL: 1}
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32))
+
+
+# (M, K, N): kernel_bench's GEMMs, the utterance's fc1 bit planes and fc2,
+# test_kernels' unaligned shapes, and a contraction of several 32-word
+# chunks
+LIB_GEMM = [(1, 1024, 512), (256, 1024, 512), (8, 352, 512), (1, 512, 12),
+            (7, 100, 12), (33, 513, 65), (70, 2100, 130)]
+
+
+@pytest.mark.parametrize("m,k,n", LIB_GEMM, ids=str)
+def test_cuda_twm_linear_matches_plain(m, k, n):
+    dev = _cuda()
+    rng = np.random.default_rng(m + k + n)
+    x = torch.as_tensor(rng.integers(0, 2, (m, k), dtype=np.int32))
+    w = torch.as_tensor(rng.integers(-1, 2, (k, n), dtype=np.int32))
+    thr = torch.as_tensor(np.round(rng.normal(0, 3, n)).astype(np.float32))
+    thr[:2] = torch.tensor([np.inf, -np.inf])
+    flip = torch.as_tensor((rng.random(n) < 0.4).astype(np.int32))
+    calls = [("twm_matmul", lambda *a: ops.twm_linear(*a[:2], mode="raw")),
+             ("twm_matmul", lambda *a: ops.twm_linear(*a, mode="sa")),
+             ("twm_matmul_mxu", lambda *a: ops.twm_linear_mxu(*a))]
+    for name, fn in calls:
+        want = fn(x, w, thr, flip)
+        with dispatch.counting() as launched:
+            got = fn(x.to(dev), w.to(dev), thr.to(dev), flip.to(dev))
+        torch.cuda.synchronize()
+        assert launched() == {name: 1}
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.int32).cpu(),
+                           want.view(torch.int32)), name
