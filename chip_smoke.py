@@ -34,11 +34,12 @@ Phases (each prints one line, any failure exits non-zero):
 5. library  — the kernel library (B.6 fused conv -> SA -> pool, B.7
               popcount GEMM, B.8 int8 tensor-core GEMM): each bit-equal
               to its plain version at the launch shapes of a full-width
-              utterance, at ``benchmarks/kernel_bench.py``'s GEMMs and
-              (8192, 1024, 4096), at ``tests/test_kernels.py``'s unaligned
-              GEMMs, and B.6 at pool 1, 2 and 4 with k=7 stride=2 pad=3
-              and an even k=2.  Then the library path, counted: one 1 s
-              utterance through ``models.kws.offline_logits`` on the card
+              utterance (B.3's too), at ``benchmarks/kernel_bench.py``'s
+              GEMMs and (8192, 1024, 4096), at ``tests/test_kernels.py``'s
+              unaligned GEMMs, and B.6 at pool 1, 2 and 4 with k=7
+              stride=2 pad=3 and an even k=2.  Then the library path,
+              counted: one 1 s utterance through
+              ``models.kws.offline_logits`` on the card
               (1 B.3, 3 B.6, 2 B.7 launches), its logits equal to the same
               composition on CPU tensors (the plain versions) and to the
               numpy ``StreamState``; then the bench's two GEMMs through
@@ -46,8 +47,9 @@ Phases (each prints one line, any failure exits non-zero):
               Each kernel is timed at the path's shapes and at (8192,
               1024, 4096) beside its plain version, its bound and the one
               PyTorch call computing its contraction (``conv1d`` or a
-              matmul in float32, TF32 off; ``torch._int_mm`` where its
-              shape rules allow), and for each GEMM shape the path
+              matmul in float32, TF32 off; for B.8 ``torch._int_mm``, or
+              the float32 matmul where ``_int_mm`` refuses M <= 16), and
+              for each GEMM shape the path
               ``ops.pick_path`` picks is printed beside the faster kernel.
 6. main     — ``StreamScheduler(build_kws_spec(), ..., capacity=256,
               hop_frames=8)``: 256 streams join, each gets 2 s of seeded
@@ -67,9 +69,10 @@ with random flips.  The script imports nothing of JAX or of the reference
 package.  Before its last line it prints one JSON object with each
 kernel's launches on the main paths (the stream backends' and the
 library's), error, time, plain time, bound and library-call time (each
-summed over a kernel's launch shapes on its path: the conv step's three
-of a hop, B.6's three of an utterance, B.7's and B.8's of the library
-path; a library time only where every one of them has one), and the
+summed over a kernel's launch shapes on its paths: B.3's l0 of a hop
+and of an utterance, the conv step's three of a hop, B.6's three of an
+utterance, B.7's and B.8's of the library path; a library time only
+where every one of them has one), and the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
 is ``{"ok": true, "device": {...}}``.  The same record, with every timed
 launch shape and the ``pick_path`` finding, is written to
@@ -80,7 +83,6 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import importlib
 import json
 import subprocess
 import sys
@@ -365,7 +367,7 @@ def per_stage_launches(plan, models, b, seed, device, torch,
     one ``model_tensors`` dict per tenant.  Each entry carries the
     kernel's prepared operands, its MAC count and whether the per-stage
     main path launches it at these shapes on every hop (``main``)."""
-    bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
+    from repro_torch.kernels import conv_kernels as bk
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(seed)
@@ -478,13 +480,31 @@ def launch_bound_ms(e, out) -> tuple[float, float, float]:
     return max(t_bytes, t_ops) * 1e3, t_bytes, t_ops
 
 
+def aggregate(recs) -> dict:
+    """kernel name -> its timed records summed over its launch shapes:
+    ms, call_ms, plain_ms, bound_ms and the bound's byte and op times,
+    and library_ms only where every one of those shapes has one."""
+    out = {}
+    for rec in recs:
+        agg = out.setdefault(rec["name"], dict(
+            ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_s=0.0,
+            ops_s=0.0, library_ms=0.0))
+        for key in ("ms", "call_ms", "plain_ms", "bound_ms", "bytes_s",
+                    "ops_s"):
+            agg[key] += rec[key]
+        agg["library_ms"] = (None if agg["library_ms"] is None
+                             or rec["library_ms"] is None
+                             else agg["library_ms"] + rec["library_ms"])
+    return out
+
+
 def library_call(e, torch):
     """The one PyTorch call computing a raw conv launch's function —
     ``conv1d`` in float32 (TF32 off) on the masked codes (B.3) or the
     unpacked bits (B.4) — as (callable, its output in the kernel's
     layout), operands made ahead of the timed call."""
     from repro_torch.core.quant import unpack_bits
-    bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
+    from repro_torch.kernels import conv_kernels as bk
 
     F = torch.nn.functional
     if e["name"] == bk.BITSERIAL_KERNEL:
@@ -519,17 +539,17 @@ def library_entries(spec, weights, thresholds, seed, device, torch):
     ``per_stage_launches``': the kernel's prepared operands, its MACs, and
     whether the library path launches it at these shapes (``main``).
 
-    B.6 at the utterance's three conv blocks (``sa`` pool 2, the path, and
-    raw), and with k=7 stride=2 pad=3 and an even k=2 at pool 1, 2 and 4
-    and raw; B.7 raw and ``sa`` and B.8 at ``GEMM_SHAPES`` and
-    ``UNALIGNED_GEMMS``, and B.7 raw at the utterance's fc1 (8 bit-plane
-    rows) and fc2."""
+    B.3 at the utterance's bit-serial l0; B.6 at its three conv blocks
+    (``sa`` pool 2, the path, and raw), and with k=7 stride=2 pad=3 and
+    an even k=2 at pool 1, 2 and 4 and raw; B.7 raw and ``sa`` and B.8 at
+    ``GEMM_SHAPES`` and ``UNALIGNED_GEMMS``, and B.7 raw at the
+    utterance's fc1 (8 bit-plane rows) and fc2."""
     from repro_torch.core import quant
     from repro_torch.core.cnn_spec import Conv1DSpec, FCSpec
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import conv_kernels as bk
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import twm_matmul as tm
 
-    bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
     rng = np.random.default_rng(seed)
     put = lambda x, dt: torch.as_tensor(np.asarray(x)).to(device, dt)  # noqa: E731,E501
     out = []
@@ -539,7 +559,7 @@ def library_entries(spec, weights, thresholds, seed, device, torch):
         k, cin, cout = w.shape
         cw = ops.conv_weights(put(w, torch.int32))
         x = put(rng.integers(0, 2, (l, cin)), torch.int32)
-        l_out = (l + 2 * pad - k) // stride + 1
+        l_out = ref.conv1d_out_len(l, k, stride, pad)
         sa = mode == "sa"
         used = (l_out // pool) * pool if sa else l_out
         out.append(dict(
@@ -556,13 +576,28 @@ def library_entries(spec, weights, thresholds, seed, device, torch):
     for li, lay in enumerate(spec.layers):
         if not isinstance(lay, Conv1DSpec):
             continue
-        if lay.in_bits == 1:
+        if lay.in_bits > 1:
+            # B.3 as ``ops.bitserial_conv1d`` launches it: one stream, the
+            # edges padded with the offset code
+            w = weights[li].reshape(lay.k, lay.cin, lay.cout)
+            edge = np.full((lay.pad, lay.cin), lay.in_offset)
+            codes = rng.integers(0, 1 << lay.in_bits, (length, lay.cin))
+            l_out = ref.conv1d_out_len(length, lay.k, lay.stride, lay.pad)
+            out.append(dict(
+                label=f"{lay.name} bit-serial", name=bk.BITSERIAL_KERNEL,
+                args=(put(np.concatenate([edge, codes, edge])[None],
+                          torch.int32),
+                      ops.conv_weights(put(w, torch.int32)).w, None),
+                kw=dict(bits=lay.in_bits, stride=lay.stride, l_out=l_out),
+                macs=l_out * lay.cout * lay.k * lay.cin, main=True,
+                timed=True))
+        else:
             w = weights[li].reshape(lay.k, lay.cin, lay.cout)
             thr, flip = thresholds[li]
             for mode in ("sa", "raw"):
                 conv(f"{lay.name} {mode}", length, w, thr, flip,
-                     lay.stride, lay.pad, lay.pool, mode, main=mode == "sa",
-                     timed=True)
+                     lay.stride, lay.pad, lay.pool, mode,
+                     main=mode == "sa", timed=True)
         length = lay.out_len(length)
     for label, (l, cin, cout, k, stride, pad) in (
             ("k7 s2 p3", (2000, 64, 128, 7, 2, 3)),
@@ -628,7 +663,9 @@ def library_entries(spec, weights, thresholds, seed, device, torch):
 
 def library_fns(bk, tm):
     """kernel name -> (kernel entry point, plain version)."""
-    return {bk.CONV_KERNEL: (bk.bnn_conv1d, bk.conv1d_plain),
+    return {bk.BITSERIAL_KERNEL: (bk.bnn_bitserial_step,
+                                  bk.bitserial_step_plain),
+            bk.CONV_KERNEL: (bk.bnn_conv1d, bk.conv1d_plain),
             tm.POPCOUNT_KERNEL: (tm.twm_matmul, tm.twm_matmul_plain),
             tm.MXU_KERNEL: (tm.twm_matmul_mxu, tm.twm_matmul_mxu_plain)}
 
@@ -661,21 +698,33 @@ def check_library(entries, torch, fns, dispatch):
 
 def library_yardstick(e, out, torch, tm):
     """The one PyTorch call computing a library launch's contraction --
-    ``conv1d`` (B.6) or a matmul (B.7), float32 with TF32 off, exact as
-    every partial sum is below 2^24, or ``torch._int_mm`` (B.8) where its
-    shape rules allow -- checked, with the SA and pool applied where the
-    kernel applies them, against the kernel's output; returns the
-    callable or None."""
+    ``conv1d`` (B.3, B.6) or a matmul (B.7, and B.8 where ``torch._int_mm``
+    refuses the shape), float32 with TF32 off, exact as every partial sum
+    is below 2^24, or ``torch._int_mm`` (B.8) -- checked, with the SA and
+    pool applied where the kernel applies them, against the kernel's
+    output; returns (callable, its name)."""
+    from repro_torch.kernels import conv_kernels as bk
+
     F = torch.nn.functional
-    if e["name"] == tm.MXU_KERNEL:
+    what = "float32 matmul"
+    if e["name"] == bk.BITSERIAL_KERNEL:
+        call, to_kernel_layout = library_call(e, torch)
+        got = to_kernel_layout(call()).to(torch.int32)
+        what = "conv1d"
+    elif e["name"] == tm.MXU_KERNEL:
         x8, wt8, thr, flip = e["args"]
         m, kp = x8.shape
-        if m <= 16 or kp % 8 or wt8.shape[0] % 8:
-            return None
-        w8 = wt8.t()
+        if m > 16 and kp % 8 == 0 and wt8.shape[0] % 8 == 0:
+            w8 = wt8.t()
+            what = "_int_mm"
 
-        def call():
-            return torch._int_mm(x8, w8)
+            def call():
+                return torch._int_mm(x8, w8)
+        else:   # ``_int_mm`` needs M > 16
+            xf, wf = x8.float(), wt8.float().t().contiguous()
+
+            def call():
+                return xf @ wf
         got = ((call().float() >= thr) ^ (flip != 0)).to(torch.int32)
     elif e["name"] == tm.POPCOUNT_KERNEL:
         xf, wf = e["lib"]["xf"], e["lib"]["wf"]
@@ -694,6 +743,7 @@ def library_yardstick(e, out, torch, tm):
         def call():
             return F.conv1d(xf, wf, stride=lib["stride"], padding=lib["pad"])
         got = call()[0].t().to(torch.int32)
+        what = "conv1d"
         if e["kw"]["mode"] == "sa":
             thr, flip = e["args"][3:]
             pool = e["kw"]["pool"]
@@ -703,7 +753,7 @@ def library_yardstick(e, out, torch, tm):
     if not torch.equal(got, out):
         raise RuntimeError(f"the PyTorch yardstick disagrees with "
                            f"{e['name']} {e['label']}")
-    return call
+    return call, what
 
 
 def run_library_path(spec, weights, thresholds, audio, seed, dev, torch,
@@ -787,8 +837,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
         from repro_torch.kernels import build, dispatch
+        from repro_torch.kernels import conv_kernels as bk
         from repro_torch.kernels import hop_megakernel as mk
         from repro_torch.kernels import ops
         from repro_torch.kernels import twm_matmul as tm
@@ -938,16 +988,7 @@ def main() -> int:
               f"{rec['ms']:.4f} ms (issued from Python "
               f"{rec['call_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
               f"bound {bms:.6f} ms, conv1d {rec['library_ms']}")
-    per_kernel = {}
-    for rec in per_launch:
-        agg = per_kernel.setdefault(rec["name"], dict(
-            ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_s=0.0,
-            ops_s=0.0, library_ms=None))
-        for key in ("ms", "call_ms", "plain_ms", "bound_ms", "bytes_s",
-                    "ops_s"):
-            agg[key] += rec[key]
-        if rec["library_ms"] is not None:
-            agg["library_ms"] = (agg["library_ms"] or 0.0) + rec["library_ms"]
+    per_kernel = aggregate(per_launch)
 
     # 4. launch counts
     for emit in (True, False):
@@ -1067,7 +1108,7 @@ def main() -> int:
         kernel, plain = lib_fns[e["name"]]
         out = kernel(*e["args"], **e["kw"])
         bms, t_b, t_o = launch_bound_ms(e, out)
-        yard = library_yardstick(e, out, torch, tm)
+        yard, yard_name = library_yardstick(e, out, torch, tm)
         rec = dict(label=e["label"], name=e["name"], main=e["main"],
                    shape=e.get("shape"), macs=e["macs"],
                    ms=time_ms(lambda: kernel(*e["args"], **e["kw"]), torch),
@@ -1076,13 +1117,13 @@ def main() -> int:
                    plain_ms=time_ms(lambda: plain(*e["args"], **e["kw"]),
                                     torch, iters=5),
                    bound_ms=bms, bytes_s=t_b, ops_s=t_o,
-                   library_ms=None if yard is None else time_ms(yard, torch))
+                   library_ms=time_ms(yard, torch), library_call=yard_name)
         lib_times.append(rec)
         phase("library", f"time {e['label']} ({e['name']}): kernel "
               f"{rec['ms']:.4f} ms (issued from Python {rec['call_ms']:.4f}"
               f" ms), plain {rec['plain_ms']:.4f} ms, bound {bms:.6f} ms "
-              f"({'bytes' if t_b >= t_o else 'operations'}), library call "
-              f"{rec['library_ms']}")
+              f"({'bytes' if t_b >= t_o else 'operations'}), "
+              f"{yard_name} {rec['library_ms']:.4f} ms")
     by_label = {(r["name"], r["label"]): r for r in lib_times}
     pick = {}
     for shape in GEMM_SHAPES:
@@ -1097,20 +1138,9 @@ def main() -> int:
               f"; on the card B.7 sa {pop['ms']:.4f} ms, B.8 "
               f"{mxu['ms']:.4f} ms: {pick[str(shape)]['faster']} faster; "
               f"B.7 at {pick[str(shape)]['popcount_macs_per_s']:.4e} MAC/s")
-    lib_kernel = {}
-    for rec in lib_times:
-        if not rec["main"]:
-            continue
-        agg = lib_kernel.setdefault(rec["name"], dict(
-            ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_s=0.0,
-            ops_s=0.0, library_ms=0.0))
-        for key in ("ms", "call_ms", "plain_ms", "bound_ms", "bytes_s",
-                    "ops_s"):
-            agg[key] += rec[key]
-        # a library time only where every launch of the path has one
-        agg["library_ms"] = (None if agg["library_ms"] is None
-                             or rec["library_ms"] is None
-                             else agg["library_ms"] + rec["library_ms"])
+    lib_main = [rec for rec in lib_times if rec["main"]]
+    lib_kernel = aggregate(lib_main)
+    path_kernel = aggregate(per_launch + lib_main)
     phase("library", f"phase took {time.perf_counter() - t_lib:.1f} s")
 
     # 6. the main path
@@ -1219,23 +1249,17 @@ def main() -> int:
     ]
     conv_cu = "src/repro_torch/kernels/csrc/bnn_conv1d.cu"
     twm_cu = "src/repro_torch/kernels/csrc/twm_matmul.cu"
-    for name, source, replaces, agg in (
+    for name, source, replaces in (
             (bk.BITSERIAL_KERNEL, conv_cu,
-             "src/repro/kernels/bnn_conv1d.py:425",
-             per_kernel[bk.BITSERIAL_KERNEL]),
+             "src/repro/kernels/bnn_conv1d.py:425"),
             (bk.CONV_STEP_KERNEL, conv_cu,
-             "src/repro/kernels/bnn_conv1d.py:189",
-             per_kernel[bk.CONV_STEP_KERNEL]),
-            (bk.TAIL_KERNEL, conv_cu,
-             "src/repro/kernels/bnn_conv1d.py:315",
-             per_kernel[bk.TAIL_KERNEL]),
-            (bk.CONV_KERNEL, conv_cu, "src/repro/kernels/bnn_conv1d.py:64",
-             lib_kernel[bk.CONV_KERNEL]),
+             "src/repro/kernels/bnn_conv1d.py:189"),
+            (bk.TAIL_KERNEL, conv_cu, "src/repro/kernels/bnn_conv1d.py:315"),
+            (bk.CONV_KERNEL, conv_cu, "src/repro/kernels/bnn_conv1d.py:64"),
             (tm.POPCOUNT_KERNEL, twm_cu,
-             "src/repro/kernels/twm_matmul.py:69",
-             lib_kernel[tm.POPCOUNT_KERNEL]),
-            (tm.MXU_KERNEL, twm_cu, "src/repro/kernels/twm_matmul.py:140",
-             lib_kernel[tm.MXU_KERNEL])):
+             "src/repro/kernels/twm_matmul.py:69"),
+            (tm.MXU_KERNEL, twm_cu, "src/repro/kernels/twm_matmul.py:140")):
+        agg = path_kernel[name]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: ``hop_megakernel.py``, ``bnn_conv1d.py`` and ``twm_matmul.py``
+version: ``hop_megakernel.py``, ``conv_kernels.py`` and ``twm_matmul.py``
 (the kernel bindings and their plain versions), ``ops.py`` (the public
 entry points), ``ref.py`` (plain oracles), ``dispatch.py`` (launch
 counters), ``build.py`` (nvcc + ctypes) and ``csrc/`` (the CUDA sources).

@@ -2,7 +2,7 @@
 ``repro/kernels/ops.py``): the host side of each kernel contract.
 
 Kernel library (single stream, ``kernels/twm_matmul.py`` and
-``kernels/bnn_conv1d.py``), one launch per call:
+``kernels/conv_kernels.py``), one launch per call:
 
 * ``twm_linear`` -- dense layer on the packed popcount GEMM (B.7), raw or
   ``sa``; ``twm_linear_mxu`` -- the same ``sa`` layer on the int8 tensor
@@ -12,7 +12,7 @@ Kernel library (single stream, ``kernels/twm_matmul.py`` and
 * ``bitserial_conv1d`` -- multi-bit input conv, the single-stream form of
   ``bitserial_conv1d_batched`` (B.3).
 
-Per-stage kernels (B.3-B.5, ``kernels/bnn_conv1d.py``):
+Per-stage kernels (B.3-B.5, ``kernels/conv_kernels.py``):
 
 * ``bitserial_conv1d_batched`` -- multi-bit input conv, one launch; the
   offset fold ``acc - offset * sum(w)`` stays here;
@@ -54,8 +54,9 @@ import dataclasses
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import bnn_conv1d as _conv
+from repro_torch.kernels import conv_kernels as _conv
 from repro_torch.kernels import hop_megakernel as _mega
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import twm_matmul as _mm
 
 #: the reference megakernel's slot block (``hop_megakernel.DEFAULT_BB``)
@@ -112,11 +113,7 @@ def shifted_strided_views(x_packed, k: int, stride: int, pad: int
     x_pad[p * stride + t]`` (the line-buffer mirror).  The reference's conv
     kernel reads these views; B.6 indexes the taps of the (L, Cw) input
     itself, so the library path does not build them."""
-    x = torch.as_tensor(x_packed)
-    xp = torch.nn.functional.pad(x, (0, 0, pad, pad))
-    l_out = (x.shape[0] + 2 * pad - k) // stride + 1
-    span = (l_out - 1) * stride + 1
-    return torch.stack([xp[t:t + span:stride] for t in range(k)], 0)
+    return _ref._shifted_views(x_packed, k, stride, pad)
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -204,7 +201,7 @@ def bitserial_conv1d_batched(x_u, w_t, model_idx=None, *, bits: int,
         edge = x.new_full((b, pad, cin), offset)
         x = torch.cat([edge, x, edge], 1)
     x = x.contiguous()
-    l_out = (l + 2 * pad - k) // stride + 1
+    l_out = _ref.conv1d_out_len(l, k, stride, pad)
     mi = None
     if model_idx is not None:
         mi = _slot_model_idx(model_idx, b, bb or STEP_BB, device)
@@ -242,7 +239,7 @@ def bnn_conv1d_batched(x_bits, w_t, thr=None, flip=None, model_idx=None, *,
     k, cin2, _ = cw.w.shape[-3:]
     if cin != cin2:
         raise ValueError(f"input has {cin} channels, weights take {cin2}")
-    l_out = (l + 2 * pad - k) // stride + 1
+    l_out = _ref.conv1d_out_len(l, k, stride, pad)
     xq = pack_activations(x)
     if pad:
         edge = xq.new_zeros((b, pad, xq.shape[2]))
@@ -419,7 +416,7 @@ def bnn_conv1d(x_bits, w_t, thr=None, flip=None, *, stride: int = 1,
     if x.shape[1] != cin:
         raise ValueError(f"input has {x.shape[1]} channels, weights take "
                          f"{cin}")
-    l_out = (x.shape[0] + 2 * pad - k) // stride + 1
+    l_out = _ref.conv1d_out_len(x.shape[0], k, stride, pad)
     xq = pack_activations(x).contiguous()
     geom = dict(k=k, stride=stride, pad=pad, l_out=l_out)
     if mode == "sa":

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.core.quant import unpack_bits
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.bnn_conv1d import _run
+from repro_torch.kernels.conv_kernels import _run
 from repro_torch.kernels.hop_megakernel import _check, _contract, _sa
 
 SOURCE = "twm_matmul"

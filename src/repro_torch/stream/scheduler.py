@@ -33,7 +33,7 @@ Three backends compute the hop:
     input, else the B.4 popcount conv in raw mode), SA, pooling, GAP and
     the mask merge as tensor ops, and on emit hops one launch per
     ghost-flush conv plus the B.5 classifier tail
-    (``kernels/bnn_conv1d.py``).  Chosen only when asked for.
+    (``kernels/conv_kernels.py``).  Chosen only when asked for.
   * ``"torch"``: the dense twin of the reference's ``"jnp"`` backend —
     plain tensor ops, integer contractions in float64 (exact here: every
     accumulator is far below 2^53), no hand-written kernel.

@@ -4,7 +4,6 @@ spec conversion between the two packages.  Everything crosses between JAX
 and PyTorch as numpy."""
 import dataclasses
 import functools
-import importlib
 
 import jax
 import numpy as np
@@ -99,7 +98,7 @@ def expected_launches(port, *, emit: bool, peek: bool = False) -> dict:
     """Launches by kernel name that one hop of the port's scheduler ``port``
     (or, with ``peek``, one standalone finalization) must make: what the
     reference's ``dispatches_per_hop`` counts, per kernel."""
-    bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
+    from repro_torch.kernels import conv_kernels as bk
     from repro_torch.kernels import hop_megakernel as mk
 
     if port.backend == "torch":

@@ -10,23 +10,19 @@ it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
-import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.cnn_spec import CNN1DSpec, Conv1DSpec, FCSpec, GAPSpec
+from repro_torch.kernels import conv_kernels as bk
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import hop_megakernel as mk
 from repro_torch.kernels import ops
 from repro_torch.models import kws
 from repro_torch.stream import StreamScheduler
 from repro_torch.stream.state import plan_stream
-
-# the package's ``bnn_conv1d`` is the library entry point, as in the
-# reference, so the kernel module is imported by its full name
-bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
 
 pytestmark = pytest.mark.gpu
 

@@ -10,7 +10,6 @@ executor.  Tolerance: bit-equality throughout.  The CUDA kernels are held
 against their plain versions on the card by ``tests/test_torch_gpu.py``
 and ``chip_smoke.py``.
 """
-import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,15 +24,12 @@ from repro.kernels import ref as ref_ref
 from repro.models import kws as ref_kws
 from repro_torch import kernels as port_kernels
 from repro_torch.core import quant
+from repro_torch.kernels import conv_kernels as bk
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels import twm_matmul as tm
 from repro_torch.models import kws as port_kws
-
-# the package's ``bnn_conv1d`` is the library entry point, as in the
-# reference, so the kernel module is imported by its full name
-bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
 
 
 def _T(x):

@@ -8,7 +8,6 @@ reference's ``kernels/ops.py`` (Pallas in interpret mode) and its
 libraries).  The CUDA kernels are held against the plain versions on the
 card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
-import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,12 +18,9 @@ import _torch_port_cases as cases
 from repro.kernels import ops as ref_ops
 from repro.models import kws as ref_kws
 from repro_torch.core import quant
+from repro_torch.kernels import conv_kernels as bk
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import ops as port_ops
-
-# the package's ``bnn_conv1d`` is the library entry point, as in the
-# reference, so the kernel module is imported by its full name
-bk = importlib.import_module("repro_torch.kernels.bnn_conv1d")
 
 
 def _T(x):
