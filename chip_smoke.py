@@ -36,7 +36,9 @@ Phases (each prints one line, any failure exits non-zero):
               to its plain version at the launch shapes of a full-width
               utterance (B.3's too), at ``benchmarks/kernel_bench.py``'s
               GEMMs and (8192, 1024, 4096), at ``tests/test_kernels.py``'s
-              unaligned GEMMs, and B.6 at pool 1, 2 and 4 with k=7
+              unaligned GEMMs, at ``THRESHOLD_GEMMS`` (both sides of each
+              GEMM tile threshold, ragged N and K, +-inf thresholds and
+              flips), and B.6 at pool 1, 2 and 4 with k=7
               stride=2 pad=3 and an even k=2.  Then the library path,
               counted: one 1 s utterance through
               ``models.kws.offline_logits`` on the card
@@ -48,8 +50,11 @@ Phases (each prints one line, any failure exits non-zero):
               1024, 4096) beside its plain version, its bound and the one
               PyTorch call computing its contraction (``conv1d`` or a
               matmul in float32, TF32 off; for B.8 ``torch._int_mm``, or
-              the float32 matmul where ``_int_mm`` refuses M <= 16), and
-              for each GEMM shape the path
+              the float32 matmul where ``_int_mm`` refuses M <= 16), each
+              B.7 and B.8 shape with its tile and its time over the
+              library call's; both tiles of each GEMM kernel are timed at
+              ``TILE_SWEEP``'s shapes (the thresholds' evidence), and for
+              each GEMM shape the path
               ``ops.pick_path`` picks is printed beside the faster kernel.
 6. main     — ``StreamScheduler(build_kws_spec(), ..., capacity=256,
               hop_frames=8)``: 256 streams join, each gets 2 s of seeded
@@ -532,6 +537,19 @@ GEMM_SHAPES = ((1, 1024, 512), (256, 1024, 512), (8192, 1024, 4096))
 BENCH_GEMMS = GEMM_SHAPES[:2]
 #: ``tests/test_kernels.py``'s unaligned GEMMs
 UNALIGNED_GEMMS = ((7, 100, 12), (33, 513, 65))
+#: shapes on both sides of the GEMM kernels' tile thresholds (M = 12 / 13:
+#: B.8's GEMV / wgmma tiles; 16 / 17: B.7's one / several row blocks;
+#: 64 / 65: one / two 64-row tiles), with ragged N and K
+THRESHOLD_GEMMS = ((2, 32, 65), (8, 100, 130), (12, 1024, 512),
+                   (13, 513, 4096), (16, 513, 512), (17, 1024, 12),
+                   (64, 2100, 130), (65, 100, 4096), (256, 513, 65),
+                   (8192, 32, 512))
+#: (M, K, N) at which both tiles of each GEMM kernel are timed, to place
+#: the thresholds
+TILE_SWEEP = ((8, 1024, 512), (12, 1024, 512), (16, 1024, 512),
+              (17, 1024, 512),
+              (32, 1024, 512), (64, 1024, 512), (256, 1024, 512),
+              (1024, 1024, 512), (1024, 1024, 4096), (8192, 1024, 4096))
 
 
 def library_entries(spec, weights, thresholds, seed, device, torch):
@@ -542,8 +560,8 @@ def library_entries(spec, weights, thresholds, seed, device, torch):
     B.3 at the utterance's bit-serial l0; B.6 at its three conv blocks
     (``sa`` pool 2, the path, and raw), and with k=7 stride=2 pad=3 and
     an even k=2 at pool 1, 2 and 4 and raw; B.7 raw and ``sa`` and B.8 at
-    ``GEMM_SHAPES`` and ``UNALIGNED_GEMMS``, and B.7 raw at the
-    utterance's fc1 (8 bit-plane rows) and fc2."""
+    ``GEMM_SHAPES``, ``UNALIGNED_GEMMS`` and ``THRESHOLD_GEMMS``, and B.7
+    raw and ``sa`` at the utterance's fc1 (8 bit-plane rows) and fc2."""
     from repro_torch.core import quant
     from repro_torch.core.cnn_spec import Conv1DSpec, FCSpec
     from repro_torch.kernels import conv_kernels as bk
@@ -646,10 +664,10 @@ def library_entries(spec, weights, thresholds, seed, device, torch):
         thr[:2] = [np.inf, -np.inf]
         return x, w, thr, rng.random(n) < 0.4
 
-    for shape in GEMM_SHAPES + UNALIGNED_GEMMS:
+    for shape in GEMM_SHAPES + UNALIGNED_GEMMS + THRESHOLD_GEMMS:
         gemm(str(shape), *dense(*shape),
              main_mode="sa" if shape in BENCH_GEMMS else None,
-             timed=shape in GEMM_SHAPES)
+             timed=True)
     (l1, fc1), (l2, fc2) = [(li, lay) for li, lay in enumerate(spec.layers)
                             if isinstance(lay, FCSpec)]
     no_sa = lambda n: (np.zeros(n), np.zeros(n, bool))  # noqa: E731
@@ -754,6 +772,82 @@ def library_yardstick(e, out, torch, tm):
         raise RuntimeError(f"the PyTorch yardstick disagrees with "
                            f"{e['name']} {e['label']}")
     return call, what
+
+
+def gemm_tile(e, tm) -> str | None:
+    """The tile a B.7 or B.8 launch takes (None for the conv kernels)."""
+    if e["name"] == tm.POPCOUNT_KERNEL:
+        x, wp = e["args"][:2]
+        return tm._popcount_tile(x.shape[0], x.shape[1], wp.shape[1],
+                                 tm._sms(x.device)).kind
+    if e["name"] == tm.MXU_KERNEL:
+        x, wt = e["args"][:2]
+        return tm._mxu_tile(x.shape[0], wt.shape[0], x.shape[1],
+                            tm._sms(x.device)).kind
+    return None
+
+
+def tile_sweep(entries, torch, tm, seed, dev):
+    """Both tiles of B.7 (``sa``) and of B.8 timed at ``TILE_SWEEP``'s
+    shapes, each checked bit-equal to its plain version first: where the
+    GEMV-shaped tile stops winning places each kernel's threshold.  These
+    launches go straight to the tile and are not counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.core import quant
+
+    rng = np.random.default_rng(seed)
+    sms = tm._sms(dev)
+    rows = []
+    for m, k, n in TILE_SWEEP:
+        x = torch.as_tensor(rng.integers(0, 2, (m, k), dtype=np.int32),
+                            device=dev)
+        w = torch.as_tensor(rng.integers(-1, 2, (k, n), dtype=np.int32),
+                            device=dev)
+        thr = torch.as_tensor(np.round(rng.normal(0, 3, n)).astype(
+            np.float32), device=dev)
+        flip = torch.as_tensor((rng.random(n) < 0.4).astype(np.int32),
+                               device=dev)
+        xq = ops.pack_activations(x).contiguous()
+        wp, wn = (p.contiguous() for p in ops.pack_weight_planes(w))
+        x8 = quant.pad_to_multiple(x.to(torch.int8), tm.MXU_K,
+                                   1).contiguous()
+        wt8 = quant.pad_to_multiple(w.to(torch.int8).t(), tm.MXU_K,
+                                    1).contiguous()
+        kw, kp = xq.shape[1], x8.shape[1]
+        r16 = tm._rows_per_cta(m)
+        g7 = tm._popcount_tile(1, kw, n, sms)
+        g8 = tm._mxu_tile(1, n, kp, sms)
+        wg = tm._mxu_tile(max(m, tm.MXU_GEMV_MAX_M + 1), n, kp, sms)
+        cands = {
+            tm.POPCOUNT_KERNEL: [
+                g7._replace(rows=r16, grid=(g7.grid[0], -(-m // r16))),
+                tm.Tile("tile64", 1, 64, 64, 1, (-(-n // 64),
+                                                 -(-m // 64)))],
+            tm.MXU_KERNEL: [
+                g8._replace(rows=r16, grid=(g8.grid[0], -(-m // r16))), wg]}
+        picked = {tm.POPCOUNT_KERNEL: tm._popcount_tile(m, kw, n, sms).kind,
+                  tm.MXU_KERNEL: tm._mxu_tile(m, n, kp, sms).kind}
+        want = tm.twm_matmul_plain(xq, wp, wn, thr, flip, mode="sa")
+        for name, tiles in cands.items():
+            times = {}
+            for tile in tiles:
+                if name == tm.POPCOUNT_KERNEL:
+                    fn = lambda t=tile: tm._twm_cuda(  # noqa: E731
+                        xq, wp, wn, thr, flip, mode="sa", tile=t)
+                else:
+                    fn = lambda t=tile: tm._mxu_cuda(  # noqa: E731
+                        x8, wt8, thr, flip, tile=t)
+                if not torch.equal(fn(), want):
+                    raise RuntimeError(f"tile sweep {(m, k, n)} {name} "
+                                       f"{tile.kind} disagrees with plain")
+                times[tile.kind] = time_ms(fn, torch)
+            rows.append(dict(shape=[m, k, n], name=name, ms=times,
+                             picked=picked[name],
+                             fastest=min(times, key=times.get)))
+            phase("library", f"tile sweep {(m, k, n)} {name}: " + ", ".join(
+                f"{kd} {t:.4f} ms" for kd, t in times.items())
+                + f"; picked {picked[name]}, fastest {rows[-1]['fastest']}")
+    return rows
 
 
 def run_library_path(spec, weights, thresholds, audio, seed, dev, torch,
@@ -1118,12 +1212,17 @@ def main() -> int:
                                     torch, iters=5),
                    bound_ms=bms, bytes_s=t_b, ops_s=t_o,
                    library_ms=time_ms(yard, torch), library_call=yard_name)
+        rec["tile"] = gemm_tile(e, tm)
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
         lib_times.append(rec)
-        phase("library", f"time {e['label']} ({e['name']}): kernel "
+        phase("library", f"time {e['label']} ({e['name']}"
+              f"{', ' + rec['tile'] if rec['tile'] else ''}): kernel "
               f"{rec['ms']:.4f} ms (issued from Python {rec['call_ms']:.4f}"
               f" ms), plain {rec['plain_ms']:.4f} ms, bound {bms:.6f} ms "
               f"({'bytes' if t_b >= t_o else 'operations'}), "
-              f"{yard_name} {rec['library_ms']:.4f} ms")
+              f"{yard_name} {rec['library_ms']:.4f} ms, kernel / library "
+              f"{rec['vs_library']:.2f}")
+    sweep = tile_sweep(lib_entries, torch, tm, args.seed + 14, dev)
     by_label = {(r["name"], r["label"]): r for r in lib_times}
     pick = {}
     for shape in GEMM_SHAPES:
@@ -1280,6 +1379,7 @@ def main() -> int:
                   library_launches=dict(utterance=utt_launches,
                                         gemms=gemm_launches),
                   library_launch_shapes=lib_times, pick_path=pick,
+                  gemm_tile_sweep=sweep,
                   utterance_call_ms=utt_ms,
                   library_call_ms={k: v["call_ms"]
                                    for k, v in lib_kernel.items()},

@@ -11,7 +11,11 @@ Each kernel has two versions here:
 
 * the CUDA kernel (``csrc/twm_matmul.cu``), launched on the current
   stream for CUDA tensors; a build or launch failure raises, there is no
-  fallback;
+  fallback.  Each kernel has two tiles, and the pure host functions
+  :func:`_popcount_tile` and :func:`_mxu_tile` pick one from the shape
+  (a GEMV-shaped tile at small M; B.7's 64 x 64 tile, or B.8's
+  persistent ``wgmma`` kernel fed by a TMA ring, at large M), so every
+  call is still one launch;
 * the plain PyTorch version (``*_plain``), which runs for CPU tensors;
   the tests and ``chip_smoke.py`` hold the kernel against it.
 
@@ -31,6 +35,7 @@ Both return ``(M, N)`` int32: the popcount difference in ``raw`` mode,
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -42,10 +47,23 @@ from repro_torch.kernels.hop_megakernel import _check, _contract, _sa
 SOURCE = "twm_matmul"
 POPCOUNT_KERNEL = "twm_matmul"
 MXU_KERNEL = "twm_matmul_mxu"
-#: K granularity of the int8 MMA (m16n8k32)
+#: K granularity of the int8 MMA (k32 of wgmma and of the GEMV's chunks)
 MXU_K = 32
+#: streaming multiprocessors of an H100 SXM, the default for the tile
+#: functions (the wrappers pass the card's own count)
+H100_SMS = 132
+#: rows a GEMV-shaped CTA takes at most, and its threads and warps
+GEMV_ROWS = 16
+GEMV_THREADS = 256
+GEMV_WARPS = GEMV_THREADS // 32
+#: B.8 takes the GEMV-shaped tile up to this many rows, ``wgmma`` above.
+#: ``chip_smoke.py``'s tile sweep on an NVIDIA H100 80GB HBM3 at 700 W, at
+#: (M, 1024, 512): GEMV 0.0031 / wgmma 0.0036 ms at M = 8, 0.0036 / 0.0036
+#: at 12, 0.0038 / 0.0036 at 16, 0.0042 / 0.0036 at 17
+MXU_GEMV_MAX_M = 12
+#: B.7's large-m tile is POPCOUNT_TILE x POPCOUNT_TILE outputs
+POPCOUNT_TILE = 64
 _MAX_GRID_Y = 65535
-_TILE = 64
 
 
 # ---------------------------------------------------------------------------
@@ -77,18 +95,98 @@ def _lib():
     lib = build.load(SOURCE)
     if not getattr(lib, "_twm_ready", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.twm_matmul_launch.argtypes = [P] * 6 + [I] * 4 + [P]
-        lib.twm_matmul_mxu_launch.argtypes = [P] * 5 + [I] * 3 + [P]
+        lib.twm_matmul_launch.argtypes = [P] * 6 + [I] * 9 + [P]
+        lib.twm_matmul_mxu_launch.argtypes = [P] * 5 + [I] * 8 + [P]
         for fn in (lib.twm_matmul_launch, lib.twm_matmul_mxu_launch):
             fn.restype = I
         lib._twm_ready = True
     return lib
 
 
-def _grid_rows(m: int) -> None:
-    if -(-m // _TILE) > _MAX_GRID_Y:
-        raise ValueError(f"{m} rows exceed the kernel grid "
-                         f"({_MAX_GRID_Y} tiles of {_TILE})")
+class Tile(NamedTuple):
+    """One launch's tile: ``kind`` names the kernel, ``code`` is the
+    launch function's tile argument, ``rows`` x ``cols`` the outputs a
+    CTA (or a persistent CTA's tile) computes, ``split`` the thread
+    groups (B.7) or warps (B.8) that split one column's K, ``grid`` the
+    CTAs launched."""
+    kind: str
+    code: int
+    rows: int
+    cols: int
+    split: int
+    grid: tuple[int, int]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _rows_per_cta(m: int) -> int:
+    """Rows a GEMV-shaped CTA takes: ``m`` rounded up to a power of two,
+    at most ``GEMV_ROWS``."""
+    return min(GEMV_ROWS, 1 << max(0, m - 1).bit_length())
+
+
+def _check_grid_y(grid_y: int, rows: int) -> None:
+    if grid_y > _MAX_GRID_Y:
+        raise ValueError(f"{grid_y * rows} rows exceed the kernel grid "
+                         f"({_MAX_GRID_Y} row blocks of {rows})")
+
+
+def _popcount_tile(m: int, kw: int, n: int, sms: int = H100_SMS) -> Tile:
+    """B.7's tile for an (m, kw) x (kw, n) launch on ``sms`` SMs.
+
+    The 64 x 64 tile keeps every SM at its popcount rate once there are
+    at least as many tiles as SMs; below that (and at m <= 16 always) the
+    GEMV-shaped tile spreads the columns, 32 per CTA (fewer when n is
+    under a warp), and up to 16 rows over more CTAs; the CTA's other
+    256 / cols threads split each column's words (``split``): at these
+    sizes more warps beat longer loops per thread."""
+    if m > GEMV_ROWS and _cdiv(m, POPCOUNT_TILE) * _cdiv(n, POPCOUNT_TILE) \
+            >= sms:
+        grid = (_cdiv(n, POPCOUNT_TILE), _cdiv(m, POPCOUNT_TILE))
+        _check_grid_y(grid[1], POPCOUNT_TILE)
+        return Tile("tile64", 1, POPCOUNT_TILE, POPCOUNT_TILE, 1, grid)
+    rows = _rows_per_cta(m)
+    cb = 32 if n >= 32 else max(8, 1 << (n - 1).bit_length())
+    grid = (_cdiv(n, cb), _cdiv(m, rows))
+    _check_grid_y(grid[1], rows)
+    return Tile("gemv", 0, rows, cb, GEMV_THREADS // cb, grid)
+
+
+#: (code, rows, cols, consumers splitting K) of the wgmma tiles, widest
+#: first
+_WGMMA_TILES = ((1, 128, 256, 1), (2, 128, 128, 1), (3, 64, 64, 2))
+
+
+def _mxu_tile(m: int, n: int, kp: int, sms: int = H100_SMS) -> Tile:
+    """B.8's tile for an (m, kp) x (n, kp) launch on ``sms`` SMs.
+
+    m <= ``MXU_GEMV_MAX_M``: the GEMV-shaped tile, one warp per column's
+    weight row and ``split`` warps splitting its K, doubled while the K
+    has work for them and the grid stays within one wave of CTAs.
+    Larger m: the persistent ``wgmma`` kernel with the widest tile that
+    still gives every SM a tile, else the narrowest (64 x 64, K split
+    between the two consumer warpgroups)."""
+    if m <= MXU_GEMV_MAX_M:
+        rows, chunks, wpc = _rows_per_cta(m), kp // 16, 1
+        while wpc < GEMV_WARPS and chunks >= 2 * wpc and (
+                chunks > 32 * wpc
+                or _cdiv(n, GEMV_WARPS // (2 * wpc)) <= sms):
+            wpc *= 2
+        cpc = GEMV_WARPS // wpc
+        grid = (_cdiv(n, cpc), _cdiv(m, rows))
+        _check_grid_y(grid[1], rows)
+        return Tile("gemv", 0, rows, cpc, wpc, grid)
+    for code, bm, bn, split in _WGMMA_TILES:
+        tiles = _cdiv(m, bm) * _cdiv(n, bn)
+        if tiles >= sms:
+            break
+    return Tile(f"wgmma{bm}x{bn}", code, bm, bn, split, (min(tiles, sms), 1))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _sa_params(thr, flip, n: int):
@@ -96,23 +194,26 @@ def _sa_params(thr, flip, n: int):
             _check(flip, "flip", torch.int32, (n,)))
 
 
-def _twm_cuda(x, wp, wn, thr, flip, *, mode):
+def _twm_cuda(x, wp, wn, thr, flip, *, mode, tile: Tile | None = None):
+    """One B.7 launch; ``tile`` overrides :func:`_popcount_tile`'s choice
+    (``chip_smoke.py`` times both tiles on each side of the threshold)."""
     m, kw = x.shape
     n = wp.shape[1]
     _check(x, "x", torch.int32, (m, kw))
     _check(wp, "wp", torch.int32, (kw, n))
     _check(wn, "wn", torch.int32, (kw, n))
-    _grid_rows(m)
+    tile = tile or _popcount_tile(m, kw, n, _sms(x.device))
     sa = mode == "sa"
     t, f = _sa_params(thr, flip, n) if sa else (None, None)
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     _run(_lib().twm_matmul_launch, POPCOUNT_KERNEL, x.device, x.data_ptr(),
          wp.data_ptr(), wn.data_ptr(), t, f, out.data_ptr(), m, kw, n,
-         int(sa))
+         int(sa), tile.code, tile.rows, tile.cols, *tile.grid)
     return out
 
 
-def _mxu_cuda(x, wt, thr, flip):
+def _mxu_cuda(x, wt, thr, flip, *, tile: Tile | None = None):
+    """One B.8 launch; ``tile`` overrides :func:`_mxu_tile`'s choice."""
     m, kp = x.shape
     n = wt.shape[0]
     if kp % MXU_K:
@@ -122,13 +223,14 @@ def _mxu_cuda(x, wt, thr, flip):
     _check(wt, "wt", torch.int8, (n, kp))
     for name, t in (("x", x), ("wt", wt)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernel loads 16-byte chunks and "
-                             "needs a 16-byte aligned base")
-    _grid_rows(m)
+            raise ValueError(f"{name}: the kernels load 16-byte chunks and "
+                             "need a 16-byte aligned base")
+    tile = tile or _mxu_tile(m, n, kp, _sms(x.device))
     t, f = _sa_params(thr, flip, n)
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     _run(_lib().twm_matmul_mxu_launch, MXU_KERNEL, x.device, x.data_ptr(),
-         wt.data_ptr(), t, f, out.data_ptr(), m, kp, n)
+         wt.data_ptr(), t, f, out.data_ptr(), m, kp, n, tile.code,
+         tile.rows, tile.split, *tile.grid)
     return out
 
 

@@ -392,10 +392,15 @@ def test_cuda_bnn_conv1d_matches_plain(l, cin, cout, k, stride, pad, pool,
 
 
 # (M, K, N): kernel_bench's GEMMs, the utterance's fc1 bit planes and fc2,
-# test_kernels' unaligned shapes, and a contraction of several 32-word
-# chunks
+# test_kernels' unaligned shapes, a contraction of several 32-word
+# chunks, then shapes on both sides of the tile thresholds (M = 12 / 13
+# for B.8's GEMV / wgmma tiles, 16 / 17 for B.7's row blocks, 64 / 65 for
+# a second 64-row tile) with ragged N and K
 LIB_GEMM = [(1, 1024, 512), (256, 1024, 512), (8, 352, 512), (1, 512, 12),
-            (7, 100, 12), (33, 513, 65), (70, 2100, 130)]
+            (7, 100, 12), (33, 513, 65), (70, 2100, 130),
+            (2, 32, 65), (12, 1024, 512), (13, 100, 130), (16, 513, 130),
+            (17, 1024, 12), (64, 100, 4096), (65, 2100, 512),
+            (256, 32, 130), (8192, 513, 65)]
 
 
 @pytest.mark.parametrize("m,k,n", LIB_GEMM, ids=str)
@@ -419,3 +424,65 @@ def test_cuda_twm_linear_matches_plain(m, k, n):
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.equal(got.view(torch.int32).cpu(),
                            want.view(torch.int32)), name
+
+
+def _gemm_operands(m, k, n, dev):
+    """B.7's and B.8's prepared operands on the card, as ``ops`` makes
+    them, with +-inf thresholds and flips."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import twm_matmul as tm
+
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = torch.as_tensor(rng.integers(0, 2, (m, k), dtype=np.int32))
+    w = torch.as_tensor(rng.integers(-1, 2, (k, n), dtype=np.int32))
+    thr = torch.as_tensor(np.round(rng.normal(0, 3, n)).astype(np.float32))
+    thr[:2] = torch.tensor([np.inf, -np.inf])
+    flip = torch.as_tensor((rng.random(n) < 0.4).astype(np.int32))
+    xq = ops.pack_activations(x).contiguous()
+    wp, wn = (p.contiguous() for p in ops.pack_weight_planes(w))
+    x8 = quant.pad_to_multiple(x.to(torch.int8), tm.MXU_K, 1).contiguous()
+    wt8 = quant.pad_to_multiple(w.to(torch.int8).t(), tm.MXU_K,
+                                1).contiguous()
+    return [t.to(dev) for t in (xq, wp, wn, thr, flip, x8, wt8)]
+
+
+# (M, K, N) on each side of the thresholds, every tile forced on each
+FORCED = [(1, 1024, 512), (12, 1024, 512), (13, 100, 4096), (16, 513, 130),
+          (17, 100, 12), (65, 2100, 65), (256, 1024, 512)]
+
+
+@pytest.mark.parametrize("m,k,n", FORCED, ids=str)
+def test_cuda_every_gemm_tile_matches_plain(m, k, n):
+    """Each tile of B.7 (GEMV-shaped, 64 x 64) and B.8 (GEMV-shaped,
+    wgmma 128 x 256, 128 x 128, 64 x 64 K-split, each with one tile per
+    CTA and with 3 persistent CTAs walking the tiles) is bit-equal to the
+    plain version whichever side of its threshold the shape lies."""
+    from repro_torch.kernels import twm_matmul as tm
+
+    dev = _cuda()
+    xq, wp, wn, thr, flip, x8, wt8 = _gemm_operands(m, k, n, dev)
+    kw, kp = xq.shape[1], x8.shape[1]
+    gemv = tm._popcount_tile(1, kw, n)
+    rows = tm._rows_per_cta(m)
+    b7 = [gemv._replace(rows=rows, grid=(gemv.grid[0], -(-m // rows))),
+          tm.Tile("tile64", 1, 64, 64, 1, (-(-n // 64), -(-m // 64)))]
+    for tile in b7:
+        for mode in ("raw", "sa"):
+            args = (xq, wp, wn) + ((thr, flip) if mode == "sa" else ())
+            got = tm._twm_cuda(*args, *(None,) * (5 - len(args)), mode=mode,
+                               tile=tile)
+            want = tm.twm_matmul_plain(*args, mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (tile, mode)
+    g8 = tm._mxu_tile(1, n, kp)
+    b8 = [g8._replace(rows=rows, grid=(g8.grid[0], -(-m // rows)))]
+    for code, bm, bn, split in tm._WGMMA_TILES:
+        tiles = -(-m // bm) * -(-n // bn)
+        for ctas in {min(tiles, 132), min(tiles, 3)}:  # 3: CTAs walk tiles
+            b8.append(tm.Tile(f"wgmma{bm}x{bn}", code, bm, bn, split,
+                              (ctas, 1)))
+    want = tm.twm_matmul_mxu_plain(x8, wt8, thr, flip)
+    for tile in b8:
+        got = tm._mxu_cuda(x8, wt8, thr, flip, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), tile
