@@ -539,17 +539,28 @@ BENCH_GEMMS = GEMM_SHAPES[:2]
 UNALIGNED_GEMMS = ((7, 100, 12), (33, 513, 65))
 #: shapes on both sides of the GEMM kernels' tile thresholds (M = 12 / 13:
 #: B.8's GEMV / wgmma tiles; 16 / 17: B.7's one / several row blocks;
-#: 64 / 65: one / two 64-row tiles), with ragged N and K
+#: 64 / 65: one / two 64-row tiles; M = 384 / 385 at N = 4096: 48 / 64
+#: tiles of 128 x 256, B.8's 64 x 64 K-split / 128 x 256 tiles; M = 2048 /
+#: 2049 at N = 512: 256 / 264 tiles of 64 x 64, B.7's GEMV / 64 x 64
+#: tiles), with ragged N and K
 THRESHOLD_GEMMS = ((2, 32, 65), (8, 100, 130), (12, 1024, 512),
                    (13, 513, 4096), (16, 513, 512), (17, 1024, 12),
                    (64, 2100, 130), (65, 100, 4096), (256, 513, 65),
-                   (8192, 32, 512))
-#: (M, K, N) at which both tiles of each GEMM kernel are timed, to place
-#: the thresholds
+                   (384, 2100, 4096), (385, 100, 4096), (2048, 100, 512),
+                   (2049, 513, 512), (8192, 32, 512))
+#: (M, K, N) at which every tile of each GEMM kernel is timed, to place
+#: the thresholds: B.8's GEMV / wgmma crossover (M = 8-17), B.7's GEMV /
+#: 64 x 64 switch at 128 to 8,192 tiles of 64 x 64 (one and two waves on
+#: 132 SMs: 128 at (1024, *, 512), 136 at (1088, *, 512), 256 at (2048,
+#: *, 512)), and B.8's 64 x 64 K-split / 128 x 256 choice at 4 to 1,024
+#: tiles of 128 x 256 (and at K = 32, one ring slice)
 TILE_SWEEP = ((8, 1024, 512), (12, 1024, 512), (16, 1024, 512),
               (17, 1024, 512),
               (32, 1024, 512), (64, 1024, 512), (256, 1024, 512),
-              (1024, 1024, 512), (1024, 1024, 4096), (8192, 1024, 4096))
+              (1024, 1024, 512), (1088, 1024, 512), (2048, 1024, 512),
+              (8192, 1024, 512), (256, 1024, 4096), (512, 1024, 4096),
+              (1024, 1024, 4096), (2048, 1024, 4096), (8192, 1024, 4096),
+              (8192, 32, 512))
 
 
 def library_entries(spec, weights, thresholds, seed, device, torch):
@@ -788,10 +799,11 @@ def gemm_tile(e, tm) -> str | None:
 
 
 def tile_sweep(entries, torch, tm, seed, dev):
-    """Both tiles of B.7 (``sa``) and of B.8 timed at ``TILE_SWEEP``'s
-    shapes, each checked bit-equal to its plain version first: where the
-    GEMV-shaped tile stops winning places each kernel's threshold.  These
-    launches go straight to the tile and are not counted."""
+    """Both tiles of B.7 (``sa``) and the three of B.8 (GEMV-shaped and
+    both wgmma tiles) timed at ``TILE_SWEEP``'s shapes, each checked
+    bit-equal to its plain version first: where one tile stops winning
+    places each threshold.  These launches go straight to the tile and are
+    not counted."""
     from repro_torch.kernels import ops
     from repro_torch.core import quant
 
@@ -817,14 +829,17 @@ def tile_sweep(entries, torch, tm, seed, dev):
         r16 = tm._rows_per_cta(m)
         g7 = tm._popcount_tile(1, kw, n, sms)
         g8 = tm._mxu_tile(1, n, kp, sms)
-        wg = tm._mxu_tile(max(m, tm.MXU_GEMV_MAX_M + 1), n, kp, sms)
+        wgmma = [tm.Tile(f"wgmma{bm}x{bn}", code, bm, bn, split,
+                         (min(-(-m // bm) * -(-n // bn), sms), 1))
+                 for code, bm, bn, split in tm._WGMMA_TILES]
         cands = {
             tm.POPCOUNT_KERNEL: [
                 g7._replace(rows=r16, grid=(g7.grid[0], -(-m // r16))),
                 tm.Tile("tile64", 1, 64, 64, 1, (-(-n // 64),
                                                  -(-m // 64)))],
             tm.MXU_KERNEL: [
-                g8._replace(rows=r16, grid=(g8.grid[0], -(-m // r16))), wg]}
+                g8._replace(rows=r16, grid=(g8.grid[0], -(-m // r16))),
+                *wgmma]}
         picked = {tm.POPCOUNT_KERNEL: tm._popcount_tile(m, kw, n, sms).kind,
                   tm.MXU_KERNEL: tm._mxu_tile(m, n, kp, sms).kind}
         want = tm.twm_matmul_plain(xq, wp, wn, thr, flip, mode="sa")

@@ -18,9 +18,12 @@
 // negative weight planes: out = sum_k popc(x & wp) - popc(x & wn), raw
 // int32 or SA'd {0,1}.  Popcount has no tensor-core path; the SM issues
 // 16 popc a clock, two per word pair, and that bounds a large product.
-//  * twm_matmul_gemv_kernel, while 64 x 64 tiles would not fill the SMs
-//    (m <= 16 always): one thread per output column and k-slice, lanes
-//    on neighbouring columns so plane loads coalesce; cb columns per
+//  * twm_matmul_gemv_kernel, while 64 x 64 tiles would fill less than
+//    two waves of the SMs (m <= 16 always; POPCOUNT_TILE64_MIN_WAVES: at
+//    136 tiles, a second nearly empty wave, the 64 x 64 tile took 0.0228
+//    ms against this tile's 0.0144; at 256 they tie, 0.0230 / 0.0234):
+//    one thread per output column and k-slice, lanes on neighbouring
+//    columns so plane loads coalesce; cb columns per
 //    256-thread CTA (32, fewer when n is under a warp) and 256 / cb
 //    k-slices splitting each column's words; up to 16 rows per CTA, their
 //    words staged in shared memory and broadcast (a single row is read
@@ -31,7 +34,7 @@
 //    and many warps with short loops (a lone warp looping over its words
 //    measured slower).  Mid m (e.g. 256 rows: 32 tiles of 64 x 64 on 132
 //    SMs) takes 16-row blocks over many CTAs, up to the popcount bound.
-//  * twm_matmul_kernel, once 64 x 64 tiles fill the SMs: one CTA of 256
+//  * twm_matmul_kernel, once 64 x 64 tiles fill two waves: one CTA of 256
 //    threads per 64 x 64 output tile, K in chunks of 32 words (1,024
 //    wordlines, the macro's height) staged in shared memory; each thread
 //    owns a 4 x 4 register tile, 32 popcount pairs per word, at the
@@ -52,16 +55,18 @@
 //  * twm_matmul_mxu_wgmma_kernel (m > 12): wgmma.mma_async m64nNk32
 //    s32.s8.s8, both operands K-major in shared memory, fed by a TMA ring
 //    (cp.async.bulk.tensor, 128-byte swizzle matching the wgmma
-//    descriptors) of 3, 4 or 8 stages of 128-byte K slices under full /
-//    empty mbarriers: one producer thread issues the loads, two consumer
-//    warpgroups issue wgmma and release each stage once the next slice's
-//    products are in flight.  Tiles: 128 x 256 (two 64-row consumers,
-//    setmaxnreg for their 128 accumulators) or 128 x 128 while they give
-//    every SM a tile, else 64 x 64 with the K slices split between the
-//    consumers and summed in the epilogue (256 rows x 512 columns are 8
-//    tiles of 128 x 128 on 132 SMs, 32 of 64 x 64).  The grid is
-//    persistent, min(tiles, SMs) CTAs walking the tiles, so the producer
-//    loads a tile's slices during the previous tile's epilogue.
+//    descriptors) of 128-byte K slices under full / empty mbarriers: one
+//    producer thread issues the loads, two consumer warpgroups issue
+//    wgmma and release each stage once the next slice's products are in
+//    flight.  Two tiles: 128 x 256 (two 64-row consumers,
+//    setmaxnreg for their 128 accumulators, 3 stages) once there are 64
+//    of them (MXU_WIDE_MIN_TILES: 64 x 64 won at 32 tiles of 128 x 256,
+//    0.0070 against 0.0101 ms, 128 x 256 at 64, 0.0101 against 0.0116),
+//    else 64 x 64 with the K slices split between the consumers and
+//    summed in the epilogue (8 stages; 256 rows x 512 columns are 4 tiles
+//    of 128 x 256 on 132 SMs, 32 of 64 x 64).  The grid is persistent,
+//    min(tiles, SMs) CTAs walking the tiles, so the producer loads a
+//    tile's slices during the previous tile's epilogue.
 //    Epilogue: the SA parameters go to shared memory during the K loop;
 //    where n % 4 == 0 (16-byte output rows), each consumer writes its
 //    SA'd 64-column round into one of two 128-byte-swizzled buffers and
@@ -73,6 +78,7 @@
 //    TMA on load and clipped or masked on store.  At large m the output
 //    stores and the operand traffic from L2 are what remain.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
@@ -252,6 +258,7 @@ __global__ void __launch_bounds__(PG_THREADS) twm_matmul_gemv_kernel(
 #define MX_THREADS 384     // producer warpgroup + two consumer warpgroups
 #define MX_OUT_BOX 32      // int32 columns of one output TMA box (128 bytes)
 #define MX_OUT_BUF (64 * MX_EC * 4)  // one consumer's 64 x 64 output round
+#define MX_MAX_DEVICES 64  // cards a process may launch the wgmma tiles on
 
 template <int BN, bool KSPLIT>
 struct MxuCfg {
@@ -259,7 +266,7 @@ struct MxuCfg {
   static constexpr int A_BYTES = BM * MX_BK;
   static constexpr int B_BYTES = BN * MX_BK;
   static constexpr int STAGE = A_BYTES + B_BYTES;  // a multiple of 1,024
-  static constexpr int STAGES = BN == 256 ? 3 : KSPLIT ? 8 : 4;
+  static constexpr int STAGES = KSPLIT ? 8 : 3;
   static constexpr int RING = STAGES * STAGE;
   // epilogue staging: raw sums with a padded pitch (K-split, or n % 4 !=
   // 0), or per consumer two buffers of 64 rows x 64 SA'd columns in the
@@ -271,6 +278,7 @@ struct MxuCfg {
   static constexpr int SA_PARAMS = 2 * BN * 8;  // per consumer thr, flip
   static constexpr int SMEM =
       1024 + RING + STAGING + SA_PARAMS + 2 * STAGES * 8;
+  static_assert(KSPLIT ? BN == 64 : BN == 256, "the two wgmma tiles");
   static_assert(!KSPLIT || STAGES % 2 == 0, "K-split needs even stages");
 };
 
@@ -741,21 +749,26 @@ extern "C" int twm_matmul_launch(const void* x, const void* wp,
 
 // cuTensorMapEncodeTiled is a driver-API call; it is taken through the
 // runtime's entry-point query, so the library links nothing beyond cudart
-static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
+// (once per process: a function-local static is initialised under the
+// compiler's guard, so concurrent first calls are safe)
+static PFN_cuTensorMapEncodeTiled_v12000 lookup_tensor_map_encoder() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+  const cudaError_t e = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
 #else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+  const cudaError_t e = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
 #endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = (PFN_cuTensorMapEncodeTiled_v12000)p;
-  }
+  return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+             ? (PFN_cuTensorMapEncodeTiled_v12000)p
+             : nullptr;
+}
+
+static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn =
+      lookup_tensor_map_encoder();
   return fn;
 }
 
@@ -799,13 +812,20 @@ static int launch_mxu_wgmma(int grid, cudaStream_t st, const void* x,
                             const void* flip, void* out, int m, int kp,
                             int n) {
   using C = MxuCfg<BN, KSPLIT>;
-  static bool ready = false;  // the shared-memory opt-in, once
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        twm_matmul_mxu_wgmma_kernel<BN, KSPLIT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  // the shared-memory opt-in, once per device (the caller has made the
+  // tensors' device current); a repeated opt-in is harmless, so a race
+  // between two host threads costs nothing
+  static std::atomic<bool> ready[MX_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MX_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev].load()) {
+    e = cudaFuncSetAttribute(twm_matmul_mxu_wgmma_kernel<BN, KSPLIT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
     if (e != cudaSuccess) return (int)e;
-    ready = true;
+    ready[dev].store(true);
   }
   // maps are built per call and passed by value (__grid_constant__), so a
   // captured CUDA graph holds its own copy
@@ -834,8 +854,8 @@ static void launch_mxu_gemv(dim3 grid, cudaStream_t st, const void* x,
 }
 
 // tile 0: twm_matmul_mxu_gemv_kernel<mb>, wpc warps per column, grid
-// (gx, gy); tiles 1-3: the wgmma kernel at 128 x 256, 128 x 128 and
-// 64 x 64 K-split, gx persistent CTAs
+// (gx, gy); tiles 1 and 2: the wgmma kernel at 128 x 256 and 64 x 64
+// K-split, gx persistent CTAs
 extern "C" int twm_matmul_mxu_launch(const void* x, const void* wt,
                                      const void* thr, const void* flip,
                                      void* out, int m, int kp, int n,
@@ -846,8 +866,7 @@ extern "C" int twm_matmul_mxu_launch(const void* x, const void* wt,
   const cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
     case 1: return launch_mxu_wgmma<256, false>(gx, st, x, wt, thr, flip, out, m, kp, n);
-    case 2: return launch_mxu_wgmma<128, false>(gx, st, x, wt, thr, flip, out, m, kp, n);
-    case 3: return launch_mxu_wgmma<64, true>(gx, st, x, wt, thr, flip, out, m, kp, n);
+    case 2: return launch_mxu_wgmma<64, true>(gx, st, x, wt, thr, flip, out, m, kp, n);
     case 0: break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -63,6 +63,14 @@ GEMV_WARPS = GEMV_THREADS // 32
 MXU_GEMV_MAX_M = 12
 #: B.7's large-m tile is POPCOUNT_TILE x POPCOUNT_TILE outputs
 POPCOUNT_TILE = 64
+#: B.7 takes the 64 x 64 tile once its tiles fill this many waves of the
+#: SMs, the GEMV-shaped one below.  ``chip_smoke.py``'s tile sweep on an
+#: NVIDIA H100 80GB HBM3 at 700 W (132 SMs), ``sa``, GEMV / 64 x 64 ms at
+#: 128 tiles (1024, 1024, 512): 0.0133 / 0.0147; 136 (1088, 1024, 512):
+#: 0.0144 / 0.0228 (a second, nearly empty wave); 256 (2048, 1024, 512):
+#: 0.0234 / 0.0230; 512 (512, 1024, 4096): 0.0436 / 0.0404; 1,024
+#: (1024, 1024, 4096): 0.0835 / 0.0746
+POPCOUNT_TILE64_MIN_WAVES = 2
 _MAX_GRID_Y = 65535
 
 
@@ -136,14 +144,15 @@ def _check_grid_y(grid_y: int, rows: int) -> None:
 def _popcount_tile(m: int, kw: int, n: int, sms: int = H100_SMS) -> Tile:
     """B.7's tile for an (m, kw) x (kw, n) launch on ``sms`` SMs.
 
-    The 64 x 64 tile keeps every SM at its popcount rate once there are
-    at least as many tiles as SMs; below that (and at m <= 16 always) the
-    GEMV-shaped tile spreads the columns, 32 per CTA (fewer when n is
-    under a warp), and up to 16 rows over more CTAs; the CTA's other
-    256 / cols threads split each column's words (``split``): at these
-    sizes more warps beat longer loops per thread."""
+    The 64 x 64 tile keeps every SM at its popcount rate once its tiles
+    fill ``POPCOUNT_TILE64_MIN_WAVES`` waves of the SMs; below that (and
+    at m <= 16 always) the GEMV-shaped tile spreads the columns, 32 per
+    CTA (fewer when n is under a warp), and up to 16 rows over more CTAs;
+    the CTA's other 256 / cols threads split each column's words
+    (``split``): at these sizes more warps beat longer loops per
+    thread."""
     if m > GEMV_ROWS and _cdiv(m, POPCOUNT_TILE) * _cdiv(n, POPCOUNT_TILE) \
-            >= sms:
+            >= POPCOUNT_TILE64_MIN_WAVES * sms:
         grid = (_cdiv(n, POPCOUNT_TILE), _cdiv(m, POPCOUNT_TILE))
         _check_grid_y(grid[1], POPCOUNT_TILE)
         return Tile("tile64", 1, POPCOUNT_TILE, POPCOUNT_TILE, 1, grid)
@@ -154,9 +163,18 @@ def _popcount_tile(m: int, kw: int, n: int, sms: int = H100_SMS) -> Tile:
     return Tile("gemv", 0, rows, cb, GEMV_THREADS // cb, grid)
 
 
-#: (code, rows, cols, consumers splitting K) of the wgmma tiles, widest
-#: first
-_WGMMA_TILES = ((1, 128, 256, 1), (2, 128, 128, 1), (3, 64, 64, 2))
+#: (code, rows, cols, consumers splitting K) of the two wgmma tiles:
+#: 128 x 256, and 64 x 64 with the K split between the consumers
+_WGMMA_TILES = ((1, 128, 256, 1), (2, 64, 64, 2))
+#: B.8 takes the 128 x 256 wgmma tile once there are at least this many
+#: of them, else the 64 x 64 K-split one.  ``chip_smoke.py``'s tile sweep
+#: on an NVIDIA H100 80GB HBM3 at 700 W, 128 x 256 / 64 x 64 ms at 4
+#: tiles of 128 x 256 (256, 1024, 512): 0.0096 / 0.0041; 16 (1024, 1024,
+#: 512): 0.0097 / 0.0042; 32 (256, 1024, 4096): 0.0101 / 0.0070 and
+#: (2048, 1024, 512): 0.0100 / 0.0068; 64 (512, 1024, 4096): 0.0101 /
+#: 0.0116; 128 (1024, 1024, 4096): 0.0122 / 0.0210; 1,024 (8192, 1024,
+#: 4096): 0.0795 / 0.1489
+MXU_WIDE_MIN_TILES = 64
 
 
 def _mxu_tile(m: int, n: int, kp: int, sms: int = H100_SMS) -> Tile:
@@ -165,9 +183,9 @@ def _mxu_tile(m: int, n: int, kp: int, sms: int = H100_SMS) -> Tile:
     m <= ``MXU_GEMV_MAX_M``: the GEMV-shaped tile, one warp per column's
     weight row and ``split`` warps splitting its K, doubled while the K
     has work for them and the grid stays within one wave of CTAs.
-    Larger m: the persistent ``wgmma`` kernel with the widest tile that
-    still gives every SM a tile, else the narrowest (64 x 64, K split
-    between the two consumer warpgroups)."""
+    Larger m: the persistent ``wgmma`` kernel, on 128 x 256 tiles once
+    there are ``MXU_WIDE_MIN_TILES`` of them, else on 64 x 64 tiles with
+    the K split between the two consumer warpgroups."""
     if m <= MXU_GEMV_MAX_M:
         rows, chunks, wpc = _rows_per_cta(m), kp // 16, 1
         while wpc < GEMV_WARPS and chunks >= 2 * wpc and (
@@ -178,10 +196,11 @@ def _mxu_tile(m: int, n: int, kp: int, sms: int = H100_SMS) -> Tile:
         grid = (_cdiv(n, cpc), _cdiv(m, rows))
         _check_grid_y(grid[1], rows)
         return Tile("gemv", 0, rows, cpc, wpc, grid)
-    for code, bm, bn, split in _WGMMA_TILES:
-        tiles = _cdiv(m, bm) * _cdiv(n, bn)
-        if tiles >= sms:
-            break
+    wide, narrow = _WGMMA_TILES
+    code, bm, bn, split = (
+        wide if _cdiv(m, wide[1]) * _cdiv(n, wide[2]) >= MXU_WIDE_MIN_TILES
+        else narrow)
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
     return Tile(f"wgmma{bm}x{bn}", code, bm, bn, split, (min(tiles, sms), 1))
 
 

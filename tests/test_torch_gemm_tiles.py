@@ -42,7 +42,9 @@ POPCOUNT = [((1, 1024, 512), "gemv", 1), ((8, 352, 512), "gemv", 8),
             ((1, 512, 12), "gemv", 1), ((2, 32, 65), "gemv", 2),
             ((16, 513, 512), "gemv", 16), ((17, 1024, 12), "gemv", 16),
             ((64, 2100, 130), "gemv", 16), ((65, 100, 4096), "gemv", 16),
-            ((256, 1024, 512), "gemv", 16), ((1024, 1024, 4096), "tile64", 64),
+            ((256, 1024, 512), "gemv", 16), ((1088, 1024, 512), "gemv", 16),
+            ((2048, 100, 512), "gemv", 16), ((2049, 513, 512), "tile64", 64),
+            ((1024, 1024, 4096), "tile64", 64),
             ((8192, 1024, 4096), "tile64", 64), ((8192, 32, 512), "tile64",
                                                   64)]
 
@@ -69,7 +71,11 @@ MXU = [((1, 1024, 512), "gemv", 128), ((7, 100, 12), "gemv", 12),
        ((64, 2100, 130), "wgmma64x64", 3), ((65, 100, 4096), "wgmma64x64",
                                             128),
        ((256, 1024, 512), "wgmma64x64", 32),
-       ((1024, 1024, 4096), "wgmma128x128", 132),
+       ((2048, 1024, 512), "wgmma64x64", 132),
+       ((384, 2100, 4096), "wgmma64x64", 132),
+       ((385, 100, 4096), "wgmma128x256", 64),
+       ((1024, 1024, 4096), "wgmma128x256", 128),
+       ((8192, 32, 512), "wgmma128x256", 128),
        ((8192, 1024, 4096), "wgmma128x256", 132),
        ((65536, 1024, 4096), "wgmma128x256", 132)]
 
@@ -91,20 +97,26 @@ def test_mxu_tile_choice(shape, kind, ctas):
 
 def test_tile_thresholds():
     """M = 12 is the last GEMV row count of B.8 (the card's crossover),
-    13 its first wgmma one; 16 is B.7's last single row block, 17 takes
-    two; B.7 keeps the GEMV tile until its 64 x 64 tiles fill the SMs."""
+    13 its first wgmma one; B.8 takes 128 x 256 tiles from 64 of them on;
+    16 is B.7's last single row block, 17 takes two; B.7 keeps the GEMV
+    tile until its 64 x 64 tiles fill two waves of the SMs."""
     assert tm._mxu_tile(12, 512, 1024).kind == "gemv"
     assert tm._mxu_tile(13, 512, 1024).kind.startswith("wgmma")
+    # 3 x 16 = 48 tiles of 128 x 256 take the K-split tile, 4 x 16 the wide
+    assert tm.MXU_WIDE_MIN_TILES == 64
+    assert tm._mxu_tile(384, 4096, 1024).kind == "wgmma64x64"
+    assert tm._mxu_tile(385, 4096, 1024).kind == "wgmma128x256"
     assert tm._popcount_tile(16, 32, 512).grid == (16, 1)
     # fc2: one CTA of 16 columns x 16 k-slices, one word per thread
     assert tm._popcount_tile(1, 16, 12)[2:] == (1, 16, 16, (1, 1))
     assert tm._popcount_tile(17, 32, 512).grid == (16, 2)
-    # 132 SMs: 16 x 8 = 128 tiles of 64 x 64 do not fill them, 17 x 8 do
-    assert tm._popcount_tile(1024, 32, 512).kind == "gemv"
-    assert tm._popcount_tile(1025, 32, 512).kind == "tile64"
+    # 132 SMs: 32 x 8 = 256 tiles of 64 x 64 fill less than two waves,
+    # 33 x 8 = 264 fill two
+    assert tm._popcount_tile(2048, 32, 512).kind == "gemv"
+    assert tm._popcount_tile(2049, 32, 512).kind == "tile64"
     # a card with fewer SMs fills sooner, and a persistent grid never
     # launches more CTAs than it has SMs
-    assert tm._popcount_tile(1024, 32, 512, sms=114).kind == "tile64"
+    assert tm._popcount_tile(2048, 32, 512, sms=114).kind == "tile64"
     assert tm._mxu_tile(8192, 4096, 1024, sms=114).grid == (114, 1)
 
 

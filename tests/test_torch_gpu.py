@@ -395,12 +395,15 @@ def test_cuda_bnn_conv1d_matches_plain(l, cin, cout, k, stride, pad, pool,
 # test_kernels' unaligned shapes, a contraction of several 32-word
 # chunks, then shapes on both sides of the tile thresholds (M = 12 / 13
 # for B.8's GEMV / wgmma tiles, 16 / 17 for B.7's row blocks, 64 / 65 for
-# a second 64-row tile) with ragged N and K
+# a second 64-row tile, 384 / 385 at N = 4096 for B.8's K-split / 128 x 256
+# wgmma tiles, 2048 / 2049 at N = 512 for B.7's GEMV / 64 x 64 tiles) with
+# ragged N and K
 LIB_GEMM = [(1, 1024, 512), (256, 1024, 512), (8, 352, 512), (1, 512, 12),
             (7, 100, 12), (33, 513, 65), (70, 2100, 130),
             (2, 32, 65), (12, 1024, 512), (13, 100, 130), (16, 513, 130),
             (17, 1024, 12), (64, 100, 4096), (65, 2100, 512),
-            (256, 32, 130), (8192, 513, 65)]
+            (256, 32, 130), (384, 100, 4096), (385, 513, 4096),
+            (2048, 100, 512), (2049, 32, 512), (8192, 513, 65)]
 
 
 @pytest.mark.parametrize("m,k,n", LIB_GEMM, ids=str)
@@ -454,9 +457,9 @@ FORCED = [(1, 1024, 512), (12, 1024, 512), (13, 100, 4096), (16, 513, 130),
 @pytest.mark.parametrize("m,k,n", FORCED, ids=str)
 def test_cuda_every_gemm_tile_matches_plain(m, k, n):
     """Each tile of B.7 (GEMV-shaped, 64 x 64) and B.8 (GEMV-shaped,
-    wgmma 128 x 256, 128 x 128, 64 x 64 K-split, each with one tile per
-    CTA and with 3 persistent CTAs walking the tiles) is bit-equal to the
-    plain version whichever side of its threshold the shape lies."""
+    wgmma 128 x 256 and 64 x 64 K-split, each with one tile per CTA and
+    with 3 persistent CTAs walking the tiles) is bit-equal to the plain
+    version whichever side of its threshold the shape lies."""
     from repro_torch.kernels import twm_matmul as tm
 
     dev = _cuda()
