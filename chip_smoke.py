@@ -13,21 +13,30 @@ Phases (each prints one line, any failure exits non-zero):
 3. kernels  — the CUDA hop kernel (B.1, emit and steady) and its finalize
               mode (B.2) are bit-equal to their plain PyTorch versions on
               the card: the full-width KWS plan (``build_kws_spec()``,
-              hop_frames=8) at B=256 with masked slots, at B=200, with a
-              K=2 tenant pool, on the smoke spec, on the smoke spec with an
-              8-bit input to conv stage 1, and on three random streamable
-              geometries.  The per-stage kernels — B.3 bit-serial step,
-              B.4 conv step (raw, and ``sa`` with pool 1 and 2) and B.5
-              classifier tail — are bit-equal to theirs at every launch
-              shape of a KWS emit hop at B=256 and B=200, with a K=2 pool
-              (B.3, B.4 raw, B.5), and on a random geometry.  Then each
-              kernel and its plain version are timed at the main path's
-              shapes (device time: CUDA events around replays of a CUDA
-              graph of 20 calls; the time per call issued from Python is
-              recorded beside it), and B.3 and B.4 raw beside the one
-              PyTorch call that computes the same raw conv
+              hop_frames=8) at B=256 with masked slots, at B=1, 200 and
+              257 (ragged slot blocks), with every slot masked, with a
+              K=2 tenant pool by blocks of 8 and by slot (random per
+              slot, so slot blocks mix models), with every slot block of
+              ``SLOT_SWEEP`` forced once (and, on the smoke spec, the ones
+              that do not fit at full width), on the smoke spec, on the
+              smoke spec with an 8-bit input to conv stage 1, and on three
+              random streamable geometries.  The per-stage kernels — B.3
+              bit-serial step, B.4 conv step (raw, and ``sa`` with pool 1
+              and 2) and B.5 classifier tail — are bit-equal to theirs at
+              every launch shape of a KWS emit hop at B=256 and B=200,
+              with a K=2 pool (B.3, B.4 raw, B.5), and on a random
+              geometry; B.3 also at ``BITSERIAL_CASES`` (ragged position
+              blocks, ``cin > 1``, 4-bit codes, a K=2 pool by slot).
+              Then each kernel and its plain version are timed at the
+              main path's shapes (device time: CUDA events around replays
+              of a CUDA graph of 20 calls; the time per call issued from
+              Python is recorded beside it), B.3 and B.4 raw beside the
+              one PyTorch call that computes the same raw conv
               (``torch.nn.functional.conv1d``, float32, TF32 off: exact,
-              every partial sum is below 2^24).
+              every partial sum is below 2^24), and the hop kernel at
+              every slot block of ``SLOT_SWEEP`` that fits (emit, steady,
+              finalize), each beside the earlier design's time
+              (``EARLIER_MS``).
 4. launches — megakernel: one counted launch per hop (emit included) and
               per peek; per-stage on the KWS plan: 4 per steady hop, 9
               per emit hop, 5 per hop-boundary peek.
@@ -102,6 +111,21 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 B_MAIN = 256
 HOP_FRAMES = 8
+#: slot blocks the hop kernel is timed at, against each other (the host
+#: picks one by ``hop_megakernel.slot_block``)
+SLOT_SWEEP = (1, 2, 4, 8)
+#: B.3 shapes beyond the paths': (B, l_out, cin, k, stride, cout, bits,
+#: K) -- l_out off the position block, cin > 1, 4-bit codes, a K=2 pool
+BITSERIAL_CASES = ((5, 83, 1, 19, 8, 64, 8, 1), (7, 37, 4, 5, 2, 48, 8, 1),
+                   (9, 30, 1, 7, 8, 8, 4, 1), (37, 64, 1, 19, 8, 64, 8, 2),
+                   (3, 45, 16, 3, 1, 32, 4, 2))
+#: the earlier designs' device times at the main path's shapes, ms (this
+#: script on an NVIDIA H100 80GB HBM3 at 700.00 W, when the hop kernel ran
+#: one CTA per slot on scalar MACs and B.3 one thread per output): the hop
+#: kernel at B=256 emit / steady / finalize, B.3 at the hop's and the
+#: utterance's l0 (by this script's launch labels)
+EARLIER_MS = {"emit": 0.9997, "steady": 0.6934, "finalize": 0.3198,
+              "hop l0": 0.0142, "l0 bit-serial": 0.0033}
 
 
 def phase(name: str, msg: str) -> None:
@@ -232,9 +256,12 @@ def hop_inputs(plan, b, seed, device, torch, mask_zeros=True):
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_case(label, plan, params, inp, model_idx, torch, mk, dispatch):
+def check_case(label, plan, params, inp, model_idx, torch, mk, dispatch,
+               slots=None):
     """Kernel vs plain on one case: B.1 emit, B.1 steady, B.2.  Returns
-    the max |kernel - plain| per kernel (int32, so 0 when bit-equal)."""
+    the max |kernel - plain| per kernel (int32, so 0 when bit-equal).
+    ``slots`` forces the slot block (uncounted launches); by default the
+    counted entry points pick it."""
     geoms = tuple(mk.stage_geom(s) for s in plan.convs)
     fc_raw = tuple(f.out_raw for f in plan.fcs)
     p = (params["ws"], params["thrs"], params["flips"], params["fc_ws"],
@@ -244,9 +271,14 @@ def check_case(label, plan, params, inp, model_idx, torch, mk, dispatch):
         args = (inp["audio"], inp["mask"], inp["tails"], inp["pendings"],
                 inp["gap"], *p, model_idx)
         with dispatch.counting() as launched:
-            got = mk.hop_megakernel_packed(*args, geoms=geoms, emit=emit,
-                                           fc_raw=fc_raw)
-        if launched() != {mk.HOP_KERNEL: 1}:
+            if slots is None:
+                got = mk.hop_megakernel_packed(*args, geoms=geoms, emit=emit,
+                                               fc_raw=fc_raw)
+            else:
+                got = mk._launch(*args, geoms=geoms, emit=emit,
+                                 fc_raw=fc_raw, finalize_only=False,
+                                 slots=slots)
+        if launched() != ({} if slots else {mk.HOP_KERNEL: 1}):
             raise RuntimeError(f"{label}: hop wrapper launched {launched()}")
         want = mk.hop_megakernel_plain(*args, geoms=geoms, emit=emit,
                                        fc_raw=fc_raw)
@@ -261,7 +293,12 @@ def check_case(label, plan, params, inp, model_idx, torch, mk, dispatch):
             e = int((g.long() - w.long()).abs().max()) if g.numel() else 0
             err[mk.HOP_KERNEL] = max(err[mk.HOP_KERNEL], e)
     fargs = (inp["tails"], inp["pendings"], inp["gap"], *p, model_idx)
-    got = mk.finalize_megakernel_packed(*fargs, geoms=geoms, fc_raw=fc_raw)
+    if slots is None:
+        got = mk.finalize_megakernel_packed(*fargs, geoms=geoms,
+                                            fc_raw=fc_raw)
+    else:
+        got = mk._launch(None, None, *fargs, geoms=geoms, emit=True,
+                         fc_raw=fc_raw, finalize_only=True, slots=slots)
     want = mk.finalize_megakernel_plain(*fargs, geoms=geoms, fc_raw=fc_raw)
     torch.cuda.synchronize()
     err[mk.FINALIZE_KERNEL] = int((got.long() - want.long()).abs().max())
@@ -269,7 +306,8 @@ def check_case(label, plan, params, inp, model_idx, torch, mk, dispatch):
     if bad:
         raise RuntimeError(f"{label}: kernel disagrees with plain: {bad}")
     phase("kernels", f"{label}: B={inp['gap'].shape[0]} bit-equal "
-          f"(hop emit+steady, finalize)")
+          f"(hop emit+steady, finalize"
+          f"{'' if slots is None else f'; slot block forced to {slots}'})")
     return err
 
 
@@ -430,6 +468,74 @@ def per_stage_launches(plan, models, b, seed, device, torch,
                     macs=b * sum(f.cin * f.cout for f in plan.fcs),
                     main=True))
     return out
+
+
+def bitserial_cases(seed, device, torch):
+    """``BITSERIAL_CASES`` as per-stage launch entries (see
+    :func:`per_stage_launches`): seeded codes wider than the mask, ternary
+    weights, and with K=2 a per-slot random pool row."""
+    from repro_torch.kernels import conv_kernels as bk
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for b, l_out, cin, k, stride, cout, bits, km in BITSERIAL_CASES:
+        l_in = (l_out - 1) * stride + k + int(rng.integers(0, stride))
+        x = torch.as_tensor(rng.integers(0, 1 << 12, (b, l_in, cin),
+                                         dtype=np.int32), device=device)
+        lead = (km,) if km > 1 else ()
+        w = torch.as_tensor(rng.integers(-1, 2, lead + (k, cin, cout),
+                                         dtype=np.int8), device=device)
+        mi = (torch.as_tensor(rng.integers(0, km, b, dtype=np.int32),
+                              device=device) if km > 1 else None)
+        tile = bk.bitserial_tiles(b, l_out, cin, k, stride, cout)
+        out.append(dict(
+            label=f"B={b} l_out={l_out} cin={cin} k={k} stride={stride} "
+                  f"cout={cout} bits={bits} K={km} (block {tile.pb})",
+            name=bk.BITSERIAL_KERNEL, args=(x, w, mi),
+            kw=dict(bits=bits, stride=stride, l_out=l_out),
+            macs=b * l_out * cout * k * cin, cin=cin, main=False))
+    return out
+
+
+def slot_sweep(plan, params, inp, torch, mk):
+    """The hop kernel at every slot block of ``SLOT_SWEEP`` that fits the
+    plan, at B=256: emit hop, steady hop and finalize, device ms (weights
+    laid out once, as the scheduler holds them).  Uncounted launches; a
+    block that does not fit is recorded with the reason."""
+    geoms = tuple(mk.stage_geom(s) for s in plan.convs)
+    fc_raw = tuple(f.out_raw for f in plan.fcs)
+    fc_dims = [(f.cin, f.cout) for f in plan.fcs]
+    hw = mk.prepare_hop_weights(params["ws"], params["fc_ws"])
+    rest = (params["thrs"], params["flips"], params["fc_ws"],
+            params["fc_thrs"], params["fc_flips"], None)
+    state = (inp["tails"], inp["pendings"], inp["gap"], hw)
+    picked = mk.slot_block(inp["gap"].shape[0], geoms, fc_dims,
+                           plan.gap_channels, mk._sms(inp["gap"].device))
+    rows = []
+    for slots in SLOT_SWEEP:
+        try:
+            lay = mk.cta_layout(geoms, fc_dims, plan.gap_channels, slots)
+        except ValueError as e:
+            rows.append(dict(slots=slots, fits=False, reason=str(e)))
+            phase("kernels", f"slot sweep S={slots}: does not fit ({e})")
+            continue
+        ms = {}
+        for key, emit, fin in (("emit", True, False), ("steady", False,
+                                                       False),
+                               ("finalize", True, True)):
+            a, m = (None, None) if fin else (inp["audio"], inp["mask"])
+            ms[key] = time_ms(lambda: mk._launch(  # noqa: B023
+                a, m, *state, *rest, geoms=geoms, emit=emit, fc_raw=fc_raw,
+                finalize_only=fin, slots=slots), torch)
+        rows.append(dict(slots=slots, fits=True, chunk_tiles=lay.chunk_tiles,
+                         smem=lay.smem, picked=slots == picked.slots, **ms))
+        phase("kernels", f"slot sweep S={slots} (chunks of "
+              f"{lay.chunk_tiles} n-tiles, {lay.smem} B): emit "
+              f"{ms['emit']:.4f} ms, steady {ms['steady']:.4f} ms, finalize "
+              f"{ms['finalize']:.4f} ms{' [picked]' if slots == picked.slots else ''}"
+              f"; earlier design (one CTA per slot): {EARLIER_MS['emit']} / "
+              f"{EARLIER_MS['steady']} / {EARLIER_MS['finalize']} ms")
+    return rows
 
 
 def per_stage_fns(bk):
@@ -1002,6 +1108,31 @@ def main() -> int:
                                 device=dev)
     merge(check_case("kws hf8 pooled K=2", plan, pooled, main_inp,
                      model_idx, torch, mk, dispatch))
+    # the slot blocks' edges: tenants mixed inside a block, ragged last
+    # blocks, a batch with no live slot, and every slot block forced
+    per_slot = torch.as_tensor(np.random.default_rng(args.seed + 20).integers(
+        0, 2, B_MAIN, dtype=np.int32), device=dev)
+    merge(check_case("kws hf8 pooled K=2 by slot", plan, pooled, main_inp,
+                     per_slot, torch, mk, dispatch))
+    for b in (1, 257):
+        merge(check_case(f"kws hf8 B={b}", plan, params,
+                         hop_inputs(plan, b, args.seed + 21 + b, dev, torch),
+                         None, torch, mk, dispatch))
+    masked = hop_inputs(plan, 64, args.seed + 22, dev, torch)
+    masked["mask"] = torch.zeros_like(masked["mask"])
+    merge(check_case("kws hf8 all masked", plan, params, masked, None, torch,
+                     mk, dispatch))
+    kws_geoms = tuple(mk.stage_geom(s) for s in plan.convs)
+    kws_fc = [(f.cin, f.cout) for f in plan.fcs]
+    for slots in SLOT_SWEEP:
+        try:
+            mk.cta_layout(kws_geoms, kws_fc, plan.gap_channels, slots)
+        except ValueError:
+            continue   # the smoke spec below takes it
+        merge(check_case(f"kws hf8 S={slots}", plan, params, main_inp, None,
+                         torch, mk, dispatch, slots=slots))
+    merge(check_case("kws hf8 pooled K=2 by slot, S=4", plan, pooled,
+                     main_inp, per_slot, torch, mk, dispatch, slots=4))
     smoke = kws.build_kws_smoke_spec()
     splan = plan_stream(smoke, hop_frames=1)
     for label, sp in (("smoke hf1", smoke),
@@ -1012,6 +1143,10 @@ def main() -> int:
             pl, *random_model(sp, args.seed), dev, torch),
             hop_inputs(pl, 64, args.seed + 3, dev, torch), None, torch, mk,
             dispatch))
+    merge(check_case("smoke hf1 B=61 S=8", splan, model_tensors(
+        splan, *random_model(smoke, args.seed), dev, torch),
+        hop_inputs(splan, 61, args.seed + 23, dev, torch), None, torch, mk,
+        dispatch, slots=8))
     rgeoms = []
     for j in range(3):
         rspec, hf = random_spec(args.seed * 10 + j)
@@ -1036,38 +1171,47 @@ def main() -> int:
     merge(check_per_stage("per-stage random geometry 0", per_stage_launches(
         rplan, [rparams], 48, args.seed + 9, dev, torch), torch, bk,
         dispatch))
+    merge(check_per_stage("B.3 edge cases", bitserial_cases(
+        args.seed + 24, dev, torch), torch, bk, dispatch))
 
     geoms = tuple(mk.stage_geom(s) for s in plan.convs)
     fc_raw = tuple(f.out_raw for f in plan.fcs)
-    p = (params["ws"], params["thrs"], params["flips"], params["fc_ws"],
+    # the weights laid out once, as the scheduler holds them
+    p = (mk.prepare_hop_weights(params["ws"], params["fc_ws"]),
+         params["thrs"], params["flips"], params["fc_ws"],
          params["fc_thrs"], params["fc_flips"])
     full = hop_inputs(plan, B_MAIN, args.seed + 4, dev, torch,
                       mask_zeros=False)  # every slot advances, as on a hop
-    hop_args = (full["audio"], full["mask"], full["tails"], full["pendings"],
-                full["gap"], *p)
-    fin_args = (full["tails"], full["pendings"], full["gap"], *p)
+    state = (full["tails"], full["pendings"], full["gap"])
+    hop_args = (full["audio"], full["mask"], *state, *p)
+    fin_args = (*state, *p)
+    raw_p = (params["ws"], *p[1:])   # the plain versions' operands
     timing = {}
     for emit in (True, False):
         timing[("hop", emit)] = (
             time_ms(lambda: mk.hop_megakernel_packed(
                 *hop_args, geoms=geoms, emit=emit, fc_raw=fc_raw), torch),
             time_ms(lambda: mk.hop_megakernel_plain(
-                *hop_args, geoms=geoms, emit=emit, fc_raw=fc_raw), torch,
-                iters=5),
+                full["audio"], full["mask"], *state, *raw_p, geoms=geoms,
+                emit=emit, fc_raw=fc_raw), torch, iters=5),
             *bound_ms(plan, params, full, B_MAIN, finalize=False, emit=emit))
     timing["fin"] = (
         time_ms(lambda: mk.finalize_megakernel_packed(
             *fin_args, geoms=geoms, fc_raw=fc_raw), torch),
         time_ms(lambda: mk.finalize_megakernel_plain(
-            *fin_args, geoms=geoms, fc_raw=fc_raw), torch, iters=5),
+            *state, *raw_p, geoms=geoms, fc_raw=fc_raw), torch, iters=5),
         *bound_ms(plan, params, full, B_MAIN, finalize=True, emit=True))
     hop_call_ms = call_ms(lambda: mk.hop_megakernel_packed(
         *hop_args, geoms=geoms, emit=True, fc_raw=fc_raw), torch)
+    earlier = {("hop", True): "emit", ("hop", False): "steady",
+               "fin": "finalize"}
     for key, (ms, pms, bms, by) in timing.items():
-        phase("kernels", f"time {key}: kernel {ms:.4f} ms, plain {pms:.4f} "
-              f"ms, bound {bms:.6f} ms ({by}) at B={B_MAIN} hf={HOP_FRAMES}")
+        phase("kernels", f"time {key}: kernel {ms:.4f} ms (earlier: "
+              f"{EARLIER_MS[earlier[key]]}), plain {pms:.4f} ms, bound "
+              f"{bms:.6f} ms ({by}) at B={B_MAIN} hf={HOP_FRAMES}")
     phase("kernels", f"time ('hop', True) issued from Python: "
           f"{hop_call_ms:.4f} ms per call")
+    sweep_s = slot_sweep(plan, params, full, torch, mk)
 
     # per-stage kernels at the main path's launch shapes (a hop's)
     torch.backends.cudnn.allow_tf32 = False
@@ -1093,8 +1237,10 @@ def main() -> int:
                 raise RuntimeError(f"conv1d disagrees with {e['label']}")
             rec["library_ms"] = time_ms(call, torch)
         per_launch.append(rec)
+        was = (f" (earlier: {EARLIER_MS[e['label']]})"
+               if e["label"] in EARLIER_MS else "")
         phase("kernels", f"time {e['label']} ({e['name']}): kernel "
-              f"{rec['ms']:.4f} ms (issued from Python "
+              f"{rec['ms']:.4f} ms{was} (issued from Python "
               f"{rec['call_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
               f"bound {bms:.6f} ms, conv1d {rec['library_ms']}")
     per_kernel = aggregate(per_launch)
@@ -1230,9 +1376,11 @@ def main() -> int:
         rec["tile"] = gemm_tile(e, tm)
         rec["vs_library"] = rec["ms"] / rec["library_ms"]
         lib_times.append(rec)
+        was = (f" (earlier: {EARLIER_MS[e['label']]})"
+               if e["label"] in EARLIER_MS else "")
         phase("library", f"time {e['label']} ({e['name']}"
               f"{', ' + rec['tile'] if rec['tile'] else ''}): kernel "
-              f"{rec['ms']:.4f} ms (issued from Python {rec['call_ms']:.4f}"
+              f"{rec['ms']:.4f} ms{was} (issued from Python {rec['call_ms']:.4f}"
               f" ms), plain {rec['plain_ms']:.4f} ms, bound {bms:.6f} ms "
               f"({'bytes' if t_b >= t_o else 'operations'}), "
               f"{yard_name} {rec['library_ms']:.4f} ms, kernel / library "
@@ -1398,6 +1546,7 @@ def main() -> int:
                   utterance_call_ms=utt_ms,
                   library_call_ms={k: v["call_ms"]
                                    for k, v in lib_kernel.items()},
+                  slot_block_sweep=sweep_s, earlier_ms=EARLIER_MS,
                   steady_hop=dict(zip(("ms", "plain_ms", "bound_ms",
                                        "bound_by"),
                                       timing[("hop", False)])))

@@ -43,17 +43,20 @@ carries the leading ``M`` axis.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.quant import unpack_bits
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.hop_megakernel import (
+    H100_SMS,
     MAX_SMEM,
     _check,
     _classifier,
     _contract,
     _sa,
+    _sms,
 )
 
 SOURCE = "bnn_conv1d"
@@ -67,6 +70,11 @@ THREADS = 256
 CONV_BN = 128
 CONV_TARGET_CTAS = 132
 MAX_FC = 8
+#: B.3 launch shape: positions per thread (the largest that still gives
+#: one CTA per SM is taken), and the most shared memory its weight words
+#: may take before the channels are split into blocks
+BITSERIAL_PPT = (4, 2, 1)
+BITSERIAL_WEIGHT_SMEM = 64 * 1024
 
 
 def code_mask(bits: int) -> int:
@@ -183,7 +191,7 @@ def _lib():
     if not getattr(lib, "_bnn_ready", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.bnn_conv1d_step_launch.argtypes = [P] * 7 + [I] * 10 + [P]
-        lib.bnn_bitserial_step_launch.argtypes = [P] * 4 + [I] * 9 + [P]
+        lib.bnn_bitserial_step_launch.argtypes = [P] * 4 + [I] * 12 + [P]
         lib.classifier_tail_launch.argtypes = [P, I, I, I, P]
         lib.bnn_conv1d_launch.argtypes = [P] * 6 + [I] * 13 + [P]
         for fn in (lib.bnn_conv1d_step_launch, lib.bnn_bitserial_step_launch,
@@ -217,7 +225,54 @@ def _model_rows(model_idx, b: int) -> int | None:
     return _check(model_idx, "model_idx", torch.int32, (b,))
 
 
+class BitserialTile(NamedTuple):
+    """B.3's launch shape: positions per thread, positions and channels
+    per CTA, and the CTA's shared memory (weight words + window bytes)."""
+
+    ppt: int
+    pb: int
+    cb: int
+    smem: int
+
+
+def bitserial_tiles(b: int, l_out: int, cin: int, k: int, stride: int,
+                    cout: int, sms: int = H100_SMS) -> BitserialTile:
+    """B.3's launch shape.  A CTA's 256 threads cover ``cb`` channels (all
+    of them, unless their weight words pass ``BITSERIAL_WEIGHT_SMEM``) in
+    groups of 4, and as many position groups as that leaves; each thread
+    takes the most positions of ``BITSERIAL_PPT`` that still gives ``sms``
+    CTAs, so B=256 hops and a single long utterance both fill the SMs."""
+    kw = -(-k * cin // 4)
+    cb = -(-cout // 4) * 4
+    cb = max(4, min(cb, BITSERIAL_WEIGHT_SMEM // (16 * kw) * 4))
+    groups = max(1, THREADS // (cb // 4))
+    cblocks = -(-cout // cb)
+    ppt = BITSERIAL_PPT[-1]
+    for cand in BITSERIAL_PPT:
+        if b * -(-l_out // (groups * cand)) * cblocks >= sms:
+            ppt = cand
+            break
+
+    def smem(pb):
+        rows = (min(pb, l_out) - 1) * stride + k
+        return kw * cb * 4 + -(-rows * cin // 4) * 4 + 8
+
+    pb = groups * ppt
+    while smem(pb) > MAX_SMEM and pb > 1:
+        pb = max(1, pb // 2)
+        ppt = min(ppt, pb)
+    if smem(pb) > MAX_SMEM:
+        raise ValueError(f"a k={k} cin={cin} bit-serial conv needs "
+                         f"{smem(pb)} B of shared memory at its smallest "
+                         f"block, more than the {MAX_SMEM} B a block can "
+                         "have")
+    return BitserialTile(ppt, pb, cb, smem(pb))
+
+
 def _bitserial_cuda(x, w, model_idx, *, bits, stride, l_out):
+    if bits > 8:
+        raise ValueError("the bit-serial kernel stages the masked codes as "
+                         "bytes, so it takes bits <= 8")
     b, l_in, cin = x.shape
     lead = tuple(w.shape[:-3])
     k, cout = w.shape[-3], w.shape[-1]
@@ -228,9 +283,13 @@ def _bitserial_cuda(x, w, model_idx, *, bits, stride, l_out):
                          f"conv need more than the window's {l_in} rows")
     mi = _model_rows(model_idx, b)
     out = torch.empty((b, l_out, cout), dtype=torch.int32, device=x.device)
+    t = bitserial_tiles(b, l_out, cin, k, stride, cout, _sms(x.device))
+    if -(-l_out // t.pb) > 65535 or -(-cout // t.cb) > 65535:
+        raise ValueError(f"{l_out} positions x {cout} channels need more "
+                         "than 65,535 blocks of either")
     _run(_lib().bnn_bitserial_step_launch, BITSERIAL_KERNEL, x.device,
          x.data_ptr(), w.data_ptr(), mi, out.data_ptr(), b, l_in, cin, k,
-         stride, cout, l_out, code_mask(bits), THREADS)
+         stride, cout, l_out, code_mask(bits), t.ppt, t.pb, t.cb, t.smem)
     return out
 
 

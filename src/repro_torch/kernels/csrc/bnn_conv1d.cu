@@ -18,22 +18,32 @@
 // as rows p * stride + t of the (B, L_in, Cw) window, so the input costs
 // L_in rows instead of K * L_out.
 //
-// Design (B.3-B.5).  One thread per (slot, output position, output
+// Design (B.4, B.5).  One thread per (slot, output position, output
 // channel), with adjacent threads on adjacent output channels: the
-// weights are laid out (K, Cw|Cin, Cout), so a warp's weight loads are
-// one coalesced line, its input loads one broadcast word, and its output
+// weights are laid out (K, Cw, Cout), so a warp's weight loads are one
+// coalesced line, its input loads one broadcast word, and its output
 // stores one line.  The classifier runs one CTA per slot with the
 // saturated GAP vector and each fc layer's activations in shared memory,
 // one thread per output.
 //
-// What bounds them on H100: the conv steps do K * Cw popcount pairs (B.4)
-// or K * Cin scalar multiply-adds (B.3) per output, on the CUDA cores; at
-// the KWS shapes the int32 raw output (a few MB per launch) and the
-// weights are the bytes, and the ideal time is microseconds.  These
-// kernels re-read every weight from L2 once per output position and
-// launch once per stage, so they sit far above that; tiling positions per
-// thread, weights in shared memory and fusing the stages are later work
-// (the hop megakernel fuses them).
+// What bounds them on H100: the conv step does K * Cw popcount pairs per
+// output on the CUDA cores; at the KWS shapes the int32 raw output (a few
+// MB per launch) and the weights are the bytes, and the ideal time is
+// microseconds.  These kernels re-read every weight from L2 once per
+// output position and launch once per stage, so they sit far above that;
+// tiling positions per thread, weights in shared memory and fusing the
+// stages are later work (the hop megakernel fuses them).
+//
+// B.3 (see its kernel) stages its window slice as u8 codes and its
+// weights as s8x4 words in shared memory, and each thread runs dp4a over
+// several positions x 4 channels.  Its bound at the hop's l0 (B=256, 64
+// positions, 64 channels, k=19, stride 8) is its 4.2 MB int32 output,
+// ~1.3 us at HBM rate; the MACs (19 per output) are nothing to the int8
+// units.  So the design cuts what stands between the launch and that
+// store: no dependent global loads in the MAC loop, one 16-byte store per
+// position and 4 channels, and enough CTAs (one per slot and block of
+// positions, sized on the host) to fill the SMs at B=256 and at a single
+// utterance's 2,000 positions alike.
 //
 // B.6 is laid out differently (see its kernel): one CTA per block of
 // pooled positions and output channels, with the block's weight planes
@@ -101,27 +111,98 @@ __global__ void bnn_conv1d_step_kernel(
 // so the kernel MACs the masked codes; the offset fold stays on the host.
 // x (B, l_in, cin) int32 codes; w ([M,] k, cin, cout) int8 ternary;
 // out (B, l_out, cout) int32.
-__global__ void bnn_bitserial_step_kernel(
+//
+// One CTA per (slot, block of `pb` positions, block of `cb` channels).  It
+// stages the masked codes of its window slice as u8 (bits <= 8) and its
+// model's weights as s8x4 words along the depth k * cin ((k * cin) / 4
+// words per channel, zero-padded); position p's depth is the contiguous
+// byte run [p * stride * cin, (p * stride + k) * cin) of the slice, read a
+// word at a time with a funnel shift.  Each thread owns PPT positions x 4
+// channels: per word, one 16-byte load of 4 channels' weights and PPT
+// window words feed 4 * PPT dp4a (u8 x s8), and each position's 4 sums go
+// out as one 16-byte store.
+__device__ __forceinline__ int dp4a_us(unsigned a, int b, int c) {
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+template <int PPT>
+__global__ void __launch_bounds__(256) bnn_bitserial_step_kernel(
     const int32_t* __restrict__ x, const int8_t* __restrict__ w,
     const int32_t* __restrict__ model_idx, int32_t* __restrict__ out,
-    int batch, int l_in, int cin, int k, int stride, int cout, int l_out,
-    int mask) {
-  const long long total = (long long)batch * l_out * cout;
-  const size_t wsz = (size_t)k * cin * cout;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int co = (int)(idx % cout);
-    const long long rest = idx / cout;
-    const int n = (int)(rest % l_out);
-    const int b = (int)(rest / l_out);
-    const size_t m = model_idx ? (size_t)model_idx[b] : 0;
-    const int8_t* wb = w + m * wsz + co;
-    // the k taps of position n are k consecutive rows: k * cin codes
-    const int32_t* xr = x + ((size_t)b * l_in + (size_t)n * stride) * cin;
-    int acc = 0;
-    for (int j = 0; j < k * cin; ++j)
-      acc += (xr[j] & mask) * (int)__ldg(wb + (size_t)j * cout);
-    out[idx] = acc;
+    int l_in, int cin, int k, int stride, int cout, int l_out, int mask,
+    int pb, int cb) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int b = blockIdx.x;
+  const int p0 = blockIdx.y * pb, c0 = blockIdx.z * cb;
+  const int kc = k * cin, kw = (kc + 3) / 4;
+  const int np = min(pb, l_out - p0), ncb = min(cb, cout - c0);
+  int* wpk = reinterpret_cast<int*>(sm);                  // [kw][cb]
+  unsigned char* win = sm + (size_t)kw * cb * 4;          // window slice
+  const size_t m = model_idx ? (size_t)model_idx[b] : 0;
+  const int8_t* wm = w + m * (size_t)kc * cout + c0;
+  for (int i = threadIdx.x; i < kw * cb; i += blockDim.x) {
+    const int q = i / cb, c = i - q * cb;
+    unsigned v = 0;
+    if (c < ncb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = 4 * q + e;
+        if (kk < kc) v |= (unsigned)(unsigned char)__ldg(wm + (size_t)kk * cout + c) << (8 * e);
+      }
+    }
+    wpk[i] = (int)v;
+  }
+  const int nbytes = ((np - 1) * stride + k) * cin;
+  const int32_t* xb = x + ((size_t)b * l_in + (size_t)p0 * stride) * cin;
+  const int padded = (nbytes + 3) / 4 * 4 + 8;
+  for (int i = threadIdx.x; i < padded; i += blockDim.x)
+    win[i] = i < nbytes ? (unsigned char)(__ldg(xb + i) & mask) : 0;
+  __syncthreads();
+
+  const int cg = (ncb + 3) / 4;          // channel groups of 4
+  const int pgs = (np + PPT - 1) / PPT;  // position groups
+  const int rstep = stride * cin;
+  for (int item = threadIdx.x; item < pgs * cg; item += blockDim.x) {
+    const int q = item % cg, pg = item / cg;
+    int acc[PPT][4];
+    int off[PPT];
+#pragma unroll
+    for (int r = 0; r < PPT; ++r) {
+      off[r] = min(pg + r * pgs, np - 1) * rstep;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] = 0;
+    }
+    const int4* wq = reinterpret_cast<const int4*>(wpk) + q;
+    for (int j = 0; j < kw; ++j) {
+      const int4 wv = wq[(size_t)j * (cb / 4)];
+#pragma unroll
+      for (int r = 0; r < PPT; ++r) {
+        const int o = off[r] + 4 * j;
+        const unsigned* wp = reinterpret_cast<const unsigned*>(win + (o & ~3));
+        const unsigned xw = __funnelshift_r(wp[0], wp[1], (o & 3) * 8);
+        acc[r][0] = dp4a_us(xw, wv.x, acc[r][0]);
+        acc[r][1] = dp4a_us(xw, wv.y, acc[r][1]);
+        acc[r][2] = dp4a_us(xw, wv.z, acc[r][2]);
+        acc[r][3] = dp4a_us(xw, wv.w, acc[r][3]);
+      }
+    }
+    const int c = c0 + 4 * q;
+#pragma unroll
+    for (int r = 0; r < PPT; ++r) {
+      const int p = pg + r * pgs;
+      if (p >= np) continue;
+      int32_t* o = out + ((size_t)b * l_out + p0 + p) * cout + c;
+      if (c + 4 <= cout && (cout & 3) == 0) {
+        *reinterpret_cast<int4*>(o) =
+            make_int4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e < ncb) o[e] = acc[r][e];
+      }
+    }
   }
 }
 
@@ -290,13 +371,22 @@ extern "C" int bnn_conv1d_step_launch(
 extern "C" int bnn_bitserial_step_launch(
     const void* x, const void* w, const void* model_idx, void* out,
     int batch, int l_in, int cin, int k, int stride, int cout, int l_out,
-    int mask, int threads, void* stream) {
-  const long long total = (long long)batch * l_out * cout;
-  if (total <= 0) return 0;
-  bnn_bitserial_step_kernel<<<grid_for(total, threads), threads, 0,
-                              (cudaStream_t)stream>>>(
+    int mask, int ppt, int pb, int cb, int smem_bytes, void* stream) {
+  if (batch <= 0 || l_out <= 0 || cout <= 0) return 0;
+  const dim3 grid(batch, (l_out + pb - 1) / pb, (cout + cb - 1) / cb);
+  void (*kern)(const int32_t*, const int8_t*, const int32_t*, int32_t*, int,
+               int, int, int, int, int, int, int, int) =
+      ppt == 4 ? bnn_bitserial_step_kernel<4>
+               : (ppt == 2 ? bnn_bitserial_step_kernel<2>
+                           : bnn_bitserial_step_kernel<1>);
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, 256, smem_bytes, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int8_t*)w, (const int32_t*)model_idx,
-      (int32_t*)out, batch, l_in, cin, k, stride, cout, l_out, mask);
+      (int32_t*)out, l_in, cin, k, stride, cout, l_out, mask, pb, cb);
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,14 @@ is the same kernel in peek mode: flush + classifier from resident state.
 
 Two versions of the same function live here:
 
-* the CUDA kernel (``csrc/hop_megakernel.cu``), one CTA per slot with the
-  feature maps in shared memory, launched on the current stream for CUDA
-  tensors; a build or launch failure raises, there is no fallback;
+* the CUDA kernel (``csrc/hop_megakernel.cu``), launched on the current
+  stream for CUDA tensors; a build or launch failure raises, there is no
+  fallback.  A CTA takes a block of slots (:func:`slot_block` picks its
+  size from the batch and the shared memory, :func:`cta_layout` lays it
+  out), keeps their feature maps in shared memory and runs every conv
+  stage and fc layer as a GEMM on the int8 tensor cores, over weights
+  that :func:`prepare_hop_weights` lays out once and the CTA streams
+  through a shared-memory ring;
 * the plain PyTorch version (``hop_megakernel_plain`` /
   ``finalize_megakernel_plain``), the twin of ``_megakernel``.  It runs
   for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernel
@@ -23,14 +28,16 @@ Two versions of the same function live here:
 The packed entry points take the reference's packed operands: one tail per
 stage with ``tail > 0`` and one pending per stage with ``phase > 0``
 (``kernels/ops.py`` filters the zero-width ones), int8 ternary weights
-``([K,] k, cin, cout)``, float32 thresholds and int32 flips ``([K,] C)``,
-and with a tenant pool a per-slot ``(B,)`` int32 model index.  Binary
-stages' state holds {0, 1} values (the kernel keeps them as int8).
+``([K,] k, cin, cout)`` (or a :class:`HopWeights`), float32 thresholds
+and int32 flips ``([K,] C)``, and with a tenant pool a per-slot ``(B,)``
+int32 model index.  Binary stages' state holds {0, 1} values, GAP counts
+[0, 255] (the kernel keeps both as u8).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +45,6 @@ from repro_torch.kernels import build, dispatch
 
 HOP_KERNEL = "hop_megakernel"
 FINALIZE_KERNEL = "finalize_megakernel"
-THREADS = 256
 MAX_STAGES = 8
 MAX_FC = 4
 MAX_SMEM = 232448  # opt-in shared memory per block on H100 (227 KB)
@@ -257,31 +263,124 @@ def finalize_megakernel_plain(tails, pendings, gap, ws, thrs, flips, fc_ws,
 
 
 # ---------------------------------------------------------------------------
+# Weight layout for the kernel's int8 tensor-core GEMMs
+# ---------------------------------------------------------------------------
+
+#: depth of one ``mma.m16n8k32`` step and width of one n-tile
+MMA_K = 32
+MMA_N = 8
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fragment_layout(wt: torch.Tensor) -> torch.Tensor:
+    """``([M,] n, K)`` int8 (one row per output column) -> the kernel's
+    fragment order ``([M,] n_tiles, kp / 32, 32, 8)``: n padded to a
+    multiple of 8 and K to a multiple of 32 with zeros; lane ``4 g + t``
+    of n-tile ``j`` and k-step ``s`` holds columns ``wt[8 j + g, 32 s +
+    4 t : +4]`` and ``wt[8 j + g, 32 s + 16 + 4 t : +4]``, the B fragment
+    of ``mma.m16n8k32.row.col`` for that lane."""
+    *lead, n, k = wt.shape
+    nt, ks = _cdiv(n, MMA_N), _cdiv(k, MMA_K)
+    full = wt.new_zeros((*lead, nt * MMA_N, ks * MMA_K))
+    full[..., :n, :k] = wt
+    x = full.reshape(*lead, nt, MMA_N, ks, 2, 4, 4)   # j g s h t e
+    nl = len(lead)
+    perm = [*range(nl)] + [nl + i for i in (0, 2, 1, 4, 3, 5)]
+    return x.permute(perm).reshape(*lead, nt, ks, 32, 8).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class HopWeights:
+    """A model's weights laid out once for the CUDA hop kernel.
+
+    ``ws``/``fc_ws`` are the reference operands (int8 ``([K,] k, cin,
+    cout)`` and ``([K,] cin, cout)``), which the plain version reads;
+    ``conv``/``fc`` the same weights in :func:`fragment_layout` order with
+    depth ``k * cin`` (tap-major, as the windows are) or ``cin``; ``wsum``
+    each conv column's weight sum ``([K,] cout)`` int32, for the
+    ``in_offset`` fold of a bit-serial stage."""
+
+    ws: tuple
+    fc_ws: tuple
+    conv: tuple
+    wsum: tuple
+    fc: tuple
+
+
+def prepare_hop_weights(ws, fc_ws=()) -> HopWeights:
+    """Lay out int8 conv weights ``([K,] k, cin, cout)`` and fc weights
+    ``([K,] cin, cout)`` for the kernel (on their own device).  The
+    scheduler does this once per model (``prepared_model_params``), so a
+    hop never re-lays out weights."""
+    conv, wsum = [], []
+    for w in ws:
+        *lead, k, cin, cout = w.shape
+        flat = w.reshape(*lead, k * cin, cout)
+        conv.append(fragment_layout(flat.transpose(-1, -2)))
+        wsum.append(flat.sum(-2, dtype=torch.int32).contiguous())
+    fc = tuple(fragment_layout(w.transpose(-1, -2)) for w in fc_ws)
+    return HopWeights(tuple(ws), tuple(fc_ws), tuple(conv), tuple(wsum), fc)
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernel: parameter block, shared-memory layout, launch
 # ---------------------------------------------------------------------------
 
 _INT_FIELDS = ("k", "stride", "pad", "pool", "cin", "cout", "in_bits",
                "in_offset", "tail", "phase", "n_in", "n_conv", "n_out",
                "flush_in", "flush_conv", "flush_out")
+#: a CTA's threads, the most slots it takes, and the n-tiles of a weight
+#: chunk it may stream (the largest that fits is taken)
+THREADS = 256
+MAX_SLOTS = 8
+SLOT_BLOCKS = (1, 2, 4, 8)
+CHUNK_TILES = (8, 4, 2, 1)
+#: the classifier's one m-tile: slot s is its row s
+FC_ROWS = 16
+#: bytes past a window's last row that a padded-K A fragment may read
+WINDOW_SLACK = 32
+#: shared memory of one H100 SM, and what the runtime reserves per CTA
+SM_SMEM = 233472
+CTA_RESERVED_SMEM = 1024
+#: room left beside the dynamic buffers for the kernel's static shared
+#: memory (its pass list: 3,968 B; checked against the build at load)
+STATIC_SMEM = 4096
+#: what the dynamic buffers of one CTA may take
+DYNAMIC_SMEM = MAX_SMEM - STATIC_SMEM
+#: streaming multiprocessors of an H100 SXM, the default of the launch
+#: shape functions (the wrappers pass the card's own count)
+H100_SMS = 132
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class _Stage(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int) for n in _INT_FIELDS] + [
+    _fields_ = [(n, ctypes.c_int) for n in _INT_FIELDS + (
+        "pitch", "kp", "n_tiles", "a_mode", "fpitch", "tail_sto",
+        "pend_sto")] + [
         (n, ctypes.c_void_p) for n in ("tail_in", "tail_out", "pend_in",
-                                       "pend_out", "w", "thr", "flip")]
+                                       "pend_out", "w", "wsum", "thr",
+                                       "flip")]
 
 
 class _Fc(ctypes.Structure):
-    _fields_ = [("cin", ctypes.c_int), ("cout", ctypes.c_int),
-                ("raw", ctypes.c_int), ("unused", ctypes.c_int),
-                ("w", ctypes.c_void_p), ("thr", ctypes.c_void_p),
-                ("flip", ctypes.c_void_p)]
+    _fields_ = [(n, ctypes.c_int) for n in ("cin", "cout", "raw", "kp",
+                                            "n_tiles", "unused")] + [
+        ("w", ctypes.c_void_p), ("thr", ctypes.c_void_p),
+        ("flip", ctypes.c_void_p)]
 
 
 class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "n_stages", "n_fc", "emit", "finalize_only", "gap_c", "n_logits",
-        "win0_elems", "bin_bytes", "frm_bytes", "fc_elems")] + [
+        "batch", "slots", "chunk_tiles", "ring_bytes", "win0_bytes",
+        "bin_bytes", "frm_bytes", "slot_bytes", "fc_pitch", "stg_off",
+        "audio_sto", "gap_sto", "sa_cols")] + [
         (n, ctypes.c_void_p) for n in ("audio", "mask", "gap_in", "gap_out",
                                        "logits", "model_idx")] + [
         ("st", _Stage * MAX_STAGES), ("fc", _Fc * MAX_FC)]
@@ -291,25 +390,143 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def window_pitch(g: StageGeom) -> int:
+    """Bytes per row of a stage's window: ``cin``, or ``cin + 16`` when
+    ``cin % 32 == 0``, which puts a fragment's 8 rows on distinct banks."""
+    return g.cin + 16 if g.cin % 32 == 0 else g.cin
+
+
+def frame_pitch(g: StageGeom) -> int:
+    """Bytes per row of a stage's concat(pending, y) buffer: ``cout``
+    rounded up to an odd number of 4-byte words, so the 8 rows of an MMA
+    fragment store to distinct banks."""
+    return (_cdiv(g.cout, 4) | 1) * 4
+
+
+def a_mode(g: StageGeom) -> int:
+    """How the kernel reads a stage's A fragments: 0 from padded rows,
+    1 linear with 4-byte loads, 2 linear byte by byte (a position's first
+    tap is not 4-byte aligned)."""
+    if g.cin % 32 == 0:
+        return 0
+    return 1 if g.stride * g.cin % 4 == 0 else 2
+
+
+def _kp(width: int) -> int:
+    return _cdiv(width, MMA_K) * MMA_K
+
+
+def state_offsets(geoms: tuple[StageGeom, ...], gap_c: int
+                  ) -> tuple[int, tuple[int, ...], tuple[int, ...], int, int]:
+    """Where a slot's staged input state lies, in int32 elements: ``(audio,
+    tails, pendings, gap, total)``.  The kernel copies each slot's audio,
+    tails, pendings and GAP counts into shared memory in one round at the
+    start, so its cascade reads no global memory."""
+    off = geoms[0].n_in * geoms[0].cin
+    tails, pends = [], []
+    for g in geoms:
+        tails.append(off)
+        off += g.tail * g.cin
+    for g in geoms:
+        pends.append(off)
+        off += g.phase * g.cout
+    return 0, tuple(tails), tuple(pends), off, off + gap_c
+
+
 def smem_layout(geoms: tuple[StageGeom, ...], fc_dims, gap_c: int
                 ) -> tuple[int, int, int, int, int]:
-    """Shared-memory buffers of one CTA: ``(win0_elems, bin_bytes,
-    frm_bytes, fc_elems, total_bytes)``.  The layer-0 window is int32; the
-    two ping-pong windows and the frames buffer hold binary maps as int8,
-    each sized for the larger of the steady and the flush cascade."""
+    """One slot's shared-memory buffers, in bytes: ``(win0, bin, frm,
+    fc_pitch, slot_bytes)``.  The layer-0 window and the two ping-pong
+    windows hold each stage's input as u8 rows of :func:`window_pitch`
+    (with slack for a padded-K fragment), the frames buffer
+    concat(pending, y) as int8 at :func:`frame_pitch`, each sized for the
+    larger of the steady and the flush cascade; then the staged input
+    state (:func:`state_offsets`).  ``fc_pitch`` is the row pitch of the
+    classifier's activations (one row per slot, see :func:`cta_layout`)."""
+    def rows(g):
+        return g.tail + max(g.n_in, g.flush_in + g.pad)
+
     g0 = geoms[0]
-    win0 = -(-g0.cin * (g0.tail + max(g0.n_in, g0.pad)) // 4) * 4
+    win0 = _round16(rows(g0) * window_pitch(g0) + WINDOW_SLACK)
     bin_ = 1
     for g in geoms[1:]:
-        bin_ = max(bin_, (g.tail + max(g.n_in, g.flush_in + g.pad)) * g.cin)
+        bin_ = max(bin_, rows(g) * window_pitch(g) + WINDOW_SLACK)
     gl = geoms[-1]
-    bin_ = max(bin_, max(gl.n_out, gl.flush_out) * gl.cout)
-    frm = max((g.phase + max(g.n_conv, g.flush_conv)) * g.cout
-              for g in geoms)
-    fc = max([gap_c] + [d for dims in fc_dims for d in dims])
-    bin_, frm = _round16(bin_), _round16(max(frm, 1))
-    total = win0 * 4 + 2 * bin_ + frm + 2 * fc * 4
-    return win0, bin_, frm, fc, total
+    bin_ = _round16(max(bin_, max(gl.n_out, gl.flush_out) * gl.cout))
+    frm = _round16(max(1, max((g.phase + max(g.n_conv, g.flush_conv))
+                              * frame_pitch(g) for g in geoms)))
+    widths = [gap_c] + [d for dims in fc_dims for d in dims]
+    fc_pitch = _kp(max(widths)) + 16
+    state = _round16(4 * state_offsets(geoms, gap_c)[-1])
+    return win0, bin_, frm, fc_pitch, win0 + 2 * bin_ + frm + state
+
+
+def sa_columns(geoms, fc_dims) -> int:
+    """Columns of the shared SA-parameter buffer: the widest layer."""
+    return max([g.cout for g in geoms] + [c for _, c in fc_dims])
+
+
+class CtaLayout(NamedTuple):
+    """One CTA's launch shape: ``slots`` per CTA, ``chunk_tiles`` n-tiles
+    per weight chunk, the bytes of each of the ring's two slots, of one
+    slot's buffers, of each classifier buffer and of the SA-parameter
+    buffer, and the total dynamic shared memory."""
+
+    slots: int
+    chunk_tiles: int
+    ring_bytes: int
+    slot_bytes: int
+    fc_bytes: int
+    sa_bytes: int
+    smem: int
+
+
+def cta_layout(geoms, fc_dims, gap_c: int, slots: int) -> CtaLayout:
+    """The shared memory of a CTA of ``slots`` slots: two weight-ring
+    slots, then the slots' buffers, then two classifier buffers of
+    ``FC_ROWS`` rows, then one pass's SA parameters (threshold, flip and
+    offset fold per column).  The ring takes the largest chunk of
+    ``CHUNK_TILES`` that fits; raises ``ValueError`` when none does."""
+    if not 1 <= slots <= MAX_SLOTS:
+        raise ValueError(f"a CTA takes 1..{MAX_SLOTS} slots, not {slots}")
+    *_, fc_pitch, slot_bytes = smem_layout(geoms, fc_dims, gap_c)
+    ksteps = max([_kp(g.k * g.cin) // MMA_K for g in geoms]
+                 + [_kp(cin) // MMA_K for cin, _ in fc_dims])
+    fc_bytes = FC_ROWS * fc_pitch
+    sa_bytes = _round16(12 * sa_columns(geoms, fc_dims))
+    for ct in CHUNK_TILES:
+        ring = ct * ksteps * MMA_K * MMA_N
+        smem = 2 * ring + slots * slot_bytes + 2 * fc_bytes + sa_bytes
+        if smem <= DYNAMIC_SMEM:
+            return CtaLayout(slots, ct, ring, slot_bytes, fc_bytes, sa_bytes,
+                             smem)
+    raise ValueError(
+        f"a CTA of {slots} slots needs {smem} B of shared memory at its "
+        f"smallest weight chunk, more than the {DYNAMIC_SMEM} B a block "
+        f"can have beside the kernel's {STATIC_SMEM} B of static shared "
+        "memory")
+
+
+def slot_block(b: int, geoms, fc_dims, gap_c: int, sms: int = H100_SMS
+               ) -> CtaLayout:
+    """The launch shape for a batch of ``b`` slots: among the slot blocks
+    of ``SLOT_BLOCKS`` that fit, the one with the fewest waves of CTAs over
+    ``sms`` SMs (CTAs per SM from shared memory and threads), and of
+    those the smallest, which spreads the MMAs over the most SMs."""
+    best = None
+    for s in SLOT_BLOCKS:
+        try:
+            lay = cta_layout(geoms, fc_dims, gap_c, s)
+        except ValueError:
+            continue
+        per_sm = min(2048 // THREADS, SM_SMEM // (
+            lay.smem + STATIC_SMEM + CTA_RESERVED_SMEM))
+        waves = _cdiv(_cdiv(b, s), sms * max(per_sm, 1))
+        if best is None or waves < best[0]:
+            best = (waves, lay)
+    if best is None:
+        raise ValueError("no slot block fits this plan in shared memory")
+    return best[1]
 
 
 def _lib():
@@ -320,11 +537,16 @@ def _lib():
             ctypes.c_void_p]
         lib.hop_megakernel_launch.restype = ctypes.c_int
         lib.hop_megakernel_params_size.restype = ctypes.c_int
+        lib.hop_megakernel_static_smem.restype = ctypes.c_int
         size = lib.hop_megakernel_params_size()
         if size != ctypes.sizeof(_Params):
             raise RuntimeError(
                 f"hop kernel parameter block is {size} bytes in CUDA, "
                 f"{ctypes.sizeof(_Params)} in Python")
+        static = lib.hop_megakernel_static_smem()
+        if not 0 <= static <= STATIC_SMEM:
+            raise RuntimeError(f"hop kernel has {static} B of static shared "
+                               f"memory; the layout leaves {STATIC_SMEM} B")
         lib._hop_ready = True
     return lib
 
@@ -342,27 +564,44 @@ def _check(x: torch.Tensor, name: str, dtype, shape) -> int:
     return x.data_ptr()
 
 
-def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
-            fc_thrs, fc_flips, model_idx, *, geoms, emit, fc_raw,
-            finalize_only):
+def check_geoms(geoms, fc_raw) -> None:
+    """Refuse, with the reason, the plans the kernel does not take."""
     ns, nf = len(geoms), len(fc_raw)
     if not 1 <= ns <= MAX_STAGES or nf > MAX_FC:
         raise ValueError(f"kernel takes 1..{MAX_STAGES} conv stages and at "
                          f"most {MAX_FC} fc layers; got {ns} and {nf}")
-    if any(g.in_bits > 8 for g in geoms[1:]):
-        # later stages' windows are int8: a raw input kept mod 256 still
-        # gives the code of an in_bits <= 8 stage, not of a wider one
-        raise ValueError("the CUDA kernel keeps the windows of conv stages "
-                         "past the first as int8, so their bit-serial "
-                         "inputs must have in_bits <= 8")
+    if any(g.in_bits > 8 for g in geoms):
+        # the windows hold u8 values: a bit-serial input's masked raw
+        # value fits only for in_bits <= 8
+        raise ValueError("the CUDA kernel feeds every conv stage's input "
+                         "to the int8 tensor cores as u8, so a bit-serial "
+                         "input must have in_bits <= 8")
+    if any(fc_raw[:-1]):
+        raise ValueError("the CUDA kernel feeds each fc layer's output to "
+                         "the next as u8 SA bits: only the last fc layer "
+                         "may be raw")
+
+
+def _frag(x, name, lead, n, k):
+    return _check(x, name, torch.int8,
+                  lead + (_cdiv(n, MMA_N), _cdiv(k, MMA_K), 32, 8))
+
+
+def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
+            fc_thrs, fc_flips, model_idx, *, geoms, emit, fc_raw,
+            finalize_only, slots=None):
+    check_geoms(geoms, fc_raw)
+    hw = ws if isinstance(ws, HopWeights) else prepare_hop_weights(ws,
+                                                                   fc_ws)
+    ns, nf = len(geoms), len(fc_raw)
     b, gap_c = gap.shape
     dev = gap.device
     pooled = model_idx is not None
-    lead = (ws[0].shape[0],) if pooled else ()
+    lead = (hw.ws[0].shape[0],) if pooled else ()
     p = _Params()
     p.n_stages, p.n_fc = ns, nf
     p.emit, p.finalize_only = int(emit), int(finalize_only)
-    p.gap_c = gap_c
+    p.gap_c, p.batch = gap_c, b
     p.gap_in = _check(gap, "gap", torch.int32, (b, gap_c))
     if pooled:
         p.model_idx = _check(model_idx, "model_idx", torch.int32, (b,))
@@ -372,11 +611,20 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
         p.mask = _check(mask, "mask", torch.int32, (b,))
     ti = pi = 0
     tails_out, pends_out = [], []
+    p.audio_sto, tail_sto, pend_sto, p.gap_sto, _ = state_offsets(geoms,
+                                                                  gap_c)
     for i, g in enumerate(geoms):
         s = p.st[i]
+        s.tail_sto, s.pend_sto = tail_sto[i], pend_sto[i]
         for f in _INT_FIELDS:
             setattr(s, f, getattr(g, f))
-        s.w = _check(ws[i], f"ws[{i}]", torch.int8, lead + (g.k, g.cin, g.cout))
+        s.pitch, s.a_mode = window_pitch(g), a_mode(g)
+        s.fpitch = frame_pitch(g)
+        s.kp, s.n_tiles = _kp(g.k * g.cin), _cdiv(g.cout, MMA_N)
+        s.w = _frag(hw.conv[i], f"conv weights[{i}]", lead, g.cout,
+                    g.k * g.cin)
+        s.wsum = _check(hw.wsum[i], f"wsum[{i}]", torch.int32,
+                        lead + (g.cout,))
         s.thr = _check(thrs[i], f"thrs[{i}]", torch.float32, lead + (g.cout,))
         s.flip = _check(flips[i], f"flips[{i}]", torch.int32, lead + (g.cout,))
         if g.tail:
@@ -402,19 +650,23 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
     with_fc = emit or finalize_only
     fc_dims = []
     if with_fc:
+        width = gap_c
         for j, raw in enumerate(fc_raw):
             f = p.fc[j]
-            cin, cout = fc_ws[j].shape[-2:]
+            cin, cout = hw.fc_ws[j].shape[-2:]
+            if cin != width:
+                raise ValueError(f"fc {j} takes {cin} inputs, gets {width}")
             f.cin, f.cout, f.raw = cin, cout, int(raw)
-            f.w = _check(fc_ws[j], f"fc_ws[{j}]", torch.int8,
-                         lead + (cin, cout))
+            f.kp, f.n_tiles = _kp(cin), _cdiv(cout, MMA_N)
+            f.w = _frag(hw.fc[j], f"fc weights[{j}]", lead, cout, cin)
             if not raw:
                 f.thr = _check(fc_thrs[j], f"fc_thrs[{j}]", torch.float32,
                                lead + (cout,))
                 f.flip = _check(fc_flips[j], f"fc_flips[{j}]", torch.int32,
                                 lead + (cout,))
             fc_dims.append((cin, cout))
-        p.n_logits = fc_dims[-1][1] if fc_dims else gap_c
+            width = cout
+        p.n_logits = width
         logits = torch.empty((b, p.n_logits), dtype=torch.int32, device=dev)
         p.logits = logits.data_ptr()
     else:
@@ -423,15 +675,18 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
     if not finalize_only:
         gap_out = torch.empty((b, gap_c), dtype=torch.int32, device=dev)
         p.gap_out = gap_out.data_ptr()
-    (p.win0_elems, p.bin_bytes, p.frm_bytes, p.fc_elems,
-     smem) = smem_layout(geoms, fc_dims, gap_c)
-    if smem > MAX_SMEM:
-        raise ValueError(f"plan needs {smem} B of shared memory per slot, "
-                         f"more than the {MAX_SMEM} B a block can have")
+    (p.win0_bytes, p.bin_bytes, p.frm_bytes, p.fc_pitch,
+     p.slot_bytes) = smem_layout(geoms, fc_dims, gap_c)
+    p.stg_off = p.win0_bytes + 2 * p.bin_bytes + p.frm_bytes
+    p.sa_cols = sa_columns(geoms, fc_dims)
+    lay = (slot_block(b, geoms, fc_dims, gap_c, _sms(dev)) if slots is None
+           else cta_layout(geoms, fc_dims, gap_c, slots))
+    p.slots, p.chunk_tiles, p.ring_bytes = (lay.slots, lay.chunk_tiles,
+                                            lay.ring_bytes)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib().hop_megakernel_launch(ctypes.byref(p), b, THREADS, smem,
-                                          stream)
+        rc = _lib().hop_megakernel_launch(
+            ctypes.byref(p), _cdiv(b, lay.slots), THREADS, lay.smem, stream)
     if rc != 0:
         raise RuntimeError(f"hop megakernel launch failed: CUDA error {rc}")
     if finalize_only:
@@ -441,16 +696,27 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
     return tuple(tails_out), tuple(pends_out), gap_out
 
 
+def _raw_weights(ws, fc_ws):
+    """The reference operands, from raw weights or a :class:`HopWeights`."""
+    if isinstance(ws, HopWeights):
+        return ws.ws, ws.fc_ws
+    return ws, fc_ws
+
+
 def hop_megakernel_packed(audio, mask, tails, pendings, gap, ws, thrs, flips,
                           fc_ws=(), fc_thrs=(), fc_flips=(), model_idx=None,
                           *, geoms, emit, fc_raw=()):
     """One fused hop, ONE launch: ``(tails, pendings, gap[, logits])``.
 
-    For CUDA tensors this launches the CUDA kernel (and raises on any
-    failure); for CPU tensors the plain version stands in for it.  Either
-    way it counts one ``hop_megakernel`` dispatch."""
+    ``ws`` is the int8 conv weights or a :class:`HopWeights` from
+    :func:`prepare_hop_weights`, which also carries the fc weights (then
+    ``fc_ws`` is not read).  For CUDA tensors this launches the CUDA kernel
+    (and raises on any failure; raw weights are laid out first); for CPU
+    tensors the plain version stands in for it.  Either way it counts one
+    ``hop_megakernel`` dispatch."""
     if gap.device.type == "cpu":
         dispatch.record(HOP_KERNEL)
+        ws, fc_ws = _raw_weights(ws, fc_ws)
         return hop_megakernel_plain(
             audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
             fc_thrs, fc_flips, model_idx, geoms=geoms, emit=emit,
@@ -466,9 +732,11 @@ def finalize_megakernel_packed(tails, pendings, gap, ws, thrs, flips, fc_ws,
                                fc_thrs, fc_flips, model_idx=None, *, geoms,
                                fc_raw):
     """Ghost flush + classifier from resident state, ONE launch: int32
-    logits ``(B, n_classes)``.  CPU tensors take the plain version."""
+    logits ``(B, n_classes)``.  ``ws`` as for :func:`hop_megakernel_packed`;
+    CPU tensors take the plain version."""
     if gap.device.type == "cpu":
         dispatch.record(FINALIZE_KERNEL)
+        ws, fc_ws = _raw_weights(ws, fc_ws)
         return finalize_megakernel_plain(
             tails, pendings, gap, ws, thrs, flips, fc_ws, fc_thrs, fc_flips,
             model_idx, geoms=geoms, fc_raw=fc_raw)

@@ -292,7 +292,9 @@ def _mega_prep(stages, ws, thrs, flips, fc_ws, fc_thrs, fc_flips, device):
     i8 = lambda xs: tuple(_as(x, torch.int8, device) for x in xs)  # noqa: E731
     f32 = lambda xs: tuple(_as(x, torch.float32, device) for x in xs)  # noqa: E731,E501
     i32 = lambda xs: tuple(_as(x, torch.int32, device) for x in xs)  # noqa: E731,E501
-    return (geoms, (i8(ws), f32(thrs), i32(flips), i8(fc_ws), f32(fc_thrs),
+    if not isinstance(ws, _mega.HopWeights):
+        ws, fc_ws = i8(ws), i8(fc_ws)
+    return (geoms, (ws, f32(thrs), i32(flips), fc_ws, f32(fc_thrs),
                     i32(fc_flips)))
 
 
@@ -304,8 +306,10 @@ def hop_megakernel(audio, mask, tails, pendings, gap, ws, thrs, flips,
 
     audio (B, hop, Cin0) codes; mask (B,) advance flags; tails/pendings
     one per conv stage; gap (B, C) counts; per-stage weights
-    ``(k, cin, cout)`` ternary with ``(C,)`` thresholds/flips, and the fc
-    layers' ``(cin, cout)`` weights.  With ``model_idx`` ((B,) per-slot
+    ``(k, cin, cout)`` ternary (or a ``HopWeights`` laid out once by
+    ``hop_megakernel.prepare_hop_weights``, which carries the fc weights
+    too) with ``(C,)`` thresholds/flips, and the fc layers' ``(cin,
+    cout)`` weights.  With ``model_idx`` ((B,) per-slot
     tenant ids) every weight operand carries a leading pool axis.
     Returns ``(tails, pendings, gap)`` plus int32 logits when ``emit``.
     """

@@ -42,16 +42,19 @@ import torch
 from repro_torch.core.quant import unpack_bits
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.conv_kernels import _run
-from repro_torch.kernels.hop_megakernel import _check, _contract, _sa
+from repro_torch.kernels.hop_megakernel import (
+    H100_SMS,
+    _check,
+    _contract,
+    _sa,
+    _sms,
+)
 
 SOURCE = "twm_matmul"
 POPCOUNT_KERNEL = "twm_matmul"
 MXU_KERNEL = "twm_matmul_mxu"
 #: K granularity of the int8 MMA (k32 of wgmma and of the GEMV's chunks)
 MXU_K = 32
-#: streaming multiprocessors of an H100 SXM, the default for the tile
-#: functions (the wrappers pass the card's own count)
-H100_SMS = 132
 #: rows a GEMV-shaped CTA takes at most, and its threads and warps
 GEMV_ROWS = 16
 GEMV_THREADS = 256
@@ -202,10 +205,6 @@ def _mxu_tile(m: int, n: int, kp: int, sms: int = H100_SMS) -> Tile:
         else narrow)
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
     return Tile(f"wgmma{bm}x{bn}", code, bm, bn, split, (min(tiles, sms), 1))
-
-
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _sa_params(thr, flip, n: int):

@@ -58,6 +58,7 @@ import torch
 
 from repro_torch.core.cnn_spec import CNN1DSpec
 from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels.hop_megakernel import prepare_hop_weights
 from repro_torch.obs import Observability
 from repro_torch.runtime.pool import SlotPool
 from repro_torch.stream.detector import (
@@ -104,7 +105,9 @@ def prepared_model_params(plan: StreamPlan, weights, thresholds,
     (``±inf`` where the affine scale is 0) with bool flips — and returns
     ``{"w", "thr", "flip", "fc_w", "fc_thr", "fc_flip"}`` with the
     reference's dtypes: int32 ``(k, cin, cout)`` conv weights, float32
-    thresholds, bool conv flips, int32 fc weights and flips.
+    thresholds, bool conv flips, int32 fc weights and flips; and
+    ``"hop"``, the same weights in int8 laid out once for the CUDA hop
+    kernel (``kernels.hop_megakernel.prepare_hop_weights``).
     """
     global _param_cache_hits, _param_cache_misses
     device = torch.device(device)
@@ -138,6 +141,9 @@ def prepared_model_params(plan: StreamPlan, weights, thresholds,
         "fc_flip": tuple(put(thresholds[st.layer_idx][1], torch.int32)
                          for st in plan.fcs),
     }
+    prep["hop"] = prepare_hop_weights(
+        tuple(w.to(torch.int8) for w in prep["w"]),
+        tuple(w.to(torch.int8) for w in prep["fc_w"]))
     _PARAM_CACHE[key] = prep
     while len(_PARAM_CACHE) > _PARAM_CACHE_MAX:
         _PARAM_CACHE.popitem(last=False)
@@ -218,11 +224,12 @@ class _BatchedModel:
         self._fc_flip = tuple(params["fc_flip"])
         self._fc_raw = tuple(st.out_raw for st in plan.fcs)
         if backend == "megakernel":
-            # the kernel's operand types, converted once: int8 ternary
-            # weights, int32 flips
-            self._kw = tuple(w.to(torch.int8) for w in self._w)
+            # the kernel's operands, prepared once: int8 weights laid out
+            # for its tensor-core GEMMs (carrying the fc weights too),
+            # int32 flips
+            self._kw = params["hop"]
             self._kflip = tuple(f.to(torch.int32) for f in self._flip)
-            self._kfc_w = tuple(w.to(torch.int8) for w in self._fc_w)
+            self._kfc_w = self._kw.fc_ws
         elif backend == "per_stage":
             # the per-stage kernels' operands, prepared once: int8
             # weights, packed pos/neg planes and sum(w) per conv layer,

@@ -131,8 +131,11 @@ def _run(plan, p, s, device, emit, model_idx):
     return [x.cpu() for x in flat]
 
 
+# B=1, 200 and 257 leave ragged slot blocks; with K=2 the pool row is
+# random per slot, so slot blocks mix tenants
 CASES = [("kws", 8, 64, 1), ("kws", 8, 37, 2), ("smoke", 1, 16, 1),
-         ("odd", 1, 20, 1), ("odd", 2, 9, 2), ("multibit", 1, 12, 1)]
+         ("odd", 1, 20, 1), ("odd", 2, 9, 2), ("multibit", 1, 12, 1),
+         ("kws", 8, 1, 1), ("kws", 8, 200, 1), ("kws", 8, 257, 2)]
 
 
 @pytest.mark.parametrize("emit", [True, False])
@@ -141,8 +144,7 @@ CASES = [("kws", 8, 64, 1), ("kws", 8, 37, 2), ("smoke", 1, 16, 1),
                               for c in CASES])
 def test_cuda_kernel_matches_plain(name, hf, b, k_models, emit):
     dev = _cuda()
-    spec = {"kws": kws.build_kws_spec(), "smoke": kws.build_kws_smoke_spec(),
-            "odd": ODD, "multibit": _multibit_smoke()}[name]
+    spec = _spec(name)
     plan = plan_stream(spec, hop_frames=hf)
     models = [_params(plan, *_model(spec, m), torch.device("cpu"))
               for m in range(k_models)]
@@ -160,6 +162,79 @@ def test_cuda_kernel_matches_plain(name, hf, b, k_models, emit):
     for x, y in zip(card, plain):
         assert x.dtype == torch.int32 and x.shape == y.shape
         assert torch.equal(x, y)
+
+
+def _spec(name):
+    return {"kws": kws.build_kws_spec(), "smoke": kws.build_kws_smoke_spec(),
+            "odd": ODD, "multibit": _multibit_smoke()}[name]
+
+
+def _packed_case(name, hf, b, seed, device):
+    """Packed operands of one hop (the kernel's wrapper's own layout)."""
+    plan = plan_stream(_spec(name), hop_frames=hf)
+    p = _params(plan, *_model(plan.spec, seed), device)
+    s = _state(plan, b, seed, device)
+    geoms = tuple(mk.stage_geom(st) for st in plan.convs)
+    s["tails"] = tuple(t for g, t in zip(geoms, s["tails"]) if g.tail)
+    s["pendings"] = tuple(t for g, t in zip(geoms, s["pendings"])
+                          if g.phase)
+    return plan, geoms, p, s
+
+
+def _hop_three_ways(plan, geoms, p, s, model_idx=None, slots=None):
+    """B.1 emit, B.1 steady and B.2, kernel against plain: the kernel by
+    the counted entry points, or at a forced slot block."""
+    fc_raw = tuple(f.out_raw for f in plan.fcs)
+    w = (p["ws"], p["thrs"], p["flips"], p["fc_ws"], p["fc_thrs"],
+         p["fc_flips"], model_idx)
+    for emit in (True, False):
+        args = (s["audio"], s["mask"], s["tails"], s["pendings"], s["gap"],
+                *w)
+        if slots is None:
+            got = mk.hop_megakernel_packed(*args, geoms=geoms, emit=emit,
+                                           fc_raw=fc_raw)
+        else:
+            got = mk._launch(*args, geoms=geoms, emit=emit, fc_raw=fc_raw,
+                             finalize_only=False, slots=slots)
+        want = mk.hop_megakernel_plain(*args, geoms=geoms, emit=emit,
+                                       fc_raw=fc_raw)
+        flat = lambda o: [*o[0], *o[1], *o[2:]]  # noqa: E731
+        for x, y in zip(flat(got), flat(want)):
+            assert x.dtype == torch.int32 and torch.equal(x, y)
+    fargs = (s["tails"], s["pendings"], s["gap"], *w)
+    if slots is None:
+        got = mk.finalize_megakernel_packed(*fargs, geoms=geoms,
+                                            fc_raw=fc_raw)
+    else:
+        got = mk._launch(None, None, *fargs, geoms=geoms, emit=True,
+                         fc_raw=fc_raw, finalize_only=True, slots=slots)
+    assert torch.equal(got, mk.finalize_megakernel_plain(
+        *fargs, geoms=geoms, fc_raw=fc_raw))
+
+
+def test_cuda_kernel_all_masked_batch():
+    """No live slot: every slot's state passes through, and the emit hop's
+    and the peek's logits still come from the flush of that state."""
+    dev = _cuda()
+    plan, geoms, p, s = _packed_case("kws", 8, 40, 3, dev)
+    s["mask"] = torch.zeros_like(s["mask"])
+    _hop_three_ways(plan, geoms, p, s)
+
+
+@pytest.mark.parametrize("name,hf,b,slots", [
+    ("kws", 8, 66, 1), ("kws", 8, 66, 2), ("kws", 8, 66, 4),
+    ("smoke", 1, 61, 8), ("odd", 2, 21, 8)], ids=str)
+def test_cuda_kernel_every_slot_block(name, hf, b, slots):
+    """Each slot block forced once (eight slots where the plan fits them),
+    with per-slot tenants, on a batch that leaves the last block ragged."""
+    dev = _cuda()
+    plan, geoms, p1, s = _packed_case(name, hf, b, 5, dev)
+    p2 = _params(plan, *_model(plan.spec, 6), dev)
+    pooled = {k: [torch.stack(xs) for xs in zip(p1[k], p2[k])] for k in p1}
+    mi = torch.as_tensor(np.random.default_rng(b).integers(
+        0, 2, b).astype(np.int32), device=dev)
+    _hop_three_ways(plan, geoms, p1, s, slots=slots)
+    _hop_three_ways(plan, geoms, pooled, s, mi, slots=slots)
 
 
 def test_cuda_wrapper_rejects_bad_operands():
@@ -287,6 +362,37 @@ def _per_stage_calls(b, seed, k_models):
         [f.to(d) for f in fc_flips], None if mi is None else mi.to(d),
         out_raw=out_raw)))
     return calls
+
+
+# (B, l_out, cin, k, stride, cout, bits, K): l_out off the position block,
+# cin > 1, 4-bit codes, a K=2 pool by slot
+BITSERIAL = [(5, 83, 1, 19, 8, 64, 8, 1), (7, 37, 4, 5, 2, 48, 8, 1),
+             (9, 30, 1, 7, 8, 8, 4, 1), (37, 64, 1, 19, 8, 64, 8, 2),
+             (3, 45, 16, 3, 1, 32, 4, 2), (1, 2000, 1, 19, 8, 64, 8, 1)]
+
+
+@pytest.mark.parametrize("b,l_out,cin,k,stride,cout,bits,km", BITSERIAL,
+                         ids=str)
+def test_cuda_bitserial_step_edge_cases(b, l_out, cin, k, stride, cout, bits,
+                                        km):
+    dev = _cuda()
+    rng = np.random.default_rng(l_out)
+    l_in = (l_out - 1) * stride + k + int(rng.integers(0, stride))
+    x = torch.as_tensor(rng.integers(0, 1 << 12, (b, l_in, cin)).astype(
+        np.int32))
+    lead = (km,) if km > 1 else ()
+    w = torch.as_tensor(rng.integers(-1, 2, lead + (k, cin, cout)).astype(
+        np.int8))
+    mi = (torch.as_tensor(rng.integers(0, km, b).astype(np.int32))
+          if km > 1 else None)
+    kw = dict(bits=bits, stride=stride, l_out=l_out)
+    want = bk.bnn_bitserial_step(x, w, mi, **kw)
+    with dispatch.counting() as launched:
+        got = bk.bnn_bitserial_step(x.to(dev), w.to(dev), None if mi is None
+                                    else mi.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert launched() == {bk.BITSERIAL_KERNEL: 1}
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("b,k_models", [(64, 1), (37, 1), (21, 2)],
