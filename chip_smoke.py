@@ -7,9 +7,10 @@ hop and the kernel library on one CUDA card.
 Phases (each prints one line, any failure exits non-zero):
 
 1. device   — a CUDA card must be present; its name and power limit.
-2. build    — nvcc builds ``hop_megakernel.cu``, ``bnn_conv1d.cu`` and
-              ``twm_matmul.cu`` from ``src/repro_torch/kernels/csrc`` into
-              ``build/``, one compiler process each, started together.
+2. build    — nvcc builds ``hop_megakernel.cu``, ``bnn_conv1d.cu``,
+              ``twm_matmul.cu`` and ``mma_rate.cu`` from
+              ``src/repro_torch/kernels/csrc`` into ``build/``, one
+              compiler process each, started together.
 3. kernels  — the CUDA hop kernel (B.1, emit and steady) and its finalize
               mode (B.2) are bit-equal to their plain PyTorch versions on
               the card: the full-width KWS plan (``build_kws_spec()``,
@@ -23,20 +24,28 @@ Phases (each prints one line, any failure exits non-zero):
               random streamable geometries.  The per-stage kernels — B.3
               bit-serial step, B.4 conv step (raw, and ``sa`` with pool 1
               and 2) and B.5 classifier tail — are bit-equal to theirs at
-              every launch shape of a KWS emit hop at B=256 and B=200,
-              with a K=2 pool (B.3, B.4 raw, B.5), and on a random
-              geometry; B.3 also at ``BITSERIAL_CASES`` (ragged position
-              blocks, ``cin > 1``, 4-bit codes, a K=2 pool by slot).
-              Then each kernel and its plain version are timed at the
-              main path's shapes (device time: CUDA events around replays
-              of a CUDA graph of 20 calls; the time per call issued from
-              Python is recorded beside it), B.3 and B.4 raw beside the
-              one PyTorch call that computes the same raw conv
-              (``torch.nn.functional.conv1d``, float32, TF32 off: exact,
-              every partial sum is below 2^24), and the hop kernel at
-              every slot block of ``SLOT_SWEEP`` that fits (emit, steady,
-              finalize), each beside the earlier design's time
-              (``EARLIER_MS``).
+              every launch shape of a KWS emit hop (hop and flush
+              windows) at B=256 and B=200, with a K=2 pool (B.3, B.4 raw,
+              B.5), and on a random geometry; B.3 also at
+              ``BITSERIAL_CASES`` (ragged position blocks, ``cin > 1``,
+              4-bit codes, a K=2 pool by slot), B.4 at ``STEP_CASES``
+              (ragged cout, positions off the 16-row tile, stride 2, pools
+              2-4, pools of tenants) and B.5 at ``TAIL_CASES`` (one slot,
+              tenants by slot, three fc layers).  Then each kernel and its
+              plain version are timed at the main path's shapes (device
+              time: CUDA events around replays of a CUDA graph of 20
+              calls; the time per call issued from Python is recorded
+              beside it), B.3 and B.4 raw beside the one PyTorch call that
+              computes the same raw conv (``torch.nn.functional.conv1d``,
+              float32, TF32 off: exact, every partial sum is below 2^24),
+              B.4's launches summed per emit hop and B.5 also at B=1; the
+              hop kernel at every slot block of ``SLOT_SWEEP`` that fits
+              (emit, steady, finalize), B.4 at every launch shape on each
+              hop window and B.5 at every slot block and cluster size at
+              ``TAIL_SWEEP_B`` slots (each shape bit-equal first), each
+              beside the earlier design's time (``EARLIER_MS``); and the
+              tensor cores' rate for the u8 and the 1-bit ``mma.sync``
+              (``csrc/mma_rate.cu``).
 4. launches — megakernel: one counted launch per hop (emit included) and
               per peek; per-stage on the KWS plan: 4 per steady hop, 9
               per emit hop, 5 per hop-boundary peek.
@@ -84,13 +93,15 @@ package.  Before its last line it prints one JSON object with each
 kernel's launches on the main paths (the stream backends' and the
 library's), error, time, plain time, bound and library-call time (each
 summed over a kernel's launch shapes on its paths: B.3's l0 of a hop
-and of an utterance, the conv step's three of a hop, B.6's three of an
+(hop and flush window) and of an utterance, the conv step's six of an
+emit hop (three hop and three flush windows), B.6's three of an
 utterance, B.7's and B.8's of the library path; a library time only
 where every one of them has one), and the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
 is ``{"ok": true, "device": {...}}``.  The same record, with every timed
-launch shape and the ``pick_path`` finding, is written to
-``chip_smoke.json`` in the output directory beside the script.
+launch shape, the ``pick_path`` finding, the B.4 tile and B.5 slot-block
+sweeps and the MMA rates, is written to ``chip_smoke.json`` in the output
+directory beside the script.
 """
 from __future__ import annotations
 
@@ -119,13 +130,32 @@ SLOT_SWEEP = (1, 2, 4, 8)
 BITSERIAL_CASES = ((5, 83, 1, 19, 8, 64, 8, 1), (7, 37, 4, 5, 2, 48, 8, 1),
                    (9, 30, 1, 7, 8, 8, 4, 1), (37, 64, 1, 19, 8, 64, 8, 2),
                    (3, 45, 16, 3, 1, 32, 4, 2))
+#: B.4 shapes beyond the paths': (B, cin, cout, k, stride, l_out, mode,
+#: pool, K) -- cout off the 8-column n-tile (and off 4), positions off the
+#: 16-row m-tile, stride 2, pools 2-4, a K=2 and a K=3 pool by slot
+STEP_CASES = ((37, 64, 20, 3, 1, 19, "raw", 1, 1),
+              (5, 96, 13, 5, 2, 7, "sa", 2, 1),
+              (9, 256, 44, 3, 1, 3, "raw", 1, 2),
+              (200, 128, 250, 5, 1, 29, "sa", 3, 1),
+              (3, 40, 6, 3, 1, 15, "sa", 4, 1),
+              (11, 40, 6, 3, 2, 7, "raw", 1, 3))
+#: B.5 beyond the paths': (B, widths, out_raw, K) -- one slot, a ragged
+#: cluster with 3 tenants by slot, three fc layers
+TAIL_CASES = ((1, (352, 512, 12), (False, True), 1),
+              (17, (352, 512, 12), (False, True), 3),
+              (40, (70, 33, 20, 12), (False, False, True), 3))
+#: the batches B.5 is swept at (every slot block x cluster size)
+TAIL_SWEEP_B = (256, 64, 1)
 #: the earlier designs' device times at the main path's shapes, ms (this
 #: script on an NVIDIA H100 80GB HBM3 at 700.00 W, when the hop kernel ran
-#: one CTA per slot on scalar MACs and B.3 one thread per output): the hop
+#: one CTA per slot on scalar MACs, B.3 one thread per output, B.4 one
+#: thread per output on popcounts and B.5 one CTA per slot): the hop
 #: kernel at B=256 emit / steady / finalize, B.3 at the hop's and the
-#: utterance's l0 (by this script's launch labels)
+#: utterance's l0, B.4 summed over a hop's three hop windows, B.5 at
+#: B=256 (by this script's launch labels)
 EARLIER_MS = {"emit": 0.9997, "steady": 0.6934, "finalize": 0.3198,
-              "hop l0": 0.0142, "l0 bit-serial": 0.0033}
+              "hop l0": 0.0142, "l0 bit-serial": 0.0033,
+              "b1-b3 hop windows": 0.0981, "classifier": 0.1708}
 
 
 def phase(name: str, msg: str) -> None:
@@ -409,7 +439,8 @@ def per_stage_launches(plan, models, b, seed, device, torch,
     on the hop window too), then the classifier (B.5).  ``models`` holds
     one ``model_tensors`` dict per tenant.  Each entry carries the
     kernel's prepared operands, its MAC count and whether the per-stage
-    main path launches it at these shapes on every hop (``main``)."""
+    main path launches it at these shapes on every emit hop (``main``:
+    the hop and flush windows' raw convs and the classifier)."""
     from repro_torch.kernels import conv_kernels as bk
     from repro_torch.kernels import ops
 
@@ -437,7 +468,7 @@ def per_stage_launches(plan, models, b, seed, device, torch,
                                 name=bk.BITSERIAL_KERNEL,
                                 args=(x, cw.w, model_idx),
                                 kw=dict(bits=s.in_bits, **kw), macs=macs,
-                                cin=s.cin, main=what == "hop"))
+                                cin=s.cin, main=True))
                 continue
             xq = ops.pack_activations(torch.as_tensor(
                 rng.integers(0, 2, (b, rows, s.cin), dtype=np.int32),
@@ -446,7 +477,7 @@ def per_stage_launches(plan, models, b, seed, device, torch,
                             name=bk.CONV_STEP_KERNEL,
                             args=(xq, cw.wp, cw.wn, None, None, model_idx),
                             kw=dict(k=s.k, mode="raw", **kw), macs=macs,
-                            cin=s.cin, w=cw.w, main=what == "hop"))
+                            cin=s.cin, w=cw.w, main=True))
             if what == "hop" and not pooled:
                 for pool in (1, 2):
                     out.append(dict(
@@ -494,6 +525,192 @@ def bitserial_cases(seed, device, torch):
             name=bk.BITSERIAL_KERNEL, args=(x, w, mi),
             kw=dict(bits=bits, stride=stride, l_out=l_out),
             macs=b * l_out * cout * k * cin, cin=cin, main=False))
+    return out
+
+
+def step_cases(seed, device, torch):
+    """``STEP_CASES`` as per-stage launch entries: seeded packed windows,
+    ternary planes, +-inf thresholds and flips, and with K > 1 a per-slot
+    random pool row."""
+    from repro_torch.kernels import conv_kernels as bk
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for b, cin, cout, k, stride, l_out, mode, pool, km in STEP_CASES:
+        l_in = (l_out - 1) * stride + k + int(rng.integers(0, 3))
+        xq = ops.pack_activations(torch.as_tensor(rng.integers(
+            0, 2, (b, l_in, cin), dtype=np.int32), device=device))
+        lead = (km,) if km > 1 else ()
+        w = torch.as_tensor(rng.integers(-1, 2, lead + (k, cin, cout),
+                                         dtype=np.int32), device=device)
+        wp, wn = ops.pack_weight_planes(w)
+        thr = np.round(rng.normal(0, 3, cout)).astype(np.float32)
+        thr[:2] = (np.inf, -np.inf)
+        flip = (rng.random(cout) < 0.3).astype(np.int32)
+        mi = (torch.as_tensor(rng.integers(0, km, b, dtype=np.int32),
+                              device=device) if km > 1 else None)
+        sa = mode == "sa"
+        out.append(dict(
+            label=f"B={b} cin={cin} cout={cout} k={k} stride={stride} "
+                  f"l_out={l_out} {mode} pool={pool} K={km}",
+            name=bk.CONV_STEP_KERNEL,
+            args=(xq.contiguous(), wp.contiguous(), wn.contiguous(),
+                  torch.as_tensor(thr, device=device) if sa else None,
+                  torch.as_tensor(flip, device=device) if sa else None, mi),
+            kw=dict(k=k, stride=stride, l_out=l_out, pool=pool, mode=mode),
+            macs=b * l_out * cout * k * cin, main=False))
+    return out
+
+
+def tail_cases(seed, device, torch):
+    """``TAIL_CASES`` as per-stage launch entries: GAP counts past 255,
+    ternary fc weights, +-inf thresholds and flips per tenant."""
+    from repro_torch.kernels import conv_kernels as bk
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for b, dims, out_raw, km in TAIL_CASES:
+        lead = (km,) if km > 1 else ()
+        put = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+        ws, thrs, flips = [], [], []
+        for j in range(len(out_raw)):
+            ws.append(put(rng.integers(-1, 2, lead + dims[j:j + 2],
+                                       dtype=np.int8)))
+            thr = np.round(rng.normal(0, 40 if j == 0 else 3,
+                                      lead + (dims[j + 1],)))
+            thr.flat[:2] = (np.inf, -np.inf)
+            thrs.append(put(thr.astype(np.float32)))
+            flips.append(put((rng.random(lead + (dims[j + 1],)) < 0.3)
+                             .astype(np.int32)))
+        mi = (put(rng.integers(0, km, b, dtype=np.int32)) if km > 1
+              else None)
+        out.append(dict(
+            label=f"B={b} widths={dims} K={km}", name=bk.TAIL_KERNEL,
+            args=(put(rng.integers(0, 400, (b, dims[0]), dtype=np.int32)),
+                  ws, thrs, flips, mi),
+            kw=dict(out_raw=out_raw),
+            macs=b * sum(a * c for a, c in zip(dims, dims[1:])),
+            main=False))
+    return out
+
+
+def step_sweep(launches, torch, bk, sms):
+    """B.4 at every launch shape (slot block x n-tiles a CTA, with the
+    rule's MMA item) that fits, on each hop window of the main path:
+    every shape bit-equal to the rule's output, then device ms.  Uncounted
+    launches."""
+    rows = []
+    for e in launches:
+        if e["name"] != bk.CONV_STEP_KERNEL or not e["label"].startswith(
+                "hop") or e["kw"].get("mode") != "raw":
+            continue
+        x, wp = e["args"][0], e["args"][1]
+        b, _, cw = x.shape
+        k, stride, l_out = e["kw"]["k"], e["kw"]["stride"], e["kw"]["l_out"]
+        cout = wp.shape[-1]
+        nt, rows_in = -(-cout // 8), bk.step_rows(l_out, 1, stride, k)
+        pick = bk.conv_step_tiles(b, cw, k, stride, cout, l_out, 1, False,
+                                  sms)
+        want = bk.bnn_conv1d_step(*e["args"], **e["kw"])
+        shapes = []
+        for slots in bk.STEP_SLOTS:
+            if slots > 1 and slots // 2 >= b:
+                break
+            for ntb in sorted({-(-nt // (1 << i))
+                               for i in range(nt.bit_length() + 1)}):
+                smem = bk.step_smem(min(slots, b), ntb, cw, k, rows_in)
+                if smem > bk.MAX_SMEM:
+                    continue
+                ng, mc = bk.step_item(min(slots, b) * l_out, ntb)
+                t = bk.StepTile(slots, ntb, ng, mc, smem)
+                fn = lambda t=t: bk._conv_step_cuda(  # noqa: E731
+                    *e["args"], pool=1, **e["kw"], tile=t)
+                if not torch.equal(fn(), want):
+                    raise RuntimeError(f"B.4 {e['label']} tile {t} differs")
+                shapes.append(dict(
+                    slots=slots, ntb=ntb, ng=ng, mc=mc, smem=smem,
+                    ctas=-(-b // slots) * -(-nt // ntb),
+                    picked=(slots, ntb) == (pick.slots, pick.ntb),
+                    ms=time_ms(fn, torch)))
+        shapes.sort(key=lambda r: r["ms"])
+        rank = [r["picked"] for r in shapes].index(True)
+        rows.append(dict(label=e["label"], shapes=shapes, picked_rank=rank))
+        best, got = shapes[0], shapes[rank]
+        phase("kernels", f"B.4 tile sweep {e['label']} ({len(shapes)} "
+              f"shapes, each bit-equal): picked S={got['slots']} "
+              f"n-tiles={got['ntb']} item {got['ng']}x{got['mc']} "
+              f"{got['ms']:.4f} ms (rank {rank}); fastest S="
+              f"{best['slots']} n-tiles={best['ntb']} item "
+              f"{best['ng']}x{best['mc']} {best['ms']:.4f} ms")
+    return rows
+
+
+def tail_sweep(entry, torch, bk, sms):
+    """B.5 at every slot block x cluster size, at ``TAIL_SWEEP_B`` slots
+    of the main path's classifier operands: each bit-equal to the plain
+    version, then device ms.  Uncounted launches."""
+    gap, ws, thrs, flips, _ = entry["args"]
+    out_raw = entry["kw"]["out_raw"]
+    rows = []
+    for b in TAIL_SWEEP_B:
+        g = gap[:b].contiguous()
+        want = bk.classifier_tail_plain(g, ws, thrs, flips, out_raw=out_raw)
+        pick = bk.tail_block(b, -(-ws[0].shape[-1] // 8), sms)
+        shapes = []
+        for cluster in bk.TAIL_CLUSTERS:
+            for slots in bk.TAIL_SLOTS:
+                fn = lambda s=slots, c=cluster: bk._tail_cuda(  # noqa: E731
+                    g, ws, thrs, flips, None, out_raw=out_raw, slots=s,
+                    cluster=c)
+                if not torch.equal(fn(), want):
+                    raise RuntimeError(f"B.5 B={b} S={slots} C={cluster} "
+                                       "differs from plain")
+                shapes.append(dict(slots=slots, cluster=cluster,
+                                   picked=(slots, cluster) == pick,
+                                   ms=time_ms(fn, torch)))
+        shapes.sort(key=lambda r: r["ms"])
+        rank = [r["picked"] for r in shapes].index(True)
+        rows.append(dict(b=b, shapes=shapes, picked_rank=rank))
+        phase("kernels", f"B.5 slot sweep B={b} (each bit-equal): "
+              + ", ".join(f"S={r['slots']} C={r['cluster']} {r['ms']:.4f}"
+                          f"{' [picked]' if r['picked'] else ''}"
+                          for r in shapes))
+    return rows
+
+
+def mma_rate(build, torch):
+    """SM cycles per warp-wide MMA on the card (``csrc/mma_rate.cu``): the
+    u8 m16n8k32 and the 1-bit m16n8k256 .and.popc, at issue rate (a block
+    of 8 warps x 4 chains on every SM) and at latency (one warp, one
+    chain)."""
+    import ctypes
+
+    lib = build.load("mma_rate")
+    lib.mma_rate_launch.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    lib.mma_rate_launch.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters, out = 4096, {}
+    for kind, name in ((0, "u8 m16n8k32"), (1, "b1 m16n8k256 and.popc")):
+        for chains, blocks, threads, what in ((4, sms, 256, "issue"),
+                                              (1, 1, 32, "latency")):
+            cyc = torch.zeros(blocks, dtype=torch.int64, device="cuda")
+            sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+            for _ in range(2):   # the second run is the one read
+                rc = lib.mma_rate_launch(
+                    kind, chains, iters, blocks, threads, cyc.data_ptr(),
+                    sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"mma rate launch: CUDA error {rc}")
+            torch.cuda.synchronize()
+            out[f"{name} {what}"] = cyc.double().mean().item() / (
+                iters * chains * (threads // 32))
+    phase("kernels", "mma rate, SM cycles per MMA (issue / latency): " +
+          "; ".join(f"{n}: {out[n + ' issue']:.3f} / "
+                    f"{out[n + ' latency']:.2f}"
+                    for n in ("u8 m16n8k32", "b1 m16n8k256 and.popc")) +
+          " (a b1 MMA does 8x the depth of a u8 one; a ternary product "
+          "takes two)")
     return out
 
 
@@ -1072,7 +1289,8 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = build.build_all([mk.HOP_KERNEL, bk.SOURCE, tm.SOURCE])
+    libs = build.build_all([mk.HOP_KERNEL, bk.SOURCE, tm.SOURCE,
+                            "mma_rate"])
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in build.build_logs.get(name,
                                                             "").splitlines()
@@ -1173,6 +1391,10 @@ def main() -> int:
         dispatch))
     merge(check_per_stage("B.3 edge cases", bitserial_cases(
         args.seed + 24, dev, torch), torch, bk, dispatch))
+    merge(check_per_stage("B.4 edge cases", step_cases(
+        args.seed + 25, dev, torch), torch, bk, dispatch))
+    merge(check_per_stage("B.5 edge cases", tail_cases(
+        args.seed + 26, dev, torch), torch, bk, dispatch))
 
     geoms = tuple(mk.stage_geom(s) for s in plan.convs)
     fc_raw = tuple(f.out_raw for f in plan.fcs)
@@ -1244,6 +1466,37 @@ def main() -> int:
               f"{rec['call_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
               f"bound {bms:.6f} ms, conv1d {rec['library_ms']}")
     per_kernel = aggregate(per_launch)
+    step_rows = [r for r in per_launch if r["name"] == bk.CONV_STEP_KERNEL]
+    hop_sum = sum(r["ms"] for r in step_rows if r["label"].startswith("hop"))
+    flush_sum = sum(r["ms"] for r in step_rows
+                    if r["label"].startswith("flush"))
+    phase("kernels", f"B.4 per emit hop: hop windows b1-b3 {hop_sum:.4f} ms "
+          f"(earlier: {EARLIER_MS['b1-b3 hop windows']}), flush windows "
+          f"{flush_sum:.4f} ms, {len(step_rows)} launches "
+          f"{[round(r['ms'], 4) for r in step_rows]}")
+    # B.5 for one stream (a hop-boundary peek of a single stream)
+    tail_e = next(e for e in main_launches if e["name"] == bk.TAIL_KERNEL)
+    one = dict(tail_e, args=(tail_e["args"][0][:1].contiguous(),
+                             *tail_e["args"][1:]),
+               macs=tail_e["macs"] // B_MAIN)
+    out1 = bk.classifier_tail(*one["args"], **one["kw"])
+    if not torch.equal(out1, bk.classifier_tail_plain(*one["args"],
+                                                      **one["kw"])):
+        raise RuntimeError("B.5 at B=1 differs from plain")
+    tail_b1 = dict(
+        label="classifier B=1", name=bk.TAIL_KERNEL,
+        ms=time_ms(lambda: bk.classifier_tail(*one["args"], **one["kw"]),
+                   torch),
+        plain_ms=time_ms(lambda: bk.classifier_tail_plain(
+            *one["args"], **one["kw"]), torch, iters=5),
+        bound_ms=launch_bound_ms(one, out1)[0])
+    phase("kernels", f"time classifier B=1 ({bk.TAIL_KERNEL}): kernel "
+          f"{tail_b1['ms']:.4f} ms, plain {tail_b1['plain_ms']:.4f} ms, "
+          f"bound {tail_b1['bound_ms']:.6f} ms")
+    sms = mk._sms(dev)
+    sweep_step_rows = step_sweep(main_launches, torch, bk, sms)
+    sweep_tail_rows = tail_sweep(tail_e, torch, bk, sms)
+    mma = mma_rate(build, torch)
 
     # 4. launch counts
     for emit in (True, False):
@@ -1547,6 +1800,10 @@ def main() -> int:
                   library_call_ms={k: v["call_ms"]
                                    for k, v in lib_kernel.items()},
                   slot_block_sweep=sweep_s, earlier_ms=EARLIER_MS,
+                  conv_step_per_hop=dict(hop_windows_ms=hop_sum,
+                                         flush_windows_ms=flush_sum),
+                  classifier_b1=tail_b1, conv_step_tile_sweep=sweep_step_rows,
+                  classifier_slot_sweep=sweep_tail_rows, mma_rate=mma,
                   steady_hop=dict(zip(("ms", "plain_ms", "bound_ms",
                                        "bound_by"),
                                       timing[("hop", False)])))

@@ -2,10 +2,10 @@
 
 Each source under ``kernels/csrc/`` exposes a plain C interface and is
 compiled at first use into ``build/`` at the repository root (listed in
-``.gitignore``), named by a hash of its text and flags so an edited source
-is rebuilt and an unchanged one is reused within a checkout.  There is no
-prebuilt binary and no fallback: a missing compiler or a failed build
-raises.
+``.gitignore``), named by a hash of its text, the shared ``.cuh`` headers
+beside it and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused within a checkout.  There is no prebuilt binary
+and no fallback: a missing compiler or a failed build raises.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -shared -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
@@ -48,9 +48,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lands."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(ARCH_FLAGS + FLAGS).encode())
+    """Where the build of ``csrc/<name>.cu`` lands: named by a hash of the
+    source, every ``.cuh`` header of ``csrc/`` (a source may include any
+    of them) and the flags."""
+    tag = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        tag.update(header.name.encode() + header.read_bytes())
+    tag.update(" ".join(ARCH_FLAGS + FLAGS).encode())
     return BUILD_DIR / f"{name}-{tag.hexdigest()[:16]}.so"
 
 

@@ -155,25 +155,30 @@ def _slot_model_idx(model_idx, b: int, bb: int, device) -> torch.Tensor:
 class ConvWeights:
     """One conv layer's ternary weights in every form the per-stage kernels
     read, prepared once: ``w`` int8 ``([M,] K, Cin, Cout)``, ``wp``/``wn``
-    packed planes ``([M,] K, Cw, Cout)`` int32, ``wsum`` int32
-    ``([M,] Cout)`` (the offset fold's ``sum(w)``)."""
+    packed planes ``([M,] K, Cw, Cout)`` int32, ``wf`` the planes laid out
+    for B.4's 1-bit tensor-core GEMM (``conv_kernels.prepare_step_weights``;
+    None when made for B.3 or B.6 only), ``wsum`` int32 ``([M,] Cout)``
+    (the offset fold's ``sum(w)``)."""
 
     w: torch.Tensor
     wp: torch.Tensor
     wn: torch.Tensor
+    wf: torch.Tensor | None
     wsum: torch.Tensor
 
 
-def conv_weights(w_t, device=None) -> ConvWeights:
+def conv_weights(w_t, device=None, *, layout: bool = True) -> ConvWeights:
     """Prepare ternary conv weights ``([M,] K, Cin, Cout)`` for the conv
-    kernels (on the device the module's rule gives)."""
+    kernels (on the device the module's rule gives).  ``layout=False``
+    skips B.4's layout, which the B.3 and B.6 entry points never read."""
     if isinstance(w_t, ConvWeights):
         return w_t
     w = torch.as_tensor(w_t).to(resolve_device(w_t, device))
     wp, wn = pack_weight_planes(w)
+    wp, wn = wp.contiguous(), wn.contiguous()
     return ConvWeights(
-        w=w.to(torch.int8).contiguous(), wp=wp.contiguous(),
-        wn=wn.contiguous(),
+        w=w.to(torch.int8).contiguous(), wp=wp, wn=wn,
+        wf=_conv.prepare_step_weights(wp, wn) if layout else None,
         wsum=w.to(torch.int32).sum((-3, -2), dtype=torch.int32))
 
 
@@ -191,7 +196,7 @@ def bitserial_conv1d_batched(x_u, w_t, model_idx=None, *, bits: int,
     (``acc - offset * sum(w)``, per tenant when pooled)."""
     device = resolve_device(x_u, device)
     x = torch.as_tensor(x_u).to(device)
-    cw = conv_weights(w_t, device)
+    cw = conv_weights(w_t, device, layout=False)
     b, l, cin = x.shape
     k, cin2, _ = cw.w.shape[-3:]
     if cin != cin2:
@@ -249,12 +254,13 @@ def bnn_conv1d_batched(x_bits, w_t, thr=None, flip=None, model_idx=None, *,
         out = _conv.bnn_conv1d_step(
             xq, cw.wp, cw.wn, _as(thr, torch.float32, device),
             _as(flip, torch.int32, device), k=k, stride=stride,
-            l_out=l_out, pool=pool, mode="sa")
+            l_out=l_out, pool=pool, mode="sa", wf=cw.wf)
         return out.view(torch.uint32)
     mi = _slot_model_idx(model_idx, b, bb or STEP_BB, device) \
         if pooled else None
     return _conv.bnn_conv1d_step(xq, cw.wp, cw.wn, None, None, mi, k=k,
-                                 stride=stride, l_out=l_out, mode=mode)
+                                 stride=stride, l_out=l_out, mode=mode,
+                                 wf=cw.wf)
 
 
 def classifier_tail(gap, fc_ws, fc_thrs, fc_flips, model_idx=None, *,
@@ -263,14 +269,17 @@ def classifier_tail(gap, fc_ws, fc_thrs, fc_flips, model_idx=None, *,
     """GAP counts -> raw logits in ONE launch: saturate at the 8-bit PWB
     ceiling, then the whole fc cascade.
 
-    gap (B, C) int32; fc_ws per layer (Cin, Cout) ternary; fc_thrs /
-    fc_flips per layer (Cout,) SA params (unused on ``out_raw`` layers).
-    With ``model_idx`` ((B,) tenant ids, constant per ``bb`` slot block)
-    the fc params are pooled (M, ...) stacks.  Returns (B, n_classes)
-    int32."""
+    gap (B, C) int32 counts (>= 0); fc_ws per layer (Cin, Cout) ternary,
+    or the :class:`~repro_torch.kernels.conv_kernels.TailWeights` that
+    ``conv_kernels.prepare_tail_weights`` lays out once from int8 ones on
+    this device; fc_thrs / fc_flips per layer (Cout,) SA params (unused on
+    ``out_raw`` layers).  With ``model_idx`` ((B,) tenant ids, constant
+    per ``bb`` slot block) the fc params are pooled (M, ...) stacks.
+    Returns (B, n_classes) int32."""
     device = resolve_device(gap, device)
     gap = torch.as_tensor(gap)
-    ws = tuple(_as(w, torch.int8, device) for w in fc_ws)
+    ws = fc_ws if isinstance(fc_ws, _conv.TailWeights) else tuple(
+        _as(w, torch.int8, device) for w in fc_ws)
     thrs = tuple(None if raw else _as(t, torch.float32, device)
                  for t, raw in zip(fc_thrs, out_raw))
     flips = tuple(None if raw else _as(f, torch.int32, device)
@@ -415,7 +424,7 @@ def bnn_conv1d(x_bits, w_t, thr=None, flip=None, *, stride: int = 1,
     ``pool``, as the reference does)."""
     device = resolve_device(x_bits, device)
     x = _as(x_bits, torch.int32, device)
-    cw = conv_weights(w_t, device)
+    cw = conv_weights(w_t, device, layout=False)
     k, cin, _ = cw.w.shape
     if x.shape[1] != cin:
         raise ValueError(f"input has {x.shape[1]} channels, weights take "

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cnn_spec import CNN1DSpec
-from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels import conv_kernels, dispatch, ops
 from repro_torch.kernels.hop_megakernel import prepare_hop_weights
 from repro_torch.obs import Observability
 from repro_torch.runtime.pool import SlotPool
@@ -232,11 +232,14 @@ class _BatchedModel:
             self._kfc_w = self._kw.fc_ws
         elif backend == "per_stage":
             # the per-stage kernels' operands, prepared once: int8
-            # weights, packed pos/neg planes and sum(w) per conv layer,
-            # int8 fc weights (thresholds are float32 and fc flips int32
-            # in the prepared params already)
-            self._cw = tuple(ops.conv_weights(w) for w in self._w)
-            self._kfc_w = tuple(w.to(torch.int8) for w in self._fc_w)
+            # weights, packed pos/neg planes (laid out for B.4's tensor
+            # cores on the binary stages) and sum(w) per conv layer, the
+            # int8 fc weights laid out for B.5's (thresholds are float32
+            # and fc flips int32 in the prepared params already)
+            self._cw = tuple(ops.conv_weights(w, layout=st.in_bits == 1)
+                             for w, st in zip(self._w, plan.convs))
+            self._kfc_w = conv_kernels.prepare_tail_weights(
+                w.to(torch.int8) for w in self._fc_w)
 
     # -- shared conv math (dense and per-stage backends) --------------------
 

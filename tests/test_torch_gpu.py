@@ -1,6 +1,7 @@
 """Card tests of the port (marker ``gpu``): the CUDA hop kernel, the
-per-stage kernels (B.3 bit-serial step, B.4 conv step raw and ``sa``,
-B.5 classifier tail) and the kernel library's (B.6 fused conv -> SA ->
+per-stage kernels (B.3 bit-serial step, B.4 conv step raw and ``sa`` at
+ragged edges and every tile, B.5 classifier tail with tenants at every
+slot block and cluster size) and the kernel library's (B.6 fused conv -> SA ->
 pool, B.7 popcount GEMM raw and ``sa``, B.8 int8 tensor-core GEMM)
 against their plain PyTorch versions on the card, bit for bit, and the
 megakernel and per-stage schedulers against the dense backend on the
@@ -393,6 +394,143 @@ def test_cuda_bitserial_step_edge_cases(b, l_out, cin, k, stride, cout, bits,
     torch.cuda.synchronize()
     assert launched() == {bk.BITSERIAL_KERNEL: 1}
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+# (B, cin, cout, k, stride, l_out, mode, pool, K): cout off the 8-column
+# n-tile (and off 4), positions off the 16-row m-tile, stride 2, pools
+# 2-4, flush-sized windows, tenants by slot, one word a row
+STEP = [(37, 64, 20, 3, 1, 19, "raw", 1, 1),
+        (5, 96, 13, 5, 2, 7, "sa", 2, 1),
+        (9, 256, 44, 3, 1, 3, "raw", 1, 2),
+        (200, 128, 250, 5, 1, 29, "sa", 3, 1),
+        (3, 40, 6, 3, 1, 15, "sa", 4, 1),
+        (11, 40, 6, 3, 2, 7, "raw", 1, 3),
+        (256, 256, 352, 3, 1, 2, "raw", 1, 1),
+        (1, 64, 128, 3, 1, 64, "raw", 1, 1),
+        (7, 20, 16, 5, 1, 9, "sa", 2, 1)]
+
+
+def _step_operands(dev, rng, b, cin, cout, k, stride, l_out, mode, km):
+    l_in = (l_out - 1) * stride + k + int(rng.integers(0, 3))
+    x = ops.pack_activations(torch.as_tensor(rng.integers(
+        0, 2, (b, l_in, cin)).astype(np.int32))).contiguous()
+    lead = (km,) if km > 1 else ()
+    w = torch.as_tensor(rng.integers(-1, 2, lead + (k, cin, cout)).astype(
+        np.int32))
+    wp, wn = (t.contiguous() for t in ops.pack_weight_planes(w))
+    thr = torch.as_tensor(np.round(rng.normal(0, 3, cout)).astype(np.float32))
+    thr[:2] = torch.tensor([np.inf, -np.inf])
+    flip = torch.as_tensor((rng.random(cout) < 0.3).astype(np.int32))
+    mi = (torch.as_tensor(rng.integers(0, km, b).astype(np.int32))
+          if km > 1 else None)
+    sa = mode == "sa"
+    return (x, wp, wn, thr if sa else None, flip if sa else None, mi)
+
+
+@pytest.mark.parametrize("b,cin,cout,k,stride,l_out,mode,pool,km", STEP,
+                         ids=str)
+def test_cuda_conv_step_edge_cases(b, cin, cout, k, stride, l_out, mode,
+                                   pool, km):
+    """B.4 on the 1-bit tensor cores at ragged edges and with tenants,
+    through the entry point (its own launch shape), bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(l_out * 13 + cout)
+    args = _step_operands(dev, rng, b, cin, cout, k, stride, l_out, mode, km)
+    kw = dict(k=k, stride=stride, l_out=l_out, pool=pool, mode=mode)
+    want = bk.bnn_conv1d_step(*args, **kw)
+    with dispatch.counting() as launched:
+        got = bk.bnn_conv1d_step(*(None if a is None else a.to(dev)
+                                   for a in args), **kw)
+    torch.cuda.synchronize()
+    assert launched() == {bk.CONV_STEP_KERNEL: 1}
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("slots", bk.STEP_SLOTS[:5])
+@pytest.mark.parametrize("item", bk.STEP_ITEMS)
+def test_cuda_conv_step_every_tile(slots, item):
+    """Every slot block and MMA item B.4 may take, with a ragged last
+    block of slots and of n-tiles, against the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(slots)
+    b, cin, cout, k, l_out = 19, 64, 44, 3, 21
+    args = _step_operands(dev, rng, b, cin, cout, k, 1, l_out, "raw", 1)
+    want = bk.conv_step_plain(*args, k=k, stride=1, l_out=l_out)
+    cw = args[0].shape[-1]
+    for ntb in (1, 2, 3, 6):
+        smem = bk.step_smem(min(slots, b), ntb, cw, k,
+                            bk.step_rows(l_out, 1, 1, k))
+        tile = bk.StepTile(slots, ntb, *item, smem)
+        got = bk._conv_step_cuda(*(None if a is None else a.to(dev)
+                                   for a in args), k=k, stride=1,
+                                 l_out=l_out, pool=1, mode="raw", tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (slots, ntb, item)
+
+
+# (B, widths, out_raw, tenant models): one slot, tenants by slot, three
+# fc layers, a single raw layer
+TAIL = [(1, (352, 512, 12), (False, True), 1),
+        (17, (352, 512, 12), (False, True), 3),
+        (40, (70, 33, 20, 12), (False, False, True), 3),
+        (256, (352, 512, 12), (False, True), 2),
+        (5, (40, 24, 12), (False, True), 1),
+        (9, (40, 12), (True,), 2)]
+
+
+def _tail_operands(rng, b, dims, out_raw, km):
+    lead = (km,) if km > 1 else ()
+    ws, thrs, flips = [], [], []
+    for j in range(len(out_raw)):
+        ws.append(torch.as_tensor(rng.integers(
+            -1, 2, lead + dims[j:j + 2]).astype(np.int8)))
+        thr = np.round(rng.normal(0, 40 if j == 0 else 3,
+                                  lead + (dims[j + 1],)))
+        thr.flat[:2] = (np.inf, -np.inf)
+        thrs.append(torch.as_tensor(thr.astype(np.float32)))
+        flips.append(torch.as_tensor((rng.random(lead + (dims[j + 1],))
+                                      < 0.3).astype(np.int32)))
+    gap = torch.as_tensor(rng.integers(0, 400, (b, dims[0])).astype(np.int32))
+    mi = (torch.as_tensor(rng.integers(0, km, b).astype(np.int32))
+          if km > 1 else None)
+    return gap, ws, thrs, flips, mi
+
+
+@pytest.mark.parametrize("b,dims,out_raw,km", TAIL, ids=str)
+def test_cuda_classifier_tail_edge_cases(b, dims, out_raw, km):
+    """B.5 in clusters on the int8 tensor cores: one slot, tenants by slot
+    in a ragged last cluster, three fc layers, GAP counts past 255; raw
+    weights and their laid-out form alike, bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(b + len(dims))
+    gap, ws, thrs, flips, mi = _tail_operands(rng, b, dims, out_raw, km)
+    want = bk.classifier_tail(gap, ws, thrs, flips, mi, out_raw=out_raw)
+    d = lambda xs: [x.to(dev) for x in xs]  # noqa: E731
+    md = None if mi is None else mi.to(dev)
+    for weights in (d(ws), bk.prepare_tail_weights(d(ws))):
+        with dispatch.counting() as launched:
+            got = bk.classifier_tail(gap.to(dev), weights, d(thrs),
+                                     d(flips), md, out_raw=out_raw)
+        torch.cuda.synchronize()
+        assert launched() == {bk.TAIL_KERNEL: 1}
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cluster", bk.TAIL_CLUSTERS)
+def test_cuda_classifier_tail_every_block(cluster):
+    """Every slot block at every cluster size, with tenants by slot."""
+    dev = _cuda()
+    rng = np.random.default_rng(cluster)
+    gap, ws, thrs, flips, mi = _tail_operands(rng, 37, (352, 512, 12),
+                                              (False, True), 2)
+    want = bk.classifier_tail(gap, ws, thrs, flips, mi, out_raw=(False, True))
+    d = lambda xs: [x.to(dev) for x in xs]  # noqa: E731
+    for slots in bk.TAIL_SLOTS:
+        got = bk._tail_cuda(gap.to(dev), d(ws), d(thrs), d(flips), mi.to(dev),
+                            out_raw=(False, True), slots=slots,
+                            cluster=cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (slots, cluster)
 
 
 @pytest.mark.parametrize("b,k_models", [(64, 1), (37, 1), (21, 2)],
