@@ -62,8 +62,12 @@ Phases (each prints one line, any failure exits non-zero):
               ``models.kws.offline_logits`` on the card
               (1 B.3, 3 B.6, 2 B.7 launches), its logits equal to the same
               composition on CPU tensors (the plain versions) and to the
-              numpy ``StreamState``; then the bench's two GEMMs through
+              numpy ``StreamState``, and again through the model laid out
+              once by ``models.kws.prepare_offline`` (counted apart, the
+              same launches and logits); then the bench's two GEMMs through
               ``ops.twm_linear`` and ``ops.twm_linear_mxu`` (2 B.7, 2 B.8).
+              The utterance issued from Python is timed with the raw model
+              dicts and with the prepared model.
               Each kernel is timed at the path's shapes and at (8192,
               1024, 4096) beside its plain version, its bound and the one
               PyTorch call computing its contraction (``conv1d`` or a
@@ -71,7 +75,9 @@ Phases (each prints one line, any failure exits non-zero):
               the float32 matmul where ``_int_mm`` refuses M <= 16), each
               B.7 and B.8 shape with its tile and its time over the
               library call's; both tiles of each GEMM kernel are timed at
-              ``TILE_SWEEP``'s shapes (the thresholds' evidence), and for
+              ``TILE_SWEEP``'s shapes (the thresholds' evidence), B.6 at
+              every launch shape on the utterance's b1-b3 (each bit-equal
+              first; the rule's pick and the fastest printed), and for
               each GEMM shape the path
               ``ops.pick_path`` picks is printed beside the faster kernel.
 6. main     — ``StreamScheduler(build_kws_spec(), ..., capacity=256,
@@ -99,9 +105,9 @@ utterance, B.7's and B.8's of the library path; a library time only
 where every one of them has one), and the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
 is ``{"ok": true, "device": {...}}``.  The same record, with every timed
-launch shape, the ``pick_path`` finding, the B.4 tile and B.5 slot-block
-sweeps and the MMA rates, is written to ``chip_smoke.json`` in the output
-directory beside the script.
+launch shape, the ``pick_path`` finding, the B.4 tile, B.5 slot-block and
+B.6 shape sweeps and the MMA rates, is written to ``chip_smoke.json`` in
+the output directory beside the script.
 """
 from __future__ import annotations
 
@@ -149,13 +155,15 @@ TAIL_SWEEP_B = (256, 64, 1)
 #: the earlier designs' device times at the main path's shapes, ms (this
 #: script on an NVIDIA H100 80GB HBM3 at 700.00 W, when the hop kernel ran
 #: one CTA per slot on scalar MACs, B.3 one thread per output, B.4 one
-#: thread per output on popcounts and B.5 one CTA per slot): the hop
-#: kernel at B=256 emit / steady / finalize, B.3 at the hop's and the
-#: utterance's l0, B.4 summed over a hop's three hop windows, B.5 at
-#: B=256 (by this script's launch labels)
+#: thread per output on popcounts, B.5 one CTA per slot and B.6 one thread
+#: per output channel on popcounts): the hop kernel at B=256 emit /
+#: steady / finalize, B.3 at the hop's and the utterance's l0, B.4 summed
+#: over a hop's three hop windows, B.5 at B=256, B.6 at the utterance's
+#: b1-b3 (by this script's launch labels)
 EARLIER_MS = {"emit": 0.9997, "steady": 0.6934, "finalize": 0.3198,
               "hop l0": 0.0142, "l0 bit-serial": 0.0033,
-              "b1-b3 hop windows": 0.0981, "classifier": 0.1708}
+              "b1-b3 hop windows": 0.0981, "classifier": 0.1708,
+              "b1 sa": 0.0048, "b2 sa": 0.0089, "b3 sa": 0.0089}
 
 
 def phase(name: str, msg: str) -> None:
@@ -1188,6 +1196,58 @@ def tile_sweep(entries, torch, tm, seed, dev):
     return rows
 
 
+def block_sweep(entries, torch, bk, sms):
+    """B.6 at every launch shape on the utterance's b1-b3 (``sa`` pool 2,
+    as the library path launches them): every block of pooled positions x
+    n-tiles that fits with the rule's MMA item, and every item at the
+    rule's block, each bit-equal to the plain version first, then device
+    ms.  Uncounted launches."""
+    rows = []
+    for e in entries:
+        if e["name"] != bk.CONV_KERNEL or not e["main"]:
+            continue
+        x, wp, wn, thr, flip = e["args"]
+        cw, cout = x.shape[1], wp.shape[-1]
+        k, stride = e["kw"]["k"], e["kw"]["stride"]
+        npool = e["kw"]["pool"]
+        n_pos = e["kw"]["l_out"] // npool
+        nt = -(-cout // 8)
+        pick = bk.conv_block_tiles(cw, k, stride, cout, n_pos, npool, sms)
+        want = bk.conv1d_plain(*e["args"], **e["kw"])
+        wf = bk.prepare_step_weights(wp, wn)
+        cands = []
+        for pb in bk.CONV_BLOCKS:
+            for ntb in sorted({-(-nt // (1 << i))
+                               for i in range(nt.bit_length() + 1)}):
+                smem = bk.block_smem(min(pb, n_pos), ntb, cw, k, stride,
+                                     npool)
+                if smem <= bk.MAX_SMEM:
+                    item = bk.step_item(min(pb, n_pos), ntb)
+                    cands.append(bk.BlockTile(pb, ntb, *item, smem))
+        cands += [pick._replace(ng=ng, mc=mc) for ng, mc in bk.STEP_ITEMS
+                  if (ng, mc) != (pick.ng, pick.mc)]
+        shapes = []
+        for t in cands:
+            fn = lambda t=t: bk._conv1d_cuda(  # noqa: E731
+                *e["args"], **e["kw"], wf=wf, tile=t)
+            if not torch.equal(fn(), want):
+                raise RuntimeError(f"B.6 {e['label']} shape {t} differs")
+            shapes.append(dict(t._asdict(), picked=t == pick,
+                               ctas=-(-n_pos // t.pb) * -(-nt // t.ntb),
+                               ms=time_ms(fn, torch)))
+        shapes.sort(key=lambda r: r["ms"])
+        rank = [r["picked"] for r in shapes].index(True)
+        rows.append(dict(label=e["label"], shapes=shapes, picked_rank=rank))
+        best, got = shapes[0], shapes[rank]
+        fmt = lambda r: (f"positions={r['pb']} n-tiles={r['ntb']} item "  # noqa: E731,E501
+                         f"{r['ng']}x{r['mc']} ({r['ctas']} CTAs) "
+                         f"{r['ms']:.4f} ms")
+        phase("library", f"B.6 shape sweep {e['label']} ({len(shapes)} "
+              f"shapes, each bit-equal): picked {fmt(got)} (rank {rank}); "
+              f"fastest {fmt(best)}; slowest {fmt(shapes[-1])}")
+    return rows
+
+
 def run_library_path(spec, weights, thresholds, audio, seed, dev, torch,
                      kws, ops, dispatch):
     """The library path, counted: one utterance through
@@ -1591,9 +1651,20 @@ def main() -> int:
                 and torch.equal(i32(pop), i32(mxu))):
             raise RuntimeError(f"library GEMM {tuple(a[0].shape)} x "
                                f"{tuple(a[1].shape)} differs from plain")
+    # the same utterance through the model laid out once
+    model = kws.prepare_offline(spec, weights, thresholds, device=dev)
+    audio_dev = torch.as_tensor(audio1, device=dev)
+    torch.cuda.synchronize()
+    dispatch.reset()   # the prepared utterance's counts start here
+    prep_logits = kws.offline_logits(model, audio_dev)
+    prep_launches = dispatch.counts()
+    if prep_launches != want_utt or not torch.equal(prep_logits, logits):
+        raise RuntimeError(f"prepared-model utterance: logits "
+                           f"{prep_logits}, launches {prep_launches}")
     phase("library", f"utterance ({spec.in_len} samples, width 64): "
-          f"logits {logits.tolist()} == plain composition == StreamState; "
-          f"launches {utt_launches}; kernel_bench GEMMs {BENCH_GEMMS} "
+          f"logits {logits.tolist()} == plain composition == StreamState "
+          f"== prepared model; launches {utt_launches} (prepared model: "
+          f"{prep_launches}); kernel_bench GEMMs {BENCH_GEMMS} "
           f"through twm_linear and twm_linear_mxu: equal, launches "
           f"{gemm_launches}")
     lib_launches = dict(collections.Counter(utt_launches)
@@ -1604,11 +1675,13 @@ def main() -> int:
                               else torch.as_tensor(x, device=dev))
                          for li, x in d.items()}
     w_dev, t_dev = on_card(weights), on_card(thresholds)
-    audio_dev = torch.as_tensor(audio1, device=dev)
     utt_ms = call_ms(lambda: kws.offline_logits(spec, w_dev, t_dev,
                                                 audio_dev), torch)
-    phase("library", f"utterance issued from Python: {utt_ms:.4f} ms per "
-          f"call (1 B.3, 3 B.6, 2 B.7 launches and the host's glue); {card}")
+    prep_ms = call_ms(lambda: kws.offline_logits(model, audio_dev), torch)
+    phase("library", f"utterance issued from Python (1 B.3, 3 B.6, 2 B.7 "
+          f"launches and the host's glue): raw model dicts on the card "
+          f"{utt_ms:.4f} ms per call, model laid out once "
+          f"(prepare_offline) {prep_ms:.4f} ms per call; {card}")
     lib_times = []
     for e in lib_entries:
         if not e["timed"]:
@@ -1639,6 +1712,7 @@ def main() -> int:
               f"{yard_name} {rec['library_ms']:.4f} ms, kernel / library "
               f"{rec['vs_library']:.2f}")
     sweep = tile_sweep(lib_entries, torch, tm, args.seed + 14, dev)
+    b6_sweep = block_sweep(lib_entries, torch, bk, mk._sms(dev))
     by_label = {(r["name"], r["label"]): r for r in lib_times}
     pick = {}
     for shape in GEMM_SHAPES:
@@ -1797,6 +1871,8 @@ def main() -> int:
                   library_launch_shapes=lib_times, pick_path=pick,
                   gemm_tile_sweep=sweep,
                   utterance_call_ms=utt_ms,
+                  utterance_prepared_call_ms=prep_ms,
+                  conv1d_block_sweep=b6_sweep,
                   library_call_ms={k: v["call_ms"]
                                    for k, v in lib_kernel.items()},
                   slot_block_sweep=sweep_s, earlier_ms=EARLIER_MS,

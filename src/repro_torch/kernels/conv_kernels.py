@@ -34,9 +34,10 @@ Operands are what ``kernels/ops.py`` prepares:
   once per model for the int8 tensor cores), float32 thresholds and int32
   flips ``([M,] Cout)``;
 * ``bnn_conv1d``: the packed unpadded input ``(L, Cw)`` int32 words and
-  packed weight planes ``(K, Cw, Cout)``; the kernel reads rows outside
+  packed weight planes ``(K, Cw, Cout)``; the kernel stages rows outside
   ``[0, L)`` as the conv's zero padding, so neither a padded copy nor a
-  tap view is materialised.
+  tap view is materialised.  It is B.4's kernel over blocks of one
+  stream's positions and reads the planes in B.4's layout.
 
 With a tenant pool, ``model_idx`` is a per-slot ``(B,)`` int32 pool row
 (``ops`` expands the reference's per-block rule) and every weight operand
@@ -77,10 +78,6 @@ CONV_STEP_KERNEL = "bnn_conv1d_step"
 TAIL_KERNEL = "classifier_tail"
 CONV_KERNEL = "bnn_conv1d"
 THREADS = 256
-#: B.6 launch shape: at most this many output channels per CTA, and
-#: enough position blocks for about one CTA per SM of an H100
-CONV_BN = 128
-CONV_TARGET_CTAS = 132
 MAX_FC = 8
 #: B.4 launch shape: the slot blocks a CTA may take, and an MMA item's
 #: shapes (n-tiles, m-tiles) in the order the card ranked them at a hop's
@@ -90,6 +87,8 @@ MAX_FC = 8
 STEP_SLOTS = (1, 2, 4, 8, 16, 32, 64)
 STEP_ITEMS = ((2, 2), (4, 1), (1, 4), (2, 1), (1, 2), (1, 1))
 WARPS = THREADS // 32
+#: B.6 launch shape: the blocks of pooled positions a CTA may take
+CONV_BLOCKS = (8, 16, 32, 64, 128, 256)
 #: B.5 launch shape: the slot blocks a cluster may take (its rows of one
 #: m16 tile), the CTAs a cluster may have (at most 8, the portable cluster
 #: size), and room for the kernel's static shared memory (its pass list
@@ -201,11 +200,12 @@ def classifier_tail_plain(gap, fc_ws, fc_thrs, fc_flips, model_idx=None, *,
 
 
 # ---------------------------------------------------------------------------
-# Weight layouts of the tensor-core kernels (B.4, B.5)
+# Weight layouts of the tensor-core kernels (B.4 and B.6, B.5)
 # ---------------------------------------------------------------------------
 
 def prepare_step_weights(wp, wn) -> torch.Tensor:
-    """B.4's weights from the packed planes ``([M,] K, Cw, Cout)`` int32, in
+    """B.4's and B.6's weights from the packed planes ``([M,] K, Cw, Cout)``
+    int32, in
     the B-fragment order of the 1-bit ``mma.m16n8k256``: ``([M,]
     ceil(Cout / 8), ceil(K * Cw / 8), 32, 4)`` int32, where lane ``4 g + t``
     of n-tile ``j`` and k-step ``s`` holds depth words ``8 s + t`` and
@@ -276,7 +276,7 @@ class _StepArgs(ctypes.Structure):
         "x", "wf", "thr", "flip", "model_idx", "out")] + [
         (n, ctypes.c_int) for n in (
             "batch", "l_in", "cw", "k", "stride", "cout", "n_out", "pool",
-            "sa", "slots", "ntb", "rows_in", "win_words")]
+            "sa", "slots", "ntb", "rows_in", "win_words", "pad")]
 
 
 class _TailFc(ctypes.Structure):
@@ -301,7 +301,7 @@ def _lib():
         lib.bnn_conv1d_step_launch.argtypes = [P, I, I, I, P]
         lib.bnn_bitserial_step_launch.argtypes = [P] * 4 + [I] * 12 + [P]
         lib.classifier_tail_launch.argtypes = [P, I, P]
-        lib.bnn_conv1d_launch.argtypes = [P] * 6 + [I] * 13 + [P]
+        lib.bnn_conv1d_launch.argtypes = [P, I, I, I, P]
         for fn in (lib.bnn_conv1d_step_launch, lib.bnn_bitserial_step_launch,
                    lib.classifier_tail_launch,
                    lib.classifier_tail_params_size,
@@ -465,6 +465,22 @@ def step_item(rows: int, ntb: int) -> tuple[int, int]:
     return max(fits, key=lambda it: _cdiv(mts, it[1]) * _cdiv(ntb, it[0]))
 
 
+def _rank(ctas: int, rows: int, ntb: int, l2: int, smem: int, sms: int):
+    """The ranking key of a B.4 or B.6 launch shape of ``ctas`` CTAs, each
+    of ``rows`` output rows and ``ntb`` n-tiles, reading ``l2`` bytes in
+    all and holding ``smem`` bytes of shared memory, and its MMA item:
+    how far the CTA count lies from one or two CTAs for every SM (two,
+    where they fit), the MMA tiles on the busiest SM (an item past a CTA's
+    last n-tile or row computes padding), the L2 bytes, the shared
+    memory."""
+    per_sm = min(2, SM_SMEM // (smem + CTA_RESERVED_SMEM))
+    miss = sms - ctas if ctas < sms else max(0, ctas - sms * per_sm)
+    ng, mc = step_item(rows, ntb)
+    busiest = _cdiv(ctas, sms) * _cdiv(ntb, ng) * ng * \
+        _cdiv(_cdiv(rows, 16), mc) * mc
+    return (miss, busiest, l2, smem), (ng, mc)
+
+
 @functools.lru_cache(maxsize=256)
 def conv_step_tiles(b: int, cw: int, k: int, stride: int, cout: int,
                     n_out: int, pool: int = 1, pooled: bool = False,
@@ -493,17 +509,10 @@ def conv_step_tiles(b: int, cw: int, k: int, stride: int, cout: int,
             if smem > MAX_SMEM:
                 continue
             ctas = _cdiv(b, slots) * _cdiv(nt, ntb)
-            per_sm = min(2, SM_SMEM // (smem + CTA_RESERVED_SMEM))
-            hi = sms * per_sm
-            miss = sms - ctas if ctas < sms else max(0, ctas - hi)
-            ng, mc = step_item(rows, ntb)
-            # MMA tiles the busiest SM computes, padding included
-            busiest = _cdiv(ctas, sms) * _cdiv(ntb, ng) * ng * \
-                _cdiv(_cdiv(rows, 16), mc) * mc
             l2 = ctas * (ntb * ks * 512 + min(slots, b) * rows_in * cw * 4)
-            key = (miss, busiest, l2, smem)
+            key, item = _rank(ctas, rows, ntb, l2, smem, sms)
             if best is None or key < best[0]:
-                best = (key, StepTile(slots, ntb, ng, mc, smem))
+                best = (key, StepTile(slots, ntb, *item, smem))
     if best is None:
         raise ValueError(
             f"a k={k} conv step over {cw} words needs "
@@ -703,35 +712,82 @@ def _tail_cuda(gap, fc_ws, fc_thrs, fc_flips, model_idx, *, out_raw,
     return out
 
 
-def conv1d_tiles(cw: int, k: int, stride: int, cout: int, n_pos: int,
-                 pool: int) -> tuple[int, int, int, int]:
-    """B.6's launch shape: ``(bn, bp, ty, smem bytes)`` -- output channels
-    and pooled positions per CTA, thread rows, and the shared memory of
-    the block's staged weight planes and input rows.  Halves ``bn`` (down
-    to one warp) and then ``bp`` until the block fits."""
-    bn = min(CONV_BN, -(-cout // 32) * 32)
-    blocks = -(-cout // bn)
-    ty = THREADS // bn
-    bp = max(ty, min(16 * ty, -(-n_pos * blocks // CONV_TARGET_CTAS)))
+class BlockTile(NamedTuple):
+    """B.6's launch shape: pooled positions and n-tiles (8 output channels
+    each) per CTA, an MMA item's n-tiles and m-tiles, and the CTA's shared
+    memory (:func:`block_smem`)."""
 
-    def smem(bn, bp):
-        rows = (bp * pool - 1) * stride + k
-        return 4 * (2 * k * cw * bn + rows * cw)
+    pb: int
+    ntb: int
+    ng: int
+    mc: int
+    smem: int
 
-    while smem(bn, bp) > MAX_SMEM and bn > 32:
-        bn //= 2
-    while smem(bn, bp) > MAX_SMEM and bp > 1:
-        bp //= 2
-    if smem(bn, bp) > MAX_SMEM:
+
+def block_win_words(rows_in: int, cw: int) -> int:
+    """Words of shared memory B.6's window takes: up to 3 words before its
+    first row (the copy starts on the 16-byte boundary at or before it),
+    the rows, then 8 words of slack (a position's last k-step reads up to 7
+    words past its depth run, against zero weights), rounded up to 16
+    bytes."""
+    return -(-(3 + rows_in * cw + 8) // 4) * 4
+
+
+def block_smem(pb: int, ntb: int, cw: int, k: int, stride: int,
+               npool: int) -> int:
+    """B.6's shared memory for a CTA of ``pb`` pooled positions (at most
+    the stream's) and ``ntb`` n-tiles: the n-tiles' weights in fragment
+    order (512 bytes per n-tile and k-step), then the positions' rows."""
+    rows_in = step_rows(pb, npool, stride, k)
+    return (ntb * _cdiv(k * cw, 8) * 512
+            + 4 * block_win_words(rows_in, cw))
+
+
+@functools.lru_cache(maxsize=64)
+def conv_block_tiles(cw: int, k: int, stride: int, cout: int, n_pos: int,
+                     npool: int = 1, sms: int = H100_SMS) -> BlockTile:
+    """B.6's launch shape for one stream of ``n_pos`` pooled positions of
+    ``npool`` positions each (1 in ``raw`` mode), among the blocks of
+    ``CONV_BLOCKS`` positions and of ``ceil(n_tiles / 2^i)`` n-tiles that
+    fit in shared memory.  The rule is B.4's (:func:`conv_step_tiles`) with
+    position blocks in place of slot blocks: one or two CTAs for every SM,
+    then the fewest MMA tiles on the busiest SM, then the fewest bytes read
+    from L2, then the least shared memory.  The card's sweep of every
+    shape at the utterance's b1-b3 (``chip_smoke.py``, NVIDIA H100 80GB
+    HBM3, 700 W; ``PERF.md``) ranks its picks within 3 % of the fastest:
+    b1 32 x 2 at 0.0028 ms (fastest 16 x 4, 0.0027), b2 64 x 1 at 0.0031
+    (32 x 4, 0.0030), b3 16 x 3 at 0.0030 (32 x 3, 0.0030); the slowest,
+    a few large CTAs, take 0.015-0.045 ms.  Memoized: an utterance asks
+    for the same three shapes every time."""
+    nt, ks = _cdiv(cout, MMA_N), _cdiv(k * cw, 8)
+    ntbs = sorted({_cdiv(nt, 1 << i) for i in range(nt.bit_length() + 1)})
+    best = None
+    for pb in CONV_BLOCKS:
+        if pb > CONV_BLOCKS[0] and pb // 2 >= n_pos:
+            break
+        rows = min(pb, n_pos)
+        blocks = _cdiv(n_pos, pb)
+        rows_in = step_rows(rows, npool, stride, k)
+        for ntb in ntbs:
+            smem = block_smem(rows, ntb, cw, k, stride, npool)
+            if smem > MAX_SMEM:
+                continue
+            ctas = blocks * _cdiv(nt, ntb)
+            l2 = ctas * (ntb * ks * 512 + rows_in * cw * 4)
+            key, item = _rank(ctas, rows, ntb, l2, smem, sms)
+            if best is None or key < best[0]:
+                best = (key, BlockTile(pb, ntb, *item, smem))
+    if best is None:
         raise ValueError(
-            f"a k={k} conv over {cw} words needs {smem(bn, bp)} B of shared "
-            f"memory at its smallest block, more than the {MAX_SMEM} B a "
-            "block can have")
-    return bn, bp, THREADS // bn, smem(bn, bp)
+            f"a k={k} conv over {cw} words needs "
+            f"{block_smem(1, 1, cw, k, stride, npool)} B of shared memory "
+            f"at its smallest block, more than the {MAX_SMEM} B a block can "
+            "have")
+    return best[1]
 
 
 def _conv1d_cuda(x, wp, wn, thr, flip, *, k, stride, pad, l_out, pool,
-                 mode):
+                 mode, wf=None, tile=None):
     l_in, cw = x.shape
     cout = wp.shape[-1]
     _check(x, "x", torch.int32, (l_in, cw))
@@ -744,13 +800,26 @@ def _conv1d_cuda(x, wp, wn, thr, flip, *, k, stride, pad, l_out, pool,
     if sa:
         _check(thr, "thr", torch.float32, (cout,))
         _check(flip, "flip", torch.int32, (cout,))
-    n_pos = l_out // pool
+    npool = pool if sa else 1
+    n_pos = l_out // npool
+    if wf is None:
+        wf = _memo_layout((wp, wn), lambda: prepare_step_weights(wp, wn))
+    _aligned(_check(wf, "wf", torch.int32,
+                    (_cdiv(cout, MMA_N), _cdiv(k * cw, 8), 32, 4)), "wf")
     out = torch.empty((n_pos, cout), dtype=torch.int32, device=x.device)
-    bn, bp, ty, smem = conv1d_tiles(cw, k, stride, cout, n_pos, pool)
-    _run(_lib().bnn_conv1d_launch, CONV_KERNEL, x.device, x.data_ptr(),
-         wp.data_ptr(), wn.data_ptr(), _ptr(thr), _ptr(flip),
-         out.data_ptr(), l_in, cw, k, stride, pad, cout, n_pos, pool,
-         int(sa), bn, bp, ty, smem)
+    if tile is None:
+        tile = conv_block_tiles(cw, k, stride, cout, n_pos, npool,
+                                _sms(x.device))
+    if (tile.ng, tile.mc) not in STEP_ITEMS:
+        raise ValueError(f"no kernel for items of {tile.ng} x {tile.mc} "
+                         f"tiles; the kernel has {STEP_ITEMS}")
+    a = _StepArgs(x=x.data_ptr(), wf=wf.data_ptr(), thr=_ptr(thr),
+                  flip=_ptr(flip), model_idx=None, out=out.data_ptr(),
+                  batch=1, l_in=l_in, cw=cw, k=k, stride=stride, cout=cout,
+                  n_out=n_pos, pool=npool, sa=int(sa), slots=tile.pb,
+                  ntb=tile.ntb, pad=pad)
+    _run(_lib().bnn_conv1d_launch, CONV_KERNEL, x.device, ctypes.byref(a),
+         tile.ng, tile.mc, tile.smem)
     return out
 
 
@@ -812,11 +881,14 @@ def classifier_tail(gap, fc_ws, fc_thrs, fc_flips, model_idx=None, *,
 
 
 def bnn_conv1d(x, wp, wn, thr=None, flip=None, *, k: int, stride: int,
-               pad: int, l_out: int, pool: int = 1, mode: str = "sa"
-               ) -> torch.Tensor:
+               pad: int, l_out: int, pool: int = 1, mode: str = "sa",
+               wf=None) -> torch.Tensor:
     """B.6, ONE launch: the single-stream fused conv -> SA -> OR-pool of
     the packed input ``x`` (L, Cw).  ``raw`` (pool 1) -> (l_out, Cout)
-    int32; ``sa`` -> (l_out // pool, Cout) int32 {0,1}."""
+    int32; ``sa`` -> (l_out // pool, Cout) int32 {0,1}.  ``wf`` is the
+    planes laid out by :func:`prepare_step_weights` (B.4's layout), which a
+    caller that runs every utterance makes once; without it the kernel
+    lays out ``wp``/``wn`` at their first use (memoized by tensor)."""
     if mode not in ("raw", "sa"):
         raise ValueError(f"mode {mode!r}")
     if mode == "raw" and pool != 1:
@@ -826,6 +898,6 @@ def bnn_conv1d(x, wp, wn, thr=None, flip=None, *, k: int, stride: int,
         return conv1d_plain(x, wp, wn, thr, flip, k=k, stride=stride,
                             pad=pad, l_out=l_out, pool=pool, mode=mode)
     out = _conv1d_cuda(x, wp, wn, thr, flip, k=k, stride=stride, pad=pad,
-                       l_out=l_out, pool=pool, mode=mode)
+                       l_out=l_out, pool=pool, mode=mode, wf=wf)
     dispatch.record(CONV_KERNEL)
     return out

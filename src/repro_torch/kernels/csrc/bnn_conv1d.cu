@@ -18,11 +18,11 @@
 // as rows p * stride + t of the (B, L_in, Cw) window, so the input costs
 // L_in rows instead of K * L_out.
 //
-// B.4 and B.5 run on the tensor cores (mma.sync, mma.cuh), as the hop
-// megakernel's convs and classifier do, over weights laid out once per
+// B.4, B.5 and B.6 run on the tensor cores (mma.sync, mma.cuh), as the
+// hop megakernel's convs and classifier do, over weights laid out once per
 // model in fragment order (conv_kernels.prepare_step_weights /
-// prepare_tail_weights): B.4 on the 1-bit MMA over the packed words, B.5
-// on the u8 x s8 MMA over the u8 GAP counts.
+// prepare_tail_weights): B.4 and B.6 on the 1-bit MMA over the packed
+// words, B.5 on the u8 x s8 MMA over the u8 GAP counts.
 //
 // What bounds them on H100.  B.4 at a hop's b1-b3 windows (B = 256) is 2.85
 // G binary MACs, 1.4 us at the int8 peak, against 22.5 MB of int32 raw
@@ -47,12 +47,15 @@
 // positions, sized on the host) to fill the SMs at B=256 and at a single
 // utterance's 2,000 positions alike.
 //
-// B.6 is laid out differently (see its kernel): one CTA per block of
-// pooled positions and output channels, with the block's weight planes
-// and input rows staged once in shared memory.  Its bound at the KWS
-// layer shapes is the same kind: a few hundred KB of input, weights and
-// output (well under a microsecond at HBM rate), against K * Cw popcount
-// pairs per pre-pool output on the CUDA cores.
+// B.6 is B.4's kernel in a mode of its own (ONE, see the kernel): one
+// stream, whose pooled positions are split into blocks, a CTA per block of
+// positions and block of n-tiles, in place of B.4's blocks of slots.  At
+// the KWS utterance's b1-b3 its bound is 0.35-0.51 MB of int32 {0,1}
+// output or 0.05-0.16 G MACs, 0.14-0.17 us either way, against the ~3 us
+// floor of a launch, one copy into shared memory, a short MMA chain and a
+// store; the design keeps each CTA's copy small (its n-tiles' weights and
+// the rows of its positions) and gives every SM a CTA or two
+// (conv_kernels.conv_block_tiles).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,7 +68,7 @@ namespace cg = cooperative_groups;
 
 #define MAX_FC 8
 
-// ---- B.4: batched K-tap conv step on the 1-bit tensor cores --------------
+// ---- B.4 (and B.6): K-tap conv on the 1-bit tensor cores -----------------
 //
 // x     (B, l_in, cw) packed words of the binary window
 // wf    ([M,] n_tiles, ksteps, 32, 4) int32: the packed weight planes in
@@ -105,23 +108,64 @@ struct StepArgs {
                              // slot), or null
   int32_t* out;
   int batch, l_in, cw, k, stride, cout, n_out, pool, sa;
-  int slots, ntb;            // slots and n-tiles per CTA
-  int rows_in, win_words;    // rows a slot's window reads; words it takes
+  int slots, ntb;            // slots (ONE: pooled positions) and n-tiles
+                             // per CTA
+  int rows_in, win_words;    // B.4: rows a slot's window reads; words it
+                             // takes
+  int pad;                   // ONE: the conv's zero rows before the input
 };
 
-template <int NG, int MC>
+// ONE (B.6): x is one stream's (l_in, cw) words, unpadded, and n_out its
+// pooled positions (l_out in raw mode); a CTA takes positions n0 .. n0 +
+// slots - 1.  It stages input rows (n0 pool) stride - pad .. of them from
+// the 16-byte boundary at or before the first (`lead` words early), so a
+// staged word and its source share their alignment and 16-byte copies
+// serve every block, whatever its first row; words outside [0, l_in cw) are
+// written as zeros, the conv's padding.  The positions are then the rows
+// of one slot, and the MMA items, SA, OR-pool and epilogue are B.4's; a
+// CTA's output rows are n0 ...
+template <int NG, int MC, bool ONE>
 __global__ void __launch_bounds__(256) bnn_conv1d_step_kernel(
     const StepArgs P) {
   extern __shared__ __align__(128) unsigned char sm[];
   const int nt = (P.cout + 7) >> 3, ks = (P.k * P.cw + 7) >> 3;
-  const int b0 = blockIdx.x * P.slots, j0 = blockIdx.y * P.ntb;
-  const int ns = min(P.slots, P.batch - b0);
+  const int j0 = blockIdx.y * P.ntb;
+  const int b0 = ONE ? 0 : blockIdx.x * P.slots;
+  const int ns = ONE ? 1 : min(P.slots, P.batch - b0);
+  const int n0 = ONE ? blockIdx.x * P.slots : 0;
+  const int n_out = ONE ? min(P.slots, P.n_out - n0) : P.n_out;  // a slot's
+                                                                  // rows
   const int ntc = min(P.ntb, nt - j0);
-  const size_t m = P.model_idx ? (size_t)P.model_idx[b0] : 0;
+  const size_t m = !ONE && P.model_idx ? (size_t)P.model_idx[b0] : 0;
+  const int npool = P.sa ? P.pool : 1;
+  const int rstep = P.stride * P.cw;  // words from one position to the next
   const uint4* wsm = reinterpret_cast<const uint4*>(sm);
   uint32_t* win =
       reinterpret_cast<uint32_t*>(sm + (size_t)P.ntb * ks * 512);
-  {
+  int lead = 0;  // ONE: words staged before the first position's run
+  if (ONE) {
+    const long long first =
+        ((long long)n0 * npool * P.stride - P.pad) * P.cw;
+    const long long total = (long long)P.l_in * P.cw;
+    lead = (int)(first & 3);
+    const long long g0 = first - lead;
+    const int words = lead + ((n_out * npool - 1) * P.stride + P.k) * P.cw;
+    const bool vec = (size_t)P.x % 16 == 0;
+    for (int v = threadIdx.x; v < (words + 3) >> 2; v += blockDim.x) {
+      const long long g = g0 + 4 * v;
+      if (vec && g >= 0 && g + 4 <= total) {
+        cp_async16(win + 4 * v, P.x + g);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (g + e >= 0 && g + e < total)
+            cp_async4(win + 4 * v + e, P.x + g + e);
+          else
+            win[4 * v + e] = 0u;
+        }
+      }
+    }
+  } else {
     // the slots' packed rows: 16-byte copies where a slot's window starts
     // on 16 bytes (its words are then copied 4 at a time, the last < 4
     // one by one), else word by word
@@ -139,6 +183,8 @@ __global__ void __launch_bounds__(256) bnn_conv1d_step_kernel(
       const int s = i / rest, w = 4 * vec + i - s * rest;
       cp_async4(win + s * P.win_words + w, P.x + (b0 + s) * stride + w);
     }
+  }
+  {
     const unsigned char* src = reinterpret_cast<const unsigned char*>(P.wf) +
                                (m * nt + j0) * (size_t)ks * 512;
     const int bytes = ntc * ks * 512;
@@ -151,13 +197,11 @@ __global__ void __launch_bounds__(256) bnn_conv1d_step_kernel(
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3, odd = tq & 1;
-  const int rows = ns * P.n_out;
+  const int rows = ns * n_out;
   const int mts = (rows + 15) >> 4, mgs = (mts + MC - 1) / MC;
   const int ngs = (ntc + NG - 1) / NG;
-  const int npool = P.sa ? P.pool : 1;
-  const int rstep = P.stride * P.cw;  // words from one position to the next
   const bool vec = (P.cout & 3) == 0;
-  const size_t orow0 = (size_t)b0 * P.n_out;
+  const size_t orow0 = ONE ? (size_t)n0 : (size_t)b0 * P.n_out;
   for (int it = warp; it < mgs * ngs; it += blockDim.x >> 5) {
     const int jg = it % ngs, mg = it / ngs;
     // this lane's rows g and g + 8 of each m-tile: (slot, pooled
@@ -168,8 +212,8 @@ __global__ void __launch_bounds__(256) bnn_conv1d_step_kernel(
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = min((mg * MC + mi) * 16 + gq + 8 * h, rows - 1);
-        const int s = r / P.n_out, n = r - s * P.n_out;
-        rb[mi][h] = s * P.win_words + n * npool * rstep + tq;
+        const int s = r / n_out, n = r - s * n_out;
+        rb[mi][h] = s * P.win_words + n * npool * rstep + lead + tq;
       }
     const uint4* bp[NG];
     float th[NG][2];
@@ -713,94 +757,6 @@ __global__ void __launch_bounds__(256) classifier_tail_kernel(
   }
 }
 
-// ---- B.6: single-stream fused conv -> SA -> OR-pool (PWB) -----------------
-//
-// x     (l_in, cw) packed words of the unpadded binary input; rows outside
-//       [0, l_in) are the conv's zero padding
-// wp/wn (k, cw, cout) packed positive / negative weight planes
-// out   raw: (n_pos, cout) int32 popcount difference (pool == 1)
-//       sa:  (n_pos, cout) {0,1}, n_pos = l_out / pool pooled positions
-//
-// Grid: (position blocks of bp pooled outputs, channel blocks of bn).  The
-// block's k * cw * bn pos/neg plane words are staged once in shared memory
-// and read by every position of the block (B.4 re-reads them from L2 per
-// output), and the input rows the block's taps touch are staged beside
-// them.  Thread (tx, ty) owns channel tx of the block and pooled outputs
-// ty, ty + blockDim.y, ...; the pool pre-pool positions of one output are
-// accumulated R at a time with each weight word loaded once per R, then
-// SA'd and OR-reduced in registers before the single write (the PWB
-// write-back).  R divides pool, so no position is computed twice.
-//
-// Position p's taps are input rows p * stride - pad + t, so tap t, word c
-// of position p is staged word (p - p0) * stride * cw + t * cw + c: the
-// k * cw words of a position are contiguous, as in B.4.
-template <int R>
-__global__ void bnn_conv1d_kernel(
-    const uint32_t* __restrict__ x, const uint32_t* __restrict__ wp,
-    const uint32_t* __restrict__ wn, const float* __restrict__ thr,
-    const int32_t* __restrict__ flip, int32_t* __restrict__ out, int l_in,
-    int cw, int k, int stride, int pad, int cout, int n_pos, int pool,
-    int sa, int bn, int bp) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int kc = k * cw;
-  uint32_t* wp_s = smem;                 // (kc, bn)
-  uint32_t* wn_s = smem + kc * bn;       // (kc, bn)
-  uint32_t* x_s = smem + 2 * kc * bn;    // (rows, cw)
-  const int n0 = blockIdx.x * bp;
-  const int c0 = blockIdx.y * bn;
-  const int nb = min(bp, n_pos - n0);
-  const int p0 = n0 * pool;              // first pre-pool position
-  const int rows = (nb * pool - 1) * stride + k;
-  const int row0 = p0 * stride - pad;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nt = blockDim.x * blockDim.y;
-  for (int i = tid; i < kc * bn; i += nt) {
-    const int j = i / bn, c = i % bn;
-    const bool in = c0 + c < cout;
-    wp_s[i] = in ? __ldg(wp + (size_t)j * cout + c0 + c) : 0u;
-    wn_s[i] = in ? __ldg(wn + (size_t)j * cout + c0 + c) : 0u;
-  }
-  for (int i = tid; i < rows * cw; i += nt) {
-    const int r = row0 + i / cw;
-    x_s[i] = (r >= 0 && r < l_in) ? __ldg(x + (size_t)r * cw + i % cw)
-                                  : 0u;
-  }
-  __syncthreads();
-  const int tx = threadIdx.x;
-  const int co = c0 + tx;
-  if (tx >= bn || co >= cout) return;
-  const float th = sa ? __ldg(thr + co) : 0.f;
-  const bool fl = sa ? __ldg(flip + co) != 0 : false;
-  const uint32_t* wpc = wp_s + tx;
-  const uint32_t* wnc = wn_s + tx;
-  const int xstep = stride * cw;
-  for (int n = threadIdx.y; n < nb; n += blockDim.y) {
-    int y = 0;
-    for (int q = 0; q < pool; q += R) {
-      const uint32_t* xr = x_s + (n * pool + q) * xstep;
-      int acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0;
-      for (int j = 0; j < kc; ++j) {
-        const uint32_t vp = wpc[j * bn], vn = wnc[j * bn];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const uint32_t xv = xr[r * xstep + j];
-          acc[r] += __popc(xv & vp) - __popc(xv & vn);
-        }
-      }
-      if (!sa) {
-        y = acc[0];
-      } else {
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          y |= (int)((__int2float_rn(acc[r]) >= th) != fl);
-      }
-    }
-    out[(size_t)(n0 + n) * cout + co] = y;
-  }
-}
-
 // ---- plain C interface (ctypes) -------------------------------------------
 
 // Opt a kernel in to `bytes` of dynamic shared memory (above the default
@@ -816,29 +772,45 @@ static int allow_smem(K kern, int bytes) {
   return (int)e;
 }
 
-// B.4's kernel for an item of NG n-tiles x MC m-tiles: the shapes of
-// conv_kernels.STEP_ITEMS, (2, 2), (4, 1), (1, 4), (2, 1), (1, 2), (1, 1).
+// B.4's kernel (B.6's with ONE) for an item of NG n-tiles x MC m-tiles:
+// the shapes of conv_kernels.STEP_ITEMS, (2, 2), (4, 1), (1, 4), (2, 1),
+// (1, 2), (1, 1).
 typedef void (*StepKernel)(const StepArgs);
 
+template <bool ONE>
 static StepKernel step_kernel(int ng, int mc) {
-  if (ng == 2) return mc == 2 ? bnn_conv1d_step_kernel<2, 2>
-                              : bnn_conv1d_step_kernel<2, 1>;
-  if (ng == 4) return bnn_conv1d_step_kernel<4, 1>;
-  return mc == 4   ? bnn_conv1d_step_kernel<1, 4>
-         : mc == 2 ? bnn_conv1d_step_kernel<1, 2>
-                   : bnn_conv1d_step_kernel<1, 1>;
+  if (ng == 2) return mc == 2 ? bnn_conv1d_step_kernel<2, 2, ONE>
+                              : bnn_conv1d_step_kernel<2, 1, ONE>;
+  if (ng == 4) return bnn_conv1d_step_kernel<4, 1, ONE>;
+  return mc == 4   ? bnn_conv1d_step_kernel<1, 4, ONE>
+         : mc == 2 ? bnn_conv1d_step_kernel<1, 2, ONE>
+                   : bnn_conv1d_step_kernel<1, 1, ONE>;
+}
+
+// grid: (blocks of `slots` slots -- ONE: of `slots` pooled positions --,
+// blocks of `ntb` n-tiles)
+template <bool ONE>
+static int conv_launch(const StepArgs* a, int ng, int mc, int smem_bytes,
+                       void* stream) {
+  const int items = ONE ? a->n_out : a->batch;
+  if (items <= 0 || a->n_out <= 0 || a->cout <= 0) return 0;
+  const int nt = (a->cout + 7) / 8;
+  const dim3 grid((items + a->slots - 1) / a->slots,
+                  (nt + a->ntb - 1) / a->ntb);
+  const StepKernel kern = step_kernel<ONE>(ng, mc);
+  if (const int e = allow_smem(kern, smem_bytes)) return e;
+  kern<<<grid, 256, smem_bytes, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int bnn_conv1d_step_launch(const StepArgs* a, int ng, int mc,
                                       int smem_bytes, void* stream) {
-  if (a->batch <= 0 || a->n_out <= 0 || a->cout <= 0) return 0;
-  const int nt = (a->cout + 7) / 8;
-  const dim3 grid((a->batch + a->slots - 1) / a->slots,
-                  (nt + a->ntb - 1) / a->ntb);
-  const StepKernel kern = step_kernel(ng, mc);
-  if (const int e = allow_smem(kern, smem_bytes)) return e;
-  kern<<<grid, 256, smem_bytes, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+  return conv_launch<false>(a, ng, mc, smem_bytes, stream);
+}
+
+extern "C" int bnn_conv1d_launch(const StepArgs* a, int ng, int mc,
+                                 int smem_bytes, void* stream) {
+  return conv_launch<true>(a, ng, mc, smem_bytes, stream);
 }
 
 extern "C" int bnn_bitserial_step_launch(
@@ -880,29 +852,6 @@ extern "C" int classifier_tail_launch(const TailParams* p, int smem_bytes,
     cudaGetLastError();
     return (int)e;
   }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int bnn_conv1d_launch(
-    const void* x, const void* wp, const void* wn, const void* thr,
-    const void* flip, void* out, int l_in, int cw, int k, int stride,
-    int pad, int cout, int n_pos, int pool, int sa, int bn, int bp, int ty,
-    int smem_bytes, void* stream) {
-  if (n_pos <= 0 || cout <= 0) return 0;
-  const dim3 grid((n_pos + bp - 1) / bp, (cout + bn - 1) / bn);
-  const dim3 block(bn, ty);
-  // R pre-pool positions per pass, R | pool
-  const int r = pool % 4 == 0 ? 4 : (pool % 2 == 0 ? 2 : 1);
-  void (*kern)(const uint32_t*, const uint32_t*, const uint32_t*,
-               const float*, const int32_t*, int32_t*, int, int, int, int,
-               int, int, int, int, int, int, int) =
-      r == 4 ? bnn_conv1d_kernel<4>
-             : (r == 2 ? bnn_conv1d_kernel<2> : bnn_conv1d_kernel<1>);
-  if (const int e = allow_smem(kern, smem_bytes)) return e;
-  kern<<<grid, block, smem_bytes, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint32_t*)wp, (const uint32_t*)wn,
-      (const float*)thr, (const int32_t*)flip, (int32_t*)out, l_in, cw, k,
-      stride, pad, cout, n_pos, pool, sa, bn, bp);
   return (int)cudaGetLastError();
 }
 

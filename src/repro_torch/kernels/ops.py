@@ -24,8 +24,10 @@ Each takes the reference's arguments in the reference's order and returns
 its shapes and dtypes (``sa`` mode gives ``torch.uint32`` bits).  Conv
 weights are ternary ``([M,] K, Cin, Cout)`` tensors, or the
 :class:`ConvWeights` that :func:`conv_weights` prepares from them once
-(int8 weights, packed planes, the offset fold's ``sum(w)``), which a
-caller that runs every hop passes instead.
+(int8 weights, packed planes, their tensor-core layout, the offset fold's
+``sum(w)``), which a caller that runs every hop or utterance passes
+instead; ``twm_linear`` takes dense weights or their
+:class:`LinearWeights` (packed planes) alike.
 
 Device rule, the same for every entry point: a ``torch.Tensor`` input
 keeps its device -- a CPU tensor is how a caller asks for the kernels'
@@ -153,12 +155,12 @@ def _slot_model_idx(model_idx, b: int, bb: int, device) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ConvWeights:
-    """One conv layer's ternary weights in every form the per-stage kernels
+    """One conv layer's ternary weights in every form the conv kernels
     read, prepared once: ``w`` int8 ``([M,] K, Cin, Cout)``, ``wp``/``wn``
     packed planes ``([M,] K, Cw, Cout)`` int32, ``wf`` the planes laid out
-    for B.4's 1-bit tensor-core GEMM (``conv_kernels.prepare_step_weights``;
-    None when made for B.3 or B.6 only), ``wsum`` int32 ``([M,] Cout)``
-    (the offset fold's ``sum(w)``)."""
+    for the 1-bit tensor-core GEMM of B.4 and B.6
+    (``conv_kernels.prepare_step_weights``; None when made for B.3 only),
+    ``wsum`` int32 ``([M,] Cout)`` (the offset fold's ``sum(w)``)."""
 
     w: torch.Tensor
     wp: torch.Tensor
@@ -170,7 +172,8 @@ class ConvWeights:
 def conv_weights(w_t, device=None, *, layout: bool = True) -> ConvWeights:
     """Prepare ternary conv weights ``([M,] K, Cin, Cout)`` for the conv
     kernels (on the device the module's rule gives).  ``layout=False``
-    skips B.4's layout, which the B.3 and B.6 entry points never read."""
+    skips the layout of B.4 and B.6, which the B.3 entry points never
+    read."""
     if isinstance(w_t, ConvWeights):
         return w_t
     w = torch.as_tensor(w_t).to(resolve_device(w_t, device))
@@ -379,23 +382,44 @@ def _sa_operands(thr, flip, device):
     return _as(thr, torch.float32, device), _as(flip, torch.int32, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class LinearWeights:
+    """A dense layer's ternary ``(K, N)`` weights as B.7 reads them,
+    prepared once: ``wp``/``wn`` the positive and negative planes packed
+    along K, ``(ceil(K / 32), N)`` int32."""
+
+    wp: torch.Tensor
+    wn: torch.Tensor
+
+
+def linear_weights(w_t, device=None) -> LinearWeights:
+    """Pack ternary dense weights ``(K, N)`` for B.7 (on the device the
+    module's rule gives)."""
+    if isinstance(w_t, LinearWeights):
+        return w_t
+    wp, wn = pack_weight_planes(_as(w_t, torch.int32,
+                                    resolve_device(w_t, device)))
+    return LinearWeights(wp.contiguous(), wn.contiguous())
+
+
 def twm_linear(x_bits, w_t, thr=None, flip=None, *, mode: str = "sa",
                device=None) -> torch.Tensor:
     """Binary-activation ternary-weight dense layer on the packed popcount
     GEMM (B.7), ONE launch.
 
-    x_bits (M, K) {0,1}; w_t (K, N) {-1,0,1}.  Returns (M, N):
+    x_bits (M, K) {0,1}; w_t (K, N) {-1,0,1}, or its
+    :class:`LinearWeights` (packed once).  Returns (M, N):
     ``torch.uint32`` bits in ``sa`` mode, int32 popcount difference in
     ``raw`` mode.  The kernel masks the ragged tile edges itself, so
     nothing is padded beyond the 32-lane word."""
     device = resolve_device(x_bits, device)
     xq = pack_activations(_as(x_bits, torch.int32, device)).contiguous()
-    wp, wn = pack_weight_planes(_as(w_t, torch.int32, device))
+    lw = linear_weights(w_t, device)
     if mode == "sa":
-        out = _mm.twm_matmul(xq, wp.contiguous(), wn.contiguous(),
+        out = _mm.twm_matmul(xq, lw.wp, lw.wn,
                              *_sa_operands(thr, flip, device), mode="sa")
         return out.view(torch.uint32)
-    return _mm.twm_matmul(xq, wp.contiguous(), wn.contiguous(), mode=mode)
+    return _mm.twm_matmul(xq, lw.wp, lw.wn, mode=mode)
 
 
 def twm_linear_mxu(x_bits, w_t, thr, flip, *, device=None) -> torch.Tensor:
@@ -419,19 +443,20 @@ def bnn_conv1d(x_bits, w_t, thr=None, flip=None, *, stride: int = 1,
     pipeline (B.6), ONE launch.
 
     x_bits (L, Cin) {0,1}; w_t (K, Cin, Cout) ternary (or its
-    :class:`ConvWeights`).  Output (L_out // pool, Cout) ``torch.uint32``
-    bits, or (L_out, Cout) int32 when ``mode='raw'`` (which ignores
-    ``pool``, as the reference does)."""
+    :class:`ConvWeights`, which a caller that runs every utterance
+    prepares once).  Output (L_out // pool, Cout) ``torch.uint32`` bits,
+    or (L_out, Cout) int32 when ``mode='raw'`` (which ignores ``pool``, as
+    the reference does)."""
     device = resolve_device(x_bits, device)
     x = _as(x_bits, torch.int32, device)
-    cw = conv_weights(w_t, device, layout=False)
+    cw = conv_weights(w_t, device)
     k, cin, _ = cw.w.shape
     if x.shape[1] != cin:
         raise ValueError(f"input has {x.shape[1]} channels, weights take "
                          f"{cin}")
     l_out = _ref.conv1d_out_len(x.shape[0], k, stride, pad)
     xq = pack_activations(x).contiguous()
-    geom = dict(k=k, stride=stride, pad=pad, l_out=l_out)
+    geom = dict(k=k, stride=stride, pad=pad, l_out=l_out, wf=cw.wf)
     if mode == "sa":
         out = _conv.bnn_conv1d(xq, cw.wp, cw.wn,
                                *_sa_operands(thr, flip, device), pool=pool,

@@ -632,7 +632,38 @@ def test_cuda_bnn_conv1d_matches_plain(l, cin, cout, k, stride, pad, pool,
     torch.cuda.synchronize()
     assert launched() == {bk.CONV_KERNEL: 1}
     assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32))
+    want = want.view(torch.int32)
+    assert torch.equal(got.view(torch.int32).cpu(), want)
+    # every launch shape the rule can choose: each block of pooled
+    # positions and of n-tiles that fits, with every MMA item, over the
+    # input as ops packs it and over one that starts off 16 bytes (the
+    # kernel then copies word by word)
+    cw = ops.conv_weights(w.to(dev))
+    xq = ops.pack_activations(x.to(dev)).contiguous()
+    off = torch.empty(xq.numel() + 1, dtype=torch.int32, device=dev)
+    off[1:] = xq.reshape(-1)
+    xs = (xq, off[1:].view(xq.shape))
+    sa = mode == "sa"
+    npool = pool if sa else 1
+    l_out = (l + 2 * pad - k) // stride + 1
+    n_pos, nt, words = l_out // npool, -(-cout // 8), xq.shape[1]
+    args = (cw.wp, cw.wn) + ((thr.to(dev), flip.to(dev)) if sa
+                             else (None, None))
+    for pb in bk.CONV_BLOCKS:
+        for ntb in sorted({-(-nt // (1 << i))
+                           for i in range(nt.bit_length() + 1)}):
+            smem = bk.block_smem(min(pb, n_pos), ntb, words, k, stride,
+                                 npool)
+            if smem > bk.MAX_SMEM:
+                continue
+            for item in bk.STEP_ITEMS:
+                tile = bk.BlockTile(pb, ntb, *item, smem)
+                for xx in xs:
+                    got = bk._conv1d_cuda(xx, *args, k=k, stride=stride,
+                                          pad=pad, l_out=l_out, pool=npool,
+                                          mode=mode, wf=cw.wf, tile=tile)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got.cpu(), want), tile
 
 
 # (M, K, N): kernel_bench's GEMMs, the utterance's fc1 bit planes and fc2,

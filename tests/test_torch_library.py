@@ -279,19 +279,6 @@ def test_conv1d_plain_matches_oracle(l, cin, cout, k, stride, pad, pool,
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("cw,k,stride,cout,n_pos,pool", [
-    (2, 3, 1, 128, 1000, 2), (8, 3, 1, 352, 250, 2), (4, 5, 1, 256, 500, 2),
-    (1, 7, 2, 48, 61, 1), (240, 3, 1, 64, 10, 4)])
-def test_conv1d_tiles_fit_shared_memory(cw, k, stride, cout, n_pos, pool):
-    """B.6's launch shape stages the block's planes and input rows within
-    an H100 block's shared memory, one thread per (channel, row) of a
-    256-thread CTA."""
-    bn, bp, ty, smem = bk.conv1d_tiles(cw, k, stride, cout, n_pos, pool)
-    assert bn * ty == bk.THREADS and bn % 32 == 0 and bp >= 1
-    rows = (bp * pool - 1) * stride + k
-    assert smem == 4 * (2 * k * cw * bn + rows * cw) <= bk.MAX_SMEM
-
-
 # ---------------------------------------------------------------------------
 # Device rule
 # ---------------------------------------------------------------------------
@@ -372,3 +359,37 @@ def test_utterance_matches_reference_executor(smoke_model, seed):
     t_t = {li: tuple(map(_T, tf)) for li, tf in thresholds.items()}
     assert torch.equal(port_kws.offline_logits(cases.port_spec(spec), w_t,
                                                t_t, _T(x)), got)
+    # or laid out once, with the same launches and logits
+    model = port_kws.prepare_offline(cases.port_spec(spec), weights,
+                                     thresholds, device="cpu")
+    with dispatch.counting() as launched:
+        prepared = port_kws.offline_logits(model, _T(x))
+    assert launched() == {bk.BITSERIAL_KERNEL: 1, bk.CONV_KERNEL: 3,
+                          tm.POPCOUNT_KERNEL: 2}
+    assert prepared.dtype == torch.int32
+    np.testing.assert_array_equal(prepared.numpy(), want)
+
+
+def test_prepared_model_lays_out_once(smoke_model, monkeypatch):
+    """``prepare_offline`` packs and lays out every layer's weights once;
+    an utterance through the prepared model packs none of them again."""
+    spec, weights, thresholds, _ = smoke_model
+    model = port_kws.prepare_offline(cases.port_spec(spec), weights,
+                                     thresholds, device="cpu")
+    calls = []
+
+    def counting(fn):
+        def wrapped(*args, **kw):
+            calls.append(fn.__name__)
+            return fn(*args, **kw)
+        return wrapped
+    monkeypatch.setattr(bk, "prepare_step_weights",
+                        counting(bk.prepare_step_weights))
+    monkeypatch.setattr(port_ops, "pack_weight_planes",
+                        counting(port_ops.pack_weight_planes))
+    x = np.random.default_rng(9).integers(0, 256, spec.in_len)
+    for _ in range(2):
+        port_kws.offline_logits(model, _T(x))
+    assert calls == []
+    with pytest.raises(ValueError, match="lies on"):
+        port_kws.offline_logits(model, _T(x), device="meta")

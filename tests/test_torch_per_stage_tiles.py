@@ -1,8 +1,10 @@
-"""Port, per-stage kernel host functions: B.4's and B.5's launch shapes
+"""Port, conv kernel host functions: B.4's and B.5's launch shapes
 (``conv_kernels.conv_step_tiles``, ``step_item``, ``tail_tiles``), their
 weight layouts (``prepare_step_weights``, ``prepare_tail_weights``), the
 memo that lays out raw weights once per tensor, and the per-stage
-scheduler laying its weights out once per model.
+scheduler laying its weights out once per model; and B.6, which is B.4's
+kernel over blocks of one stream's pooled positions, with its launch shape
+(``conv_block_tiles``).
 
 The CUDA kernels run only on the card, where ``tests/test_torch_gpu.py``
 and ``chip_smoke.py`` hold them against their plain versions.  Here a
@@ -10,10 +12,10 @@ plain-torch emulation of each kernel -- its CTAs and MMA items, the u8
 rows it stages in shared memory (garbage wherever it writes nothing), the
 A rows and B fragments it reads, its SA, OR-pool and tenant passes, and
 the lane exchange of B.4's epilogue -- must give ``conv_step_plain`` /
-``classifier_tail_plain`` bit for bit on seeded inputs, write every output
-exactly once, and read only bytes the kernel staged.
+``conv1d_plain`` / ``classifier_tail_plain`` bit for bit on seeded
+inputs, write every output exactly once, and read only bytes the kernel
+staged.
 """
-
 import numpy as np
 import pytest
 import torch
@@ -52,13 +54,85 @@ def _bits(words):
     return ((w[..., None] >> torch.arange(32)) & 1).flatten(-2)
 
 
+def _emulate_items(out, writes, win, wsm, thr, flip, *, rows, runs, orow0,
+                   j0, ntc, cout, rstep, npool, sa, tile):
+    """One CTA's MMA items over its staged words ``win`` and weights
+    ``wsm`` (its n-tiles' fragments): ``runs(r)`` gives, for output rows
+    ``r``, the word where each row's depth run starts and the staged words
+    ``[lo, hi)`` it may read; 1-bit MMAs as popcounts of ANDs, SA and
+    OR-pool per phase, and the epilogue's lane exchange into rows ``orow0
+    + r`` of ``out``."""
+    lanes = torch.arange(32)
+    g_, t_ = lanes // 4, lanes % 4
+    odd = t_ & 1
+    ht = torch.arange(8)            # word 4 h + t of a k-step
+    ks = wsm.shape[1]
+    mts = _cdiv(rows, 16)
+    mgs, ngs = _cdiv(mts, tile.mc), _cdiv(ntc, tile.ng)
+    for it in range(mgs * ngs):
+        jg, mg = it % ngs, it // ngs
+        spans = [runs(torch.clamp((mg * tile.mc + mi) * 16 + torch.arange(16),
+                                  max=rows - 1)) for mi in range(tile.mc)]
+        vals = {}
+        for q in range(npool):
+            for ni in range(tile.ng):
+                jt = min(jg * tile.ng + ni, ntc - 1)
+                for mi in range(tile.mc):
+                    base, lo, hi = spans[mi]
+                    acc = torch.zeros((16, 8), dtype=torch.int64)
+                    for kk in range(ks):
+                        addr = (base + q * rstep + 8 * kk)[:, None] + ht
+                        # every word read is the row's own
+                        assert ((addr >= lo[:, None])
+                                & (addr < hi[:, None])).all()
+                        a = _bits(win[addr])                    # (16, 256)
+                        frag = wsm[jt, kk]                      # (32, 4)
+                        bp = frag[:, :2].reshape(8, 4, 2)
+                        bn = frag[:, 2:].reshape(8, 4, 2)
+                        # word 4 h + t of column g
+                        bp = _bits(bp.permute(0, 2, 1).reshape(8, 8))
+                        bn = _bits(bn.permute(0, 2, 1).reshape(8, 8))
+                        acc += a @ bp.T - a @ bn.T
+                    col = torch.clamp((j0 + jt) * 8 + torch.arange(8),
+                                      max=cout - 1)
+                    if sa:
+                        y = (acc.float() >= thr[col]) != (flip[col] != 0)
+                        vals[ni, mi] = vals.get((ni, mi), 0) | y.long()
+                    else:
+                        vals[ni, mi] = acc
+        for ni in range(tile.ng):
+            if jg * tile.ng + ni >= ntc:
+                break
+            for mi in range(tile.mc):
+                v = vals[ni, mi]
+                # lane (g, t): c0 c1 of row g, c2 c3 of row g + 8
+                vl = torch.stack([v[g_, 2 * t_], v[g_, 2 * t_ + 1],
+                                  v[g_ + 8, 2 * t_], v[g_ + 8, 2 * t_ + 1]],
+                                 1)
+                send = torch.where(odd[:, None] == 1, vl[:, :2], vl[:, 2:])
+                recv = send[lanes ^ 1]
+                o = torch.where(odd[:, None] == 1,
+                                torch.cat([recv, vl[:, 2:]], 1),
+                                torch.cat([vl[:, :2], recv], 1))
+                row = (mg * tile.mc + mi) * 16 + g_ + 8 * odd
+                col = (j0 + jg * tile.ng + ni) * 8 + 4 * (t_ >> 1)
+                for lane in range(32):
+                    rr, cc = int(row[lane]), int(col[lane])
+                    if rr >= rows or cc >= cout:
+                        continue
+                    for e in range(4):
+                        if cc + e < cout:
+                            out[orow0 + rr, cc + e] = o[lane, e]
+                            writes[orow0 + rr, cc + e] += 1
+
+
 def _emulate_step(x, wf, thr, flip, model_idx, *, cout, k, stride, l_out,
                   pool, mode, tile, rng):
     """The kernel's output, CTA by CTA and item by item: its staged words,
     its A and B fragment words, 1-bit MMAs as popcounts of ANDs, SA and
     OR-pool per phase, and its epilogue's lane exchange."""
     b, l_in, cw = x.shape
-    nt, ks = wf.shape[-4], wf.shape[-3]
+    nt = wf.shape[-4]
     sa = mode == "sa"
     npool = pool if sa else 1
     n_out = l_out // pool if sa else l_out
@@ -68,16 +142,16 @@ def _emulate_step(x, wf, thr, flip, model_idx, *, cout, k, stride, l_out,
     wf_m = wf if wf.dim() == 5 else wf[None]
     out = torch.zeros((b * n_out, cout), dtype=torch.int64)
     writes = torch.zeros((b * n_out, cout), dtype=torch.int64)
-    lanes = torch.arange(32)
-    g_, t_ = lanes // 4, lanes % 4
-    odd = t_ & 1
-    ht = torch.arange(8)            # word 4 h + t of a k-step
+
+    def runs(r):
+        s, n = r // n_out, r % n_out
+        return (s * win_words + n * npool * stride * cw, s * win_words,
+                (s + 1) * win_words)
     for bx in range(_cdiv(b, tile.slots)):
         for by in range(_cdiv(nt, tile.ntb)):
             b0, j0 = bx * tile.slots, by * tile.ntb
             ns, ntc = min(tile.slots, b - b0), min(tile.ntb, nt - j0)
             m = int(model_idx[b0]) if model_idx is not None else 0
-            wsm = wf_m[m][j0:j0 + ntc]          # (ntc, ks, 32, 4)
             assert bk.step_smem(ns, tile.ntb, cw, k, rows_in) <= tile.smem
             # staged words: garbage wherever the copy writes nothing
             win = torch.as_tensor(rng.integers(-2**31, 2**31, tile.slots
@@ -85,72 +159,10 @@ def _emulate_step(x, wf, thr, flip, model_idx, *, cout, k, stride, l_out,
             for s in range(ns):
                 win[s * win_words:s * win_words + rows_in * cw] = \
                     x[b0 + s, :rows_in].reshape(-1).long()
-            rows = ns * n_out
-            mts = _cdiv(rows, 16)
-            mgs, ngs = _cdiv(mts, tile.mc), _cdiv(ntc, tile.ng)
-            for it in range(mgs * ngs):
-                jg, mg = it % ngs, it // ngs
-                base, slot = [], []
-                for mi in range(tile.mc):
-                    r = torch.clamp((mg * tile.mc + mi) * 16
-                                    + torch.arange(16), max=rows - 1)
-                    s, n = r // n_out, r % n_out
-                    base.append(s * win_words + n * npool * stride * cw)
-                    slot.append(s)
-                vals = {}
-                for q in range(npool):
-                    for ni in range(tile.ng):
-                        jt = min(jg * tile.ng + ni, ntc - 1)
-                        for mi in range(tile.mc):
-                            acc = torch.zeros((16, 8), dtype=torch.int64)
-                            for kk in range(ks):
-                                addr = (base[mi] + q * stride * cw
-                                        + 8 * kk)[:, None] + ht
-                                # every word read is the slot's own
-                                assert (addr // win_words
-                                        == slot[mi][:, None]).all()
-                                a = _bits(win[addr])            # (16, 256)
-                                frag = wsm[jt, kk]              # (32, 4)
-                                bp = frag[:, :2].reshape(8, 4, 2)
-                                bn = frag[:, 2:].reshape(8, 4, 2)
-                                # word 4 h + t of column g
-                                bp = _bits(bp.permute(0, 2, 1).reshape(8, 8))
-                                bn = _bits(bn.permute(0, 2, 1).reshape(8, 8))
-                                acc += a @ bp.T - a @ bn.T
-                            col = torch.clamp((j0 + jt) * 8 + torch.arange(8),
-                                              max=cout - 1)
-                            if sa:
-                                y = (acc.float() >= thr[col]) != (flip[col]
-                                                                  != 0)
-                                vals[ni, mi] = vals.get((ni, mi), 0) | \
-                                    y.long()
-                            else:
-                                vals[ni, mi] = acc
-                for ni in range(tile.ng):
-                    if jg * tile.ng + ni >= ntc:
-                        break
-                    for mi in range(tile.mc):
-                        v = vals[ni, mi]
-                        # lane (g, t): c0 c1 of row g, c2 c3 of row g + 8
-                        vl = torch.stack([v[g_, 2 * t_], v[g_, 2 * t_ + 1],
-                                          v[g_ + 8, 2 * t_],
-                                          v[g_ + 8, 2 * t_ + 1]], 1)
-                        send = torch.where(odd[:, None] == 1, vl[:, :2],
-                                           vl[:, 2:])
-                        recv = send[lanes ^ 1]
-                        o = torch.where(odd[:, None] == 1,
-                                        torch.cat([recv, vl[:, 2:]], 1),
-                                        torch.cat([vl[:, :2], recv], 1))
-                        row = (mg * tile.mc + mi) * 16 + g_ + 8 * odd
-                        col = (j0 + jg * tile.ng + ni) * 8 + 4 * (t_ >> 1)
-                        for lane in range(32):
-                            rr, cc = int(row[lane]), int(col[lane])
-                            if rr >= rows or cc >= cout:
-                                continue
-                            for e in range(4):
-                                if cc + e < cout:
-                                    out[b0 * n_out + rr, cc + e] = o[lane, e]
-                                    writes[b0 * n_out + rr, cc + e] += 1
+            _emulate_items(out, writes, win, wf_m[m][j0:j0 + ntc], thr, flip,
+                           rows=ns * n_out, runs=runs, orow0=b0 * n_out,
+                           j0=j0, ntc=ntc, cout=cout,
+                           rstep=stride * cw, npool=npool, sa=sa, tile=tile)
     assert (writes == 1).all()
     return out.reshape(b, n_out, cout).to(torch.int32)
 
@@ -246,6 +258,156 @@ def test_conv_weights_lay_out_only_for_the_conv_step():
     w = torch.ones((3, 40, 8), dtype=torch.int32)
     assert ops.conv_weights(w).wf.shape == (1, 1, 32, 4)
     assert ops.conv_weights(w, layout=False).wf is None
+
+
+# ---------------------------------------------------------------------------
+# B.6: an emulation of the kernel's one-stream mode, and its launch shape
+# ---------------------------------------------------------------------------
+
+def _emulate_conv1d(x, wf, thr, flip, *, cout, k, stride, pad, l_out, pool,
+                    mode, tile, rng):
+    """B.6's output, CTA by CTA: each block of pooled positions stages its
+    input rows from the 16-byte boundary at or before its first (``lead``
+    words early), zero words outside the input (the conv's padding) and
+    garbage past the copy, into the window words the CTA's shared memory
+    has; then B.4's items over them, its rows the block's positions."""
+    l_in, cw = x.shape
+    nt, ks = wf.shape[:2]
+    sa = mode == "sa"
+    npool = pool if sa else 1
+    n_pos = l_out // npool
+    flat = x.reshape(-1).long()
+    total, rstep = flat.numel(), stride * cw
+    avail = (tile.smem - tile.ntb * ks * 512) // 4   # the window's words
+    out = torch.zeros((n_pos, cout), dtype=torch.int64)
+    writes = torch.zeros((n_pos, cout), dtype=torch.int64)
+    for bx in range(_cdiv(n_pos, tile.pb)):
+        n0 = bx * tile.pb
+        nper = min(tile.pb, n_pos - n0)
+        first = (n0 * npool * stride - pad) * cw
+        lead = first % 4
+        g0 = first - lead
+        # whole 16-byte chunks from g0 over the block's rows
+        n_copy = _cdiv(lead + bk.step_rows(nper, npool, stride, k) * cw,
+                       4) * 4
+        assert g0 % 4 == 0 and n_copy <= avail
+
+        def runs(r, lead=lead):
+            return (lead + r * npool * rstep, torch.full_like(r, lead),
+                    torch.full_like(r, avail))
+        for by in range(_cdiv(nt, tile.ntb)):
+            j0 = by * tile.ntb
+            ntc = min(tile.ntb, nt - j0)
+            win = torch.as_tensor(rng.integers(-2**31, 2**31, avail))
+            g = g0 + torch.arange(n_copy)
+            inside = (g >= 0) & (g < total)
+            win[:n_copy] = torch.where(inside, flat[g.clamp(0, total - 1)], 0)
+            _emulate_items(out, writes, win, wf[j0:j0 + ntc], thr, flip,
+                           rows=nper, runs=runs, orow0=n0, j0=j0, ntc=ntc,
+                           cout=cout, rstep=rstep, npool=npool, sa=sa,
+                           tile=tile)
+    assert (writes == 1).all()
+    return out.to(torch.int32)
+
+
+# (L, cin, cout, k, stride, pad, pool, mode, forced tile (pooled positions,
+# n-tiles per CTA, item n-tiles, item m-tiles) or None): the utterance's
+# b1-b3 at the smoke width (b3's 25 positions drop one to the pool) and at
+# full width (b1's blocks start 2 words past a 16-byte boundary), then raw
+# at k=7 stride 2 pad 3, an even k with pad 0 and cout off 8 and off 4 at
+# pool 4, cout off 8 alone, three words a row at pool 3, and forced items
+CONV_CASES = [
+    (100, 16, 32, 3, 1, 1, 2, "sa", None),
+    (50, 32, 64, 5, 1, 2, 2, "sa", None),
+    (25, 64, 88, 3, 1, 1, 2, "sa", None),
+    (2000, 64, 128, 3, 1, 1, 2, "sa", None),
+    (1000, 128, 256, 5, 1, 2, 2, "sa", None),
+    (500, 256, 352, 3, 1, 1, 2, "sa", None),
+    (50, 32, 64, 5, 1, 2, 1, "raw", None),
+    (300, 40, 48, 7, 2, 3, 1, "raw", None),
+    (61, 100, 65, 2, 2, 0, 4, "sa", (8, 3, 2, 1)),
+    (33, 8, 12, 2, 2, 0, 2, "sa", None),
+    (77, 96, 13, 3, 1, 1, 3, "sa", (16, 2, 2, 1)),
+    (129, 100, 65, 5, 1, 2, 1, "sa", (64, 9, 4, 1)),
+    (400, 40, 48, 3, 1, 1, 2, "sa", (128, 6, 2, 2)),
+    (300, 40, 20, 7, 2, 3, 1, "raw", (256, 1, 1, 4)),
+]
+
+
+@pytest.mark.parametrize("l,cin,cout,k,stride,pad,pool,mode,forced",
+                         CONV_CASES, ids=str)
+def test_conv1d_emulation_matches_plain(l, cin, cout, k, stride, pad, pool,
+                                        mode, forced):
+    rng = np.random.default_rng(l + cin + cout)
+    x = ops.pack_activations(torch.as_tensor(
+        rng.integers(0, 2, (l, cin)).astype(np.int32))).contiguous()
+    w = torch.as_tensor(rng.integers(-1, 2, (k, cin, cout)).astype(np.int32))
+    wp, wn = (t.contiguous() for t in ops.pack_weight_planes(w))
+    thr = torch.as_tensor(np.round(rng.normal(0, 3, cout)).astype(
+        np.float32))
+    thr[:2] = torch.tensor([np.inf, -np.inf])
+    flip = torch.as_tensor((rng.random(cout) < 0.3).astype(np.int32))
+    sa = mode == "sa"
+    npool = pool if sa else 1
+    l_out = (l + 2 * pad - k) // stride + 1
+    cw, n_pos = x.shape[1], l_out // npool
+    if forced is None:
+        tile = bk.conv_block_tiles(cw, k, stride, cout, n_pos, npool)
+    else:
+        pb, ntb, ng, mc = forced
+        tile = bk.BlockTile(pb, ntb, ng, mc, bk.block_smem(
+            min(pb, n_pos), ntb, cw, k, stride, npool))
+    kw = dict(k=k, stride=stride, pad=pad, l_out=l_out, pool=npool,
+              mode=mode)
+    want = bk.conv1d_plain(x, wp, wn, thr if sa else None,
+                           flip if sa else None, **kw)
+    got = _emulate_conv1d(x, bk.prepare_step_weights(wp, wn),
+                          thr if sa else None, flip if sa else None,
+                          cout=cout, tile=tile, rng=rng, **kw)
+    assert torch.equal(got, want)
+
+
+# (cw, k, stride, cout, pooled positions, positions a pooled one takes):
+# the utterance's b1-b3 at full width, sa pool 2 and raw, and at the
+# smoke width, k=7 stride 2, and a deep window
+BLOCK_SHAPES = [
+    (2, 3, 1, 128, 1000, 2), (4, 5, 1, 256, 500, 2), (8, 3, 1, 352, 250, 2),
+    (2, 3, 1, 128, 2000, 1), (4, 5, 1, 256, 1000, 1), (8, 3, 1, 352, 500, 1),
+    (1, 3, 1, 32, 50, 2), (1, 5, 1, 64, 25, 2), (2, 3, 1, 88, 12, 2),
+    (2, 7, 2, 48, 150, 1), (240, 3, 1, 64, 10, 4),
+]
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=str)
+def test_conv_block_tiles_fit_and_cover_once(shape):
+    """B.6's launch shape fits a block's shared memory, its CTAs cover
+    every pooled position and output column exactly once, every SM gets a
+    CTA where there are enough blocks, and the shape is memoized."""
+    cw, k, stride, cout, n_pos, npool = shape
+    t = bk.conv_block_tiles(*shape)
+    assert t.pb in bk.CONV_BLOCKS and (t.ng, t.mc) in bk.STEP_ITEMS
+    assert t.smem == bk.block_smem(min(t.pb, n_pos), t.ntb, cw, k, stride,
+                                   npool) <= bk.MAX_SMEM
+    nt = _cdiv(cout, 8)
+    seen = torch.zeros((n_pos, cout), dtype=torch.int64)
+    for bx in range(_cdiv(n_pos, t.pb)):
+        for by in range(_cdiv(nt, t.ntb)):
+            seen[bx * t.pb:(bx + 1) * t.pb,
+                 by * t.ntb * 8:(by + 1) * t.ntb * 8] += 1
+    assert (seen == 1).all()
+    ctas = _cdiv(n_pos, t.pb) * _cdiv(nt, t.ntb)
+    assert ctas >= min(132, _cdiv(n_pos, bk.CONV_BLOCKS[0]) * nt)
+    before = bk.conv_block_tiles.cache_info().hits
+    assert bk.conv_block_tiles(*shape) is t
+    assert bk.conv_block_tiles.cache_info().hits == before + 1
+
+
+def test_conv_block_tiles_shrink_to_fit_and_refuse_past_it():
+    # a deep window: the whole n-range does not fit, a block of it does
+    t = bk.conv_block_tiles(240, 9, 1, 64, 40)
+    assert t.smem <= bk.MAX_SMEM and t.ntb < 8
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.conv_block_tiles(2000, 9, 4, 8, 20)
 
 
 # ---------------------------------------------------------------------------
