@@ -91,13 +91,36 @@ Phases (each prints one line, any failure exits non-zero):
               ``StreamState`` fed the same audio.  The launch counters are
               set to 0 just before the megakernel runs and the per-stage
               run and read just after each.
+7. async    — the same audio and chunk plan, each round landed by
+              ``push_audio_batch`` and run by ``drain()``, through
+              ``StreamScheduler`` and ``AsyncStreamScheduler`` (megakernel,
+              donated state, ingest pump) in turns sync, async, async,
+              sync; the first async run's dispatch stage under
+              ``torch.cuda.set_sync_debug_mode("error")``.  Every async
+              run equals the first sync run hop for hop (sids, frames,
+              logits), peek for peek and close for close, with one hop
+              launch a hop; the drives' wall times, hops per second,
+              ``overlap_summary()["hidden_frac"]`` and the phase p50s are
+              printed.
+8. tenants  — ``max_models=4, tenant_block=8``: K = 2 and K = 4 random
+              models from the seed bound round-robin to the 256 streams in
+              blocks of 8, on the megakernel and per-stage backends, sync
+              and async (and emit off at K = 4).  Every stream's hops and
+              close equal the single-model megakernel scheduler of its
+              model on its streams, and the launches a hop do not depend
+              on K (1 per megakernel hop; 9 per emit, 4 per steady
+              per-stage hop).  The pooled hop kernel (K = 4, blocks of 8)
+              is bit-equal to its plain version and timed at B = 256
+              beside the unpooled one.  Each drive's counts are set to 0
+              just before it and read just after.
 
 The model is made here from ``--seed`` with numpy: random ternary weights
 and integer thresholds near the middle of each layer's accumulator range
 with random flips.  The script imports nothing of JAX or of the reference
 package.  Before its last line it prints one JSON object with each
-kernel's launches on the main paths (the stream backends' and the
-library's), error, time, plain time, bound and library-call time (each
+kernel's launches on the main paths (the stream backends', the
+library's, the async and the tenant drives'), error, time, plain time,
+bound and library-call time (each
 summed over a kernel's launch shapes on its paths: B.3's l0 of a hop
 (hop and flush window) and of an utterance, the conv step's six of an
 emit hop (three hop and three flush windows), B.6's three of an
@@ -113,8 +136,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import cProfile
 import dataclasses
 import json
+import pstats
 import subprocess
 import sys
 import time
@@ -1316,6 +1341,402 @@ def drive(sched, audio, chunk_plan, hop, torch):
     return hops, peeks, closes, hop_ms, top
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-8: the async plane and the tenant pool on the main path
+# ---------------------------------------------------------------------------
+
+#: the tenant phase: pool rows, its slot blocks, and the Ks it binds
+TENANT_MODELS = 4
+TENANT_BLOCK = 8
+TENANT_KS = (2, 4)
+#: streams closed at the end of an async or tenant drive: one per block
+#: of 8 in 8 blocks, so every tenant of a K <= 8 pool closes some
+CLOSE_SIDS = tuple(8 * j + 3 for j in range(8))
+#: the burst drive's turns (sync, async, async, sync) are repeated so
+#: that a median of each stands against the host's run-to-run spread
+BURST_REPEATS = 3
+
+
+def record_folds(sched):
+    """Spy on the scheduler's fold stage: every hop it folds, whichever
+    call retired it, as (sids, frames, logits) copies."""
+    hops = []
+    fold = sched._fold_hop
+
+    def spy(*args, **kw):
+        hb = fold(*args, **kw)
+        hops.append((hb.sids.copy(), hb.frames.copy(),
+                     None if hb.logits is None else hb.logits.copy()))
+        return hb
+    sched._fold_hop = spy
+    return hops
+
+
+def strict_dispatch(sched, torch):
+    """Run the scheduler's dispatch stage under sync debug mode
+    ``"error"``: a host sync in it (a pageable copy, ``.item()``,
+    ``nonzero``) raises instead of silently serialising the pipeline."""
+    inner = sched._dispatch_hop
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sched._dispatch_hop = strict
+
+
+def drive_rounds(sched, sids, audio, chunk_plan, torch, dispatch,
+                 models=None, peeks=(0, 1), closes=CLOSE_SIDS):
+    """The streams ``sids`` join (bound to ``models[sid]`` when given);
+    each round of ``chunk_plan`` lands their chunks through
+    ``push_audio_batch`` and ``drain()`` runs every hop they complete (the
+    async scheduler flushes its pump first and retires every hop in
+    flight before it returns); then peeks and closes of the streams among
+    ``sids``.  Returns the folded hops, the peeks, the closes' logits, the
+    wall seconds of the rounds (split into ``push_audio_batch`` and
+    ``drain`` seconds) and the launches counted over them."""
+    hops = record_folds(sched)
+    for sid in sids:
+        sched.add_stream(sid, model=None if models is None else models[sid])
+    fed = np.zeros(len(audio), np.int64)
+    torch.cuda.synchronize()
+    dispatch.reset()
+    t0 = time.perf_counter()
+    push_s = 0.0
+    for sizes in chunk_plan:
+        live = [s for s in sids if sizes[s]]
+        t1 = time.perf_counter()
+        sched.push_audio_batch(live, [audio[s][fed[s]:fed[s] + sizes[s]]
+                                      for s in live])
+        push_s += time.perf_counter() - t1
+        for s in live:
+            fed[s] += sizes[s]
+        sched.drain()
+    wall = dict(total=time.perf_counter() - t0, push=push_s)
+    wall["drain"] = wall["total"] - push_s
+    launched = dispatch.counts()
+    mine = set(sids)
+    pk = {sid: sched.peek(sid) for sid in peeks if sid in mine}
+    cl = {sid: sched.close_stream(sid).logits for sid in closes
+          if sid in mine}
+    if hasattr(sched, "shutdown"):
+        sched.shutdown(timeout=60.0)
+    return hops, pk, cl, wall, launched
+
+
+def drive_burst(sched, audio, hop, torch, dispatch, prof=None):
+    """The hop loop alone: every stream joins and gets ``prime + hop``
+    samples, one ``drain()`` primes them and runs a hop; then the rest of
+    every clip lands at once and the timed ``drain()`` runs every hop of
+    it, each over all the streams (under the profiler ``prof`` when
+    given).  Returns the folded hops after the first drain, the timed
+    drain's seconds and its launches."""
+    n = len(audio)
+    for sid in range(n):
+        sched.add_stream(sid)
+    head = sched.plan.prime_samples + hop
+    sched.push_audio_batch(list(range(n)), [a[:head] for a in audio])
+    sched.drain()
+    hops = record_folds(sched)
+    sched.push_audio_batch(list(range(n)), [a[head:] for a in audio])
+    if hasattr(sched, "flush_ingest"):
+        sched.flush_ingest(timeout=60.0)
+    torch.cuda.synchronize()
+    dispatch.reset()
+    if prof is not None:
+        prof.enable()
+    t0 = time.perf_counter()
+    sched.drain()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.disable()
+    launched = dispatch.counts()
+    if hasattr(sched, "shutdown"):
+        sched.shutdown(timeout=60.0)
+    return hops, wall, launched
+
+
+def host_profile(prof, n_hops: int, top: int = 12) -> list:
+    """The functions with the most own time in a profiled drive, as
+    (where, own ms a hop, cumulative ms a hop, calls a hop)."""
+    rows = []
+    for (path, line, fn), (_, nc, tt, ct, _) in pstats.Stats(
+            prof).stats.items():
+        rows.append((f"{Path(path).name}:{line}({fn})", tt / n_hops * 1e3,
+                     ct / n_hops * 1e3, nc / n_hops))
+    return sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def same_hops(label, got, want):
+    if len(got) != len(want):
+        raise RuntimeError(f"{label}: {len(got)} hops, expected "
+                           f"{len(want)}")
+    for (s1, f1, l1), (s2, f2, l2) in zip(got, want):
+        if not (np.array_equal(s1, s2) and np.array_equal(f1, f2)
+                and (l1 is None) == (l2 is None)
+                and (l1 is None or np.array_equal(l1, l2))):
+            raise RuntimeError(f"{label}: a hop differs")
+
+
+def same_results(label, got, want):
+    for name, a, b in (("peek", got[1], want[1]), ("close", got[2],
+                                                    want[2])):
+        if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                           for k in a):
+            raise RuntimeError(f"{label}: {name} differs")
+
+
+def async_phase(spec, weights, thresholds, audio, chunk_plan, torch,
+                dispatch, mk, sched_cls, async_cls):
+    """The synchronous and the async scheduler (megakernel, 256 streams,
+    hop_frames=8) on two drives, each in turns sync, async, async, sync:
+    the main path's audio and chunk plan (``drive_rounds``; the first
+    async run's dispatch stage under sync debug mode "error"), and the
+    hop loop alone (``drive_burst``).  Every async run equals the first
+    sync run of its drive hop for hop (sids, frames, logits; detections
+    follow from them), and on the rounds drive peek for peek and close
+    for close.  Returns the record and the launches of all the runs."""
+    kw = dict(capacity=B_MAIN, hop_frames=HOP_FRAMES)
+    sids = list(range(B_MAIN))
+    turns = (("sync", False), ("async", True), ("async", False),
+             ("sync", False))
+    runs, launches = [], collections.Counter()
+    for kind, strict in turns:
+        sched = (sched_cls if kind == "sync" else async_cls)(
+            spec, weights, thresholds, **kw)
+        if strict:
+            strict_dispatch(sched, torch)
+        out = drive_rounds(sched, sids, audio, chunk_plan, torch, dispatch)
+        hops, _, _, wall, launched = out
+        if launched != {mk.HOP_KERNEL: len(hops)}:
+            raise RuntimeError(f"async phase {kind}: launches {launched} "
+                               f"for {len(hops)} hops")
+        launches.update(launched)
+        if runs:
+            same_hops(f"async phase {kind}", hops, runs[0][1][0])
+            same_results(f"async phase {kind}", out, runs[0][1])
+        runs.append((kind, out, sched))
+    burst = []
+    hop = sched.plan.hop_samples
+    for kind, _ in turns * BURST_REPEATS:
+        sched = (sched_cls if kind == "sync" else async_cls)(
+            spec, weights, thresholds, **kw)
+        hops, wall, launched = drive_burst(sched, audio, hop, torch,
+                                           dispatch)
+        if launched != {mk.HOP_KERNEL: len(hops)}:
+            raise RuntimeError(f"burst {kind}: launches {launched} for "
+                               f"{len(hops)} hops")
+        launches.update(launched)
+        if burst:
+            same_hops(f"burst {kind}", hops, burst[0][1])
+        burst.append((kind, hops, wall, sched))
+    n, nb = len(runs[0][1][0]), len(burst[0][1])
+    # where the host's time goes in the synchronous hop loop (cProfile
+    # slows Python calls, not the device: proportions, not times)
+    prof = cProfile.Profile()
+    drive_burst(sched_cls(spec, weights, thresholds, **kw), audio, hop,
+                torch, dispatch, prof)
+    launches.update(dispatch.counts())
+    profile = host_profile(prof, nb)
+    a_sched, s_sched = runs[2][2], runs[3][2]
+    per_hop = lambda t, k: t / k * 1e3  # noqa: E731
+    rec = dict(
+        hops=n, streams=B_MAIN,
+        rounds_wall_s=[dict(r[1][3], kind=r[0]) for r in runs],
+        rounds_ms_per_hop={r[0] + str(i): per_hop(r[1][3]["total"], n)
+                           for i, r in enumerate(runs)},
+        rounds_drain_ms_per_hop={r[0] + str(i): per_hop(r[1][3]["drain"], n)
+                                 for i, r in enumerate(runs)},
+        rounds_hops_per_s={r[0] + str(i): n / r[1][3]["total"]
+                           for i, r in enumerate(runs)},
+        burst_hops=nb,
+        burst_ms_per_hop={b[0] + str(i): per_hop(b[2], nb)
+                          for i, b in enumerate(burst)},
+        burst_hops_per_s={b[0] + str(i): nb / b[2]
+                          for i, b in enumerate(burst)},
+        burst_ms_per_hop_median={k: float(np.median(
+            [per_hop(b[2], nb) for b in burst if b[0] == k]))
+            for k in ("sync", "async")},
+        sync_hop_loop_profile=profile,
+        hidden_frac=a_sched.metrics.overlap_summary()["hidden_frac"],
+        overlap=a_sched.metrics.overlap_summary(),
+        burst_hidden_frac=float(np.median([
+            b[3].metrics.overlap_summary()["hidden_frac"] for b in burst
+            if b[0] == "async"])),
+        async_phase_ms_p50={k: v["ms_p50"] for k, v in
+                            a_sched.metrics.phase_summary().items()},
+        sync_phase_ms_p50={k: v["ms_p50"] for k, v in
+                           s_sched.metrics.phase_summary().items()},
+    )
+    fmt = lambda d: ", ".join(f"{k} {v:.4f}" for k, v in d.items())  # noqa: E731,E501
+    phase("async", f"rounds drive: {n} hops over {B_MAIN} streams; burst "
+          f"drive: {nb} hops; each async run == its drive's first sync run "
+          f"hop for hop, peeks and closes equal; async dispatch clean "
+          f"under sync debug mode 'error'; launches {dict(launches)}")
+    phase("async", "rounds drive wall s (total / push / drain): " + "; ".join(
+        f"{r[0]}{i} {r[1][3]['total']:.4f} / {r[1][3]['push']:.4f} / "
+        f"{r[1][3]['drain']:.4f}" for i, r in enumerate(runs)))
+    phase("async", f"rounds drive ms a hop: {fmt(rec['rounds_ms_per_hop'])}"
+          f"; hops/s: {fmt(rec['rounds_hops_per_s'])}; hidden_frac "
+          f"{rec['hidden_frac']:.4f}")
+    phase("async", f"burst drive ms a hop (hop loop alone): "
+          f"{fmt(rec['burst_ms_per_hop'])}; median sync "
+          f"{rec['burst_ms_per_hop_median']['sync']:.4f}, async "
+          f"{rec['burst_ms_per_hop_median']['async']:.4f}; hidden_frac "
+          f"{rec['burst_hidden_frac']:.4f}")
+    phase("async", "sync hop loop under cProfile, own / cumulative ms a "
+          "hop: " + "; ".join(f"{w} {tt:.4f} / {ct:.4f}"
+                              for w, tt, ct, _ in profile[:8]))
+    phase("async", f"phase p50 ms async {rec['async_phase_ms_p50']}; "
+          f"sync {rec['sync_phase_ms_p50']}")
+    return rec, launches
+
+
+def per_stream(hops):
+    """{sid: [(frame, logits row), ...]} from folded hops."""
+    out = collections.defaultdict(list)
+    for sids, frames, logits in hops:
+        for r, (sid, fr) in enumerate(zip(sids.tolist(), frames.tolist())):
+            out[sid].append((fr, None if logits is None else logits[r]))
+    return out
+
+
+def same_streams(label, got, want):
+    """``got`` and ``want`` map (model, sid) to a stream's hops."""
+    for key, seq in got.items():
+        ref = want[key]
+        if len(seq) != len(ref) or any(
+                f1 != f2 or (l1 is None) != (l2 is None)
+                or (l1 is not None and not np.array_equal(l1, l2))
+                for (f1, l1), (f2, l2) in zip(seq, ref)):
+            raise RuntimeError(f"{label}: stream {key[1]} differs from the "
+                               f"single-model scheduler of model {key[0]}")
+
+
+def tenants_phase(spec, plan, seed, audio, chunk_plan, dev, torch, dispatch,
+                  mk, bk, sched_cls, async_cls, main_inp, hop_p):
+    """``max_models=4, tenant_block=8``: K = 2 and 4 random models from
+    the seed bound round-robin to the 256 streams in blocks of 8, on the
+    megakernel and per-stage backends, sync and async; every stream's
+    hops and close equal the single-model megakernel scheduler of its
+    model on its streams; launches per hop independent of K (1 per
+    megakernel hop, 9 per emit and 4 per steady per-stage hop).  Then
+    the pooled hop kernel (K = 4) bit-equal to its plain version and
+    timed at B = 256 beside the unpooled one.  Returns the record and the
+    launches of the pooled drives."""
+    models = [random_model(spec, seed + 300 + j)
+              for j in range(TENANT_MODELS)]
+    names = ["default"] + [f"m{j}" for j in range(1, TENANT_MODELS)]
+    bind = {K: {sid: (sid // TENANT_BLOCK) % K for sid in range(B_MAIN)}
+            for K in TENANT_KS}
+    kw = dict(capacity=B_MAIN, hop_frames=HOP_FRAMES)
+    # the oracle: one single-model scheduler per model, on the streams
+    # any K binds to it
+    want, want_close = {}, {}
+    for j, (w, t) in enumerate(models):
+        sids = sorted({s for K in TENANT_KS for s in range(B_MAIN)
+                       if bind[K][s] == j})
+        hops, _, cl, _, _ = drive_rounds(sched_cls(spec, w, t, **kw), sids,
+                                         audio, chunk_plan, torch, dispatch,
+                                         peeks=())
+        want.update({(j, sid): v for sid, v in per_stream(hops).items()})
+        want_close.update({(j, sid): v for sid, v in cl.items()})
+    launches = collections.Counter()
+    rec = {"single_model_drives": len(models), "pooled": []}
+    per_hop = {}
+    for K in TENANT_KS:
+        bound = {s: (None if bind[K][s] == 0 else names[bind[K][s]])
+                 for s in range(B_MAIN)}
+        for backend in ("megakernel", "per_stage"):
+            for cls, emit in ((sched_cls, True), (async_cls, True),
+                              (sched_cls, False)):
+                if not emit and K != TENANT_KS[-1]:
+                    continue
+                sched = cls(spec, *models[0], backend=backend,
+                            max_models=TENANT_MODELS,
+                            tenant_block=TENANT_BLOCK, emit_logits=emit,
+                            **kw)
+                for j in range(1, K):
+                    sched.register_model(names[j], *models[j])
+                kind = "async" if cls is async_cls else "sync"
+                label = (f"tenants K={K} {backend} {kind}"
+                         f"{'' if emit else ' emit off'}")
+                hops, _, cl, wall, launched = drive_rounds(
+                    sched, list(range(B_MAIN)), audio, chunk_plan, torch,
+                    dispatch, models=bound, peeks=())
+                n = len(hops)
+                if backend == "megakernel":
+                    want_l = {mk.HOP_KERNEL: n}
+                elif emit:
+                    want_l = {bk.BITSERIAL_KERNEL: 2 * n,
+                              bk.CONV_STEP_KERNEL: 6 * n,
+                              bk.TAIL_KERNEL: n}
+                else:
+                    want_l = {bk.BITSERIAL_KERNEL: n,
+                              bk.CONV_STEP_KERNEL: 3 * n}
+                if launched != want_l:
+                    raise RuntimeError(f"{label}: launches {launched}, "
+                                       f"expected {want_l}")
+                per_hop[(K, backend, emit)] = sum(launched.values()) / n
+                launches.update(launched)
+                got = {(bind[K][sid], sid): v
+                       for sid, v in per_stream(hops).items()}
+                if emit:
+                    same_streams(label, got, want)
+                else:
+                    frames = {k: [f for f, _ in v] for k, v in got.items()}
+                    if frames != {k: [f for f, _ in want[k]] for k in got}:
+                        raise RuntimeError(f"{label}: frames differ")
+                if sorted(cl) != list(CLOSE_SIDS) or not all(
+                        np.array_equal(v, want_close[(bind[K][sid], sid)])
+                        for sid, v in cl.items()):
+                    raise RuntimeError(f"{label}: a close differs")
+                rec["pooled"].append(dict(label=label, hops=n, wall_s=wall,
+                                          launches=launched))
+                wall = wall["total"]
+                what = "hops" if emit else "frames"
+                phase("tenants", f"{label}: {n} hops, {what} == the "
+                      f"single-model schedulers' stream for stream, closes "
+                      f"equal; {sum(launched.values()) / n:g} launches a "
+                      f"hop; drive {wall:.4f} s")
+    for backend, emit in (("megakernel", True), ("per_stage", True)):
+        ks = {per_hop[(K, backend, emit)] for K in TENANT_KS}
+        if len(ks) != 1:
+            raise RuntimeError(f"{backend}: launches per hop depend on K: "
+                               f"{per_hop}")
+    # the pooled hop kernel, K = 4 by blocks of 8, beside the unpooled one
+    tensors = [model_tensors(plan, w, t, dev, torch) for w, t in models]
+    pooled = {k: [torch.stack(xs) for xs in zip(*(m[k] for m in tensors))]
+              for k in tensors[0]}
+    midx = torch.as_tensor((np.arange(B_MAIN) // TENANT_BLOCK
+                            % TENANT_MODELS).astype(np.int32), device=dev)
+    check_case(f"kws hf8 pooled K={TENANT_MODELS} by blocks of "
+               f"{TENANT_BLOCK}", plan, pooled, main_inp, midx, torch, mk,
+               dispatch)
+    geoms = tuple(mk.stage_geom(s) for s in plan.convs)
+    fc_raw = tuple(f.out_raw for f in plan.fcs)
+    pw = (mk.prepare_hop_weights(pooled["ws"], pooled["fc_ws"]),
+          pooled["thrs"], pooled["flips"], pooled["fc_ws"],
+          pooled["fc_thrs"], pooled["fc_flips"])
+    state = (main_inp["audio"], main_inp["mask"], main_inp["tails"],
+             main_inp["pendings"], main_inp["gap"])
+    t_pool = time_ms(lambda: mk.hop_megakernel_packed(
+        *state, *pw, midx, geoms=geoms, emit=True, fc_raw=fc_raw), torch)
+    t_one = time_ms(lambda: mk.hop_megakernel_packed(
+        *state, *hop_p, geoms=geoms, emit=True, fc_raw=fc_raw), torch)
+    t_pool2 = time_ms(lambda: mk.hop_megakernel_packed(
+        *state, *pw, midx, geoms=geoms, emit=True, fc_raw=fc_raw), torch)
+    rec.update(pooled_hop_ms=[t_pool, t_pool2], unpooled_hop_ms=t_one,
+               launches_per_hop={f"K={k[0]} {k[1]} emit={k[2]}": v
+                                 for k, v in per_hop.items()})
+    phase("tenants", f"hop kernel at B={B_MAIN} (emit, masked slots): "
+          f"pooled K={TENANT_MODELS} {t_pool:.4f} / {t_pool2:.4f} ms, "
+          f"unpooled {t_one:.4f} ms (turns: pooled, unpooled, pooled)")
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1335,7 +1756,11 @@ def main() -> int:
         from repro_torch.kernels import ops
         from repro_torch.kernels import twm_matmul as tm
         from repro_torch.models import kws
-        from repro_torch.stream import StreamScheduler, StreamState
+        from repro_torch.stream import (
+            AsyncStreamScheduler,
+            StreamScheduler,
+            StreamState,
+        )
         from repro_torch.stream.state import plan_stream
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -1819,19 +2244,31 @@ def main() -> int:
           f"synchronised; launches {ps_launches}; phase p50 ms {ps_phases}; "
           f"logits == megakernel == torch backend == StreamState; {card}")
 
+    # 7. the async plane on the main path
+    async_rec, async_launches = async_phase(
+        spec, weights, thresholds, audio, chunk_plan, torch, dispatch, mk,
+        StreamScheduler, AsyncStreamScheduler)
+    # 8. the tenant pool on the main path
+    tenant_rec, tenant_launches = tenants_phase(
+        spec, plan, args.seed, audio, chunk_plan, dev, torch, dispatch, mk,
+        bk, StreamScheduler, AsyncStreamScheduler, main_inp, p)
+    new_paths = async_launches + tenant_launches
+
     ms, pms, bms, by = timing[("hop", True)]
     fms, fpms, fbms, fby = timing["fin"]
     entries = [
         {"name": mk.HOP_KERNEL, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hop_megakernel.cu",
          "replaces": "src/repro/kernels/hop_megakernel.py:438",
-         "launches": launches.get(mk.HOP_KERNEL, 0),
+         "launches": launches.get(mk.HOP_KERNEL, 0)
+         + new_paths.get(mk.HOP_KERNEL, 0),
          "max_abs_err": err[mk.HOP_KERNEL], "ms": ms, "plain_ms": pms,
          "bound_ms": bms, "bound_by": by, "library_ms": None},
         {"name": mk.FINALIZE_KERNEL, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hop_megakernel.cu",
          "replaces": "src/repro/kernels/hop_megakernel.py:534",
-         "launches": launches.get(mk.FINALIZE_KERNEL, 0),
+         "launches": launches.get(mk.FINALIZE_KERNEL, 0)
+         + new_paths.get(mk.FINALIZE_KERNEL, 0),
          "max_abs_err": err[mk.FINALIZE_KERNEL], "ms": fms,
          "plain_ms": fpms, "bound_ms": fbms, "bound_by": fby,
          "library_ms": None},
@@ -1852,7 +2289,8 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": ps_launches.get(name, 0) + lib_launches.get(name, 0),
+            "launches": ps_launches.get(name, 0) + lib_launches.get(name, 0)
+            + new_paths.get(name, 0),
             "max_abs_err": err[name], "ms": agg["ms"],
             "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
             "bound_by": ("bytes" if agg["bytes_s"] >= agg["ops_s"]
@@ -1882,7 +2320,8 @@ def main() -> int:
                   classifier_slot_sweep=sweep_tail_rows, mma_rate=mma,
                   steady_hop=dict(zip(("ms", "plain_ms", "bound_ms",
                                        "bound_by"),
-                                      timing[("hop", False)])))
+                                      timing[("hop", False)])),
+                  async_path=async_rec, tenants=tenant_rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

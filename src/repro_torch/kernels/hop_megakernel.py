@@ -245,12 +245,19 @@ def _plain(audio, mask, tails, pendings, gap, params, model_idx, *, geoms,
 
 def hop_megakernel_plain(audio, mask, tails, pendings, gap, ws, thrs, flips,
                          fc_ws=(), fc_thrs=(), fc_flips=(), model_idx=None,
-                         *, geoms, emit, fc_raw=()):
+                         *, geoms, emit, fc_raw=(), out=None):
     """Plain PyTorch version of :func:`hop_megakernel_packed` (any
-    device).  Returns ``(tails, pendings, gap[, logits])``."""
+    device).  Returns ``(tails, pendings, gap[, logits])``; with ``out``
+    the state is copied into its tensors, which are returned."""
     params = (ws, thrs, flips, fc_ws, fc_thrs, fc_flips)
-    return _plain(audio, mask, tails, pendings, gap, params, model_idx,
-                  geoms=geoms, emit=emit, fc_raw=fc_raw, finalize_only=False)
+    res = _plain(audio, mask, tails, pendings, gap, params, model_idx,
+                 geoms=geoms, emit=emit, fc_raw=fc_raw, finalize_only=False)
+    if out is None:
+        return res
+    out_t, out_p, out_g = out
+    for dst, src in zip((*out_t, *out_p, out_g), (*res[0], *res[1], res[2])):
+        dst.copy_(src)
+    return (tuple(out_t), tuple(out_p), out_g, *res[3:])
 
 
 def finalize_megakernel_plain(tails, pendings, gap, ws, thrs, flips, fc_ws,
@@ -589,7 +596,7 @@ def _frag(x, name, lead, n, k):
 
 def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
             fc_thrs, fc_flips, model_idx, *, geoms, emit, fc_raw,
-            finalize_only, slots=None):
+            finalize_only, slots=None, out=None):
     check_geoms(geoms, fc_raw)
     hw = ws if isinstance(ws, HopWeights) else prepare_hop_weights(ws,
                                                                    fc_ws)
@@ -611,6 +618,10 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
         p.mask = _check(mask, "mask", torch.int32, (b,))
     ti = pi = 0
     tails_out, pends_out = [], []
+    if out is not None:
+        out_t, out_p, out_g = out
+        if len(out_t) != len(tails) or len(out_p) != len(pendings):
+            raise ValueError("out does not match the stages' widths")
     p.audio_sto, tail_sto, pend_sto, p.gap_sto, _ = state_offsets(geoms,
                                                                   gap_c)
     for i, g in enumerate(geoms):
@@ -632,8 +643,12 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
                                (b, g.tail, g.cin))
             ti += 1
             if not finalize_only:
-                t = torch.empty((b, g.tail, g.cin), dtype=torch.int32,
-                                device=dev)
+                shape = (b, g.tail, g.cin)
+                if out is None:
+                    t = torch.empty(shape, dtype=torch.int32, device=dev)
+                else:
+                    t = out_t[ti - 1]
+                    _check(t, f"out tails[{ti - 1}]", torch.int32, shape)
                 s.tail_out = t.data_ptr()
                 tails_out.append(t)
         if g.phase:
@@ -641,8 +656,12 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
                                (b, g.phase, g.cout))
             pi += 1
             if not finalize_only:
-                t = torch.empty((b, g.phase, g.cout), dtype=torch.int32,
-                                device=dev)
+                shape = (b, g.phase, g.cout)
+                if out is None:
+                    t = torch.empty(shape, dtype=torch.int32, device=dev)
+                else:
+                    t = out_p[pi - 1]
+                    _check(t, f"out pendings[{pi - 1}]", torch.int32, shape)
                 s.pend_out = t.data_ptr()
                 pends_out.append(t)
     if ti != len(tails) or pi != len(pendings):
@@ -673,7 +692,11 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
         p.n_fc = 0
     gap_out = None
     if not finalize_only:
-        gap_out = torch.empty((b, gap_c), dtype=torch.int32, device=dev)
+        if out is None:
+            gap_out = torch.empty((b, gap_c), dtype=torch.int32, device=dev)
+        else:
+            gap_out = out_g
+            _check(gap_out, "out gap", torch.int32, (b, gap_c))
         p.gap_out = gap_out.data_ptr()
     (p.win0_bytes, p.bin_bytes, p.frm_bytes, p.fc_pitch,
      p.slot_bytes) = smem_layout(geoms, fc_dims, gap_c)
@@ -705,27 +728,30 @@ def _raw_weights(ws, fc_ws):
 
 def hop_megakernel_packed(audio, mask, tails, pendings, gap, ws, thrs, flips,
                           fc_ws=(), fc_thrs=(), fc_flips=(), model_idx=None,
-                          *, geoms, emit, fc_raw=()):
+                          *, geoms, emit, fc_raw=(), out=None):
     """One fused hop, ONE launch: ``(tails, pendings, gap[, logits])``.
 
     ``ws`` is the int8 conv weights or a :class:`HopWeights` from
     :func:`prepare_hop_weights`, which also carries the fc weights (then
-    ``fc_ws`` is not read).  For CUDA tensors this launches the CUDA kernel
-    (and raises on any failure; raw weights are laid out first); for CPU
-    tensors the plain version stands in for it.  Either way it counts one
-    ``hop_megakernel`` dispatch."""
+    ``fc_ws`` is not read).  ``out``, a packed ``(tails, pendings, gap)``
+    shaped like the inputs and sharing no memory with them, receives the
+    new state in place of fresh tensors (a caller that ping-pongs two
+    state sets allocates nothing per hop).  For CUDA tensors this
+    launches the CUDA kernel (and raises on any failure; raw weights are
+    laid out first); for CPU tensors the plain version stands in for it.
+    Either way it counts one ``hop_megakernel`` dispatch."""
     if gap.device.type == "cpu":
         dispatch.record(HOP_KERNEL)
         ws, fc_ws = _raw_weights(ws, fc_ws)
         return hop_megakernel_plain(
             audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
             fc_thrs, fc_flips, model_idx, geoms=geoms, emit=emit,
-            fc_raw=fc_raw)
-    out = _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
+            fc_raw=fc_raw, out=out)
+    res = _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
                   fc_thrs, fc_flips, model_idx, geoms=geoms, emit=emit,
-                  fc_raw=fc_raw, finalize_only=False)
+                  fc_raw=fc_raw, finalize_only=False, out=out)
     dispatch.record(HOP_KERNEL)
-    return out
+    return res
 
 
 def finalize_megakernel_packed(tails, pendings, gap, ws, thrs, flips, fc_ws,

@@ -313,7 +313,7 @@ def _mega_prep(stages, ws, thrs, flips, fc_ws, fc_thrs, fc_flips, device):
 def hop_megakernel(audio, mask, tails, pendings, gap, ws, thrs, flips,
                    fc_ws=(), fc_thrs=(), fc_flips=(), model_idx=None, *,
                    stages, emit: bool, fc_raw=(), bb: int | None = None,
-                   device=None):
+                   device=None, out=None):
     """One fused launch for a whole streaming hop.
 
     audio (B, hop, Cin0) codes; mask (B,) advance flags; tails/pendings
@@ -324,6 +324,9 @@ def hop_megakernel(audio, mask, tails, pendings, gap, ws, thrs, flips,
     cout)`` weights.  With ``model_idx`` ((B,) per-slot
     tenant ids) every weight operand carries a leading pool axis.
     Returns ``(tails, pendings, gap)`` plus int32 logits when ``emit``.
+    ``out`` (a ``(tails, pendings, gap)`` like the inputs, int32 on the
+    device, sharing no memory with them) receives the new state instead
+    of fresh tensors.
     """
     device = resolve_device(gap, device)
     geoms, params = _mega_prep(stages, ws, thrs, flips, fc_ws, fc_thrs,
@@ -336,10 +339,13 @@ def hop_megakernel(audio, mask, tails, pendings, gap, ws, thrs, flips,
     mi = None
     if model_idx is not None:
         mi = _slot_model_idx(model_idx, b, bb or DEFAULT_BB, device)
+    if out is not None:
+        out = (tuple(out[0][i] for i in nz_t),
+               tuple(out[1][i] for i in nz_p), out[2])
     out = _mega.hop_megakernel_packed(
         _as(audio, torch.int32, device), _as(mask, torch.int32, device),
         t_in, p_in, _as(gap, torch.int32, device), *params, mi,
-        geoms=geoms, emit=emit, fc_raw=tuple(fc_raw))
+        geoms=geoms, emit=emit, fc_raw=tuple(fc_raw), out=out)
     tails_out = list(tails)
     for j, i in enumerate(nz_t):
         tails_out[i] = out[0][j]

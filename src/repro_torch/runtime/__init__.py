@@ -8,10 +8,13 @@
     slot->shard mapping over contiguous per-shard blocks, cross-shard
     rebalance planning, single-model tenant blocks;
   * :mod:`repro_torch.runtime.remap` — the row-remap contract (host
-    ``remap_rows``, device ``remap_device_rows``/``perm_keep``).
-
-The async plane (``InFlightQueue``/``IngestPump``) is queue item A.7.
+    ``remap_rows``, device ``remap_device_rows``/``perm_keep``);
+  * :mod:`repro_torch.runtime.async_plane` — the async execution plane:
+    :class:`InFlightQueue` (double-buffered dispatch, FIFO fold, epoch
+    barriers) and :class:`IngestPump` (pushes landed from a worker
+    thread).
 """
+from repro_torch.runtime.async_plane import InFlightQueue, IngestPump
 from repro_torch.runtime.placement import SlotPlacement
 from repro_torch.runtime.pool import (
     SlotPool,
@@ -22,6 +25,8 @@ from repro_torch.runtime.pool import (
 from repro_torch.runtime.remap import perm_keep, remap_device_rows, remap_rows
 
 __all__ = [
+    "InFlightQueue",
+    "IngestPump",
     "SlotPlacement",
     "SlotPool",
     "SlotPoolClient",

@@ -14,10 +14,13 @@ Modules:
              per-stream reference (StreamState) and the batched primer
   scheduler  elastic continuous-batching scheduler (megakernel,
              per-stage kernels or dense torch backend, finalization in
-             the step)
+             the step; tenant weight pool ``WeightPool``; donated state
+             buffers)
   detector   posterior smoothing + hysteresis/refractory event logic
   metrics    fleet counters split host-pack vs device per hop + EnergyLedger
-  async_plane  not ported yet (queue item A.7)
+  async_plane  AsyncStreamScheduler: background ingest pump +
+             double-buffered hop dispatch with a deferred FIFO fold and
+             epoch barriers
 
 Quickstart (on the H100; pass ``device="cpu"`` to run the plain version):
 
@@ -37,7 +40,7 @@ Quickstart (on the H100; pass ``device="cpu"`` to run the plain version):
                 print("keyword", event.cls, "on stream", sid_)
     result = sched.close_stream(sid)              # flush; slot pool shrinks
 """
-from repro_torch.stream.async_plane import AsyncStreamScheduler
+from repro_torch.stream.async_plane import AsyncStreamScheduler, IngestPump
 from repro_torch.stream.detector import (
     BatchedDetector,
     Detection,
@@ -47,9 +50,11 @@ from repro_torch.stream.detector import (
 from repro_torch.stream.frontend import AudioFrontend, quantize_pcm
 from repro_torch.stream.metrics import StreamMetrics, plan_hop_ledger
 from repro_torch.stream.scheduler import (
+    DEFAULT_MODEL,
     HopBatch,
     StreamResult,
     StreamScheduler,
+    WeightPool,
     param_cache_stats,
     prepared_model_params,
 )
@@ -66,6 +71,8 @@ from repro_torch.stream.state import (
 __all__ = [
     "AsyncStreamScheduler",
     "AudioFrontend",
+    "DEFAULT_MODEL",
+    "WeightPool",
     "param_cache_stats",
     "prepared_model_params",
     "BatchedDetector",
@@ -73,6 +80,7 @@ __all__ = [
     "DetectorConfig",
     "FrameRing",
     "HopBatch",
+    "IngestPump",
     "PosteriorDetector",
     "RingArena",
     "SlotPlacement",

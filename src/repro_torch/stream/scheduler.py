@@ -1,10 +1,10 @@
 """Continuous-batching multi-stream scheduler for always-on KWS (PyTorch).
 
-The port of the reference's ``repro/stream/scheduler.py``, single device,
-synchronous and single tenant.  Thousands of concurrent audio streams each
-produce frames continuously; the model weights are shared across all of
-them.  The scheduler packs the active streams onto an *elastic* batch axis
-and advances them with ONE batched step per hop:
+The port of the reference's ``repro/stream/scheduler.py``, on one device.
+Thousands of concurrent audio streams each produce frames continuously;
+the model weights are shared across all of them.  The scheduler packs
+the active streams onto an *elastic* batch axis and advances them with ONE
+batched step per hop:
 
   * streams join/leave at any time — a free slot is primed from the
     stream's first ``prime_samples`` (``state.prime_batch``, numpy) and
@@ -43,9 +43,25 @@ exact logits the offline executor would produce if the utterance ended at
 this hop — and softmax posteriors.  ``StreamState.peek_logits`` (numpy)
 stays the exact fallback for peeks over leftover sub-hop samples.
 
+**Staging.**  A hop's operands (audio, mask, tenant rows) go to the card
+from pinned host buffers and its logits and posteriors come back into
+pinned ones, every copy ``non_blocking`` on the one CUDA stream the
+kernels run on, and an event recorded after the last copy is the hop's
+fence.  So dispatching a hop never waits on the device, which lets the
+async plane (``stream/async_plane.py``) enqueue hop N+1 while hop N runs.
+With ``donate_buffers`` the megakernel writes each hop's state into a
+second resident state set, and the two swap every hop (the paper's
+ping-pong feature SRAM): a steady hop allocates no state tensor.
+
+**Tenant pool.**  With ``max_models > 1`` the weights are ``(K, ...)``
+stacks, raw and laid out for every kernel; each stream binds a registered
+variant (``register_model``, ``add_stream(model=...)``; LRU eviction in
+``WeightPool``), placement keeps every ``tenant_block`` of slots
+single-model, and every kernel takes a per-slot model index, so a hop
+makes the same launches for any K.
+
 Not ported yet, and refused with ``NotImplementedError``: a device mesh
-(queue item A.9), the multi-tenant weight pool (``max_models > 1``, A.8),
-and donated state buffers and the async plane (A.7).
+(queue item A.9).
 """
 from __future__ import annotations
 
@@ -79,6 +95,9 @@ from repro_torch.stream.state import (
     remap_rows,
 )
 BACKENDS = ("torch", "megakernel", "per_stage")
+
+#: pool row 0 always holds the scheduler's construction weights
+DEFAULT_MODEL = "default"
 
 # ---------------------------------------------------------------------------
 # Memoized parameter prep (exported numpy dicts -> device tensors)
@@ -159,6 +178,115 @@ def param_cache_stats() -> dict[str, int]:
     }
 
 
+class WeightPool:
+    """K complete model variants sharing one plan geometry, one device.
+
+    The pool owns the *host* side of multi-tenancy: which model ids are
+    resident, which pool row (0..max_models-1) each occupies, how many
+    live streams pin each variant, and LRU admission/eviction.  Row
+    indices are stable for a variant's whole residency and the row count
+    is FIXED at ``max_models`` from construction, so the device-side
+    ``(K, ...)`` weight stacks never change shape — admission is a row
+    write.
+
+    Row 0 conventionally holds the scheduler's default model
+    (``DEFAULT_MODEL``), admitted at construction and never evicted
+    while default-bound streams exist (refcounting covers it like any
+    other variant).
+    """
+
+    def __init__(self, max_models: int) -> None:
+        if max_models < 1:
+            raise ValueError(f"max_models must be >= 1, got {max_models}")
+        self.max_models = max_models
+        self._index: dict[str, int] = {}
+        self._lru: collections.OrderedDict = collections.OrderedDict()
+        self._weights: dict[str, dict] = {}
+        self._thresholds: dict[str, dict] = {}
+        self._refs: dict[str, int] = {}
+        self._free = list(range(max_models - 1, -1, -1))  # pop() -> row 0
+        self.admits = 0
+        self.evictions = 0
+
+    def __contains__(self, model_id: str) -> bool:
+        return model_id in self._index
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def models(self) -> list[tuple[str, int]]:
+        """Resident variants as ``(model_id, pool row)``, row order."""
+        return sorted(self._index.items(), key=lambda kv: kv[1])
+
+    def index_of(self, model_id: str) -> int:
+        return self._index[model_id]
+
+    def refcount(self, model_id: str) -> int:
+        return self._refs[model_id]
+
+    def params_for(self, model_id: str):
+        """The pool-held (weights, thresholds) host copies."""
+        return self._weights[model_id], self._thresholds[model_id]
+
+    def admit(self, model_id: str, weights, thresholds
+              ) -> tuple[int, str | None]:
+        """Bind a variant to a pool row; returns ``(row, evicted_id)``.
+
+        A resident id is an LRU touch (its stored params stay — the
+        caller re-registers, the pool does not re-copy).  When full, the
+        least-recently-used variant with NO live streams is evicted; if
+        every row is pinned, MemoryError.
+        """
+        if model_id in self._index:
+            self._lru.move_to_end(model_id)
+            return self._index[model_id], None
+        evicted = None
+        if self._free:
+            row = self._free.pop()
+        else:
+            victim = next(
+                (m for m in self._lru if self._refs[m] == 0), None
+            )
+            if victim is None:
+                raise MemoryError(
+                    f"weight pool full: all {self.max_models} variants "
+                    "have live streams; close streams or raise max_models"
+                )
+            row = self._evict(victim)
+            evicted = victim
+            self.evictions += 1
+        # store the caller's mappings as-is: the memoized prep
+        # (prepared_model_params) keys on their identity, so re-admitting
+        # the same arrays — here or in another scheduler — never re-lays
+        # them out
+        self._weights[model_id] = weights
+        self._thresholds[model_id] = thresholds
+        self._index[model_id] = row
+        self._refs[model_id] = 0
+        self._lru[model_id] = None
+        self.admits += 1
+        return row, evicted
+
+    def _evict(self, model_id: str) -> int:
+        row = self._index.pop(model_id)
+        del self._weights[model_id]
+        del self._thresholds[model_id]
+        del self._refs[model_id]
+        del self._lru[model_id]
+        return row
+
+    def acquire(self, model_id: str) -> int:
+        """Pin a variant for one joining stream; returns its row."""
+        self._refs[model_id] += 1
+        self._lru.move_to_end(model_id)
+        return self._index[model_id]
+
+    def release(self, model_id: str) -> None:
+        if self._refs[model_id] < 1:
+            raise ValueError(f"model {model_id!r} has no live stream")
+        self._refs[model_id] -= 1
+
+
 @dataclasses.dataclass
 class StreamResult:
     """Returned by close_stream: the stream's final, flushed inference."""
@@ -192,6 +320,80 @@ class _Stream:
     events: list[Detection]
     primed: bool = False
     stamp: int = 0  # emit-step from which cached hop logits cover this slot
+    model: str = DEFAULT_MODEL  # tenant variant this stream computes with
+
+
+@dataclasses.dataclass
+class _Dispatched:
+    """One dispatched hop's results on their way to the host: the host
+    tensors its logits and posteriors land in (None with emit off), the
+    event recorded after their copies (None on the CPU, where nothing is
+    in flight) and the kernel launches the hop made."""
+
+    logits: torch.Tensor | None
+    post: torch.Tensor | None
+    event: torch.cuda.Event | None
+    dispatches: int
+
+
+class _HostStaging:
+    """The host side of a hop's copies: a ring of ``n`` slots of pinned
+    buffers, one per operand or result name, made at the shape asked for
+    (so a resize reallocates them).  Every copy is ``non_blocking`` on the
+    current CUDA stream, and the event recorded after a hop's copies
+    guards its slot: before the host rewrites a slot's buffers it waits on
+    that event, which has always passed by then when ``n`` exceeds the
+    hops in flight.  On the CPU there is nothing to stage: operands are
+    plain tensors and results are read in place."""
+
+    def __init__(self, device: torch.device, n: int) -> None:
+        self.device = device
+        self._bufs: list[dict[str, torch.Tensor]] = [{} for _ in range(n)]
+        self._events: list[torch.cuda.Event | None] = [None] * n
+        self._i = n - 1
+
+    def next(self) -> int:
+        """Claim the next slot of the ring, once its last copies are done."""
+        self._i = (self._i + 1) % len(self._bufs)
+        ev = self._events[self._i]
+        if ev is not None and not ev.query():
+            ev.synchronize()
+        self._events[self._i] = None
+        return self._i
+
+    def _buffer(self, i: int, name: str, shape, dtype) -> torch.Tensor:
+        buf = self._bufs[i].get(name)
+        if buf is None or buf.shape != shape or buf.dtype != dtype:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+            self._bufs[i][name] = buf
+        return buf
+
+    def to_device(self, i: int, name: str, a: np.ndarray) -> torch.Tensor:
+        """Slot ``i``'s copy of the host array ``a`` on the device."""
+        if self.device.type == "cpu":
+            return torch.tensor(a)
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        buf = self._buffer(i, name, src.shape, src.dtype)
+        buf.copy_(src)
+        return buf.to(self.device, non_blocking=True)
+
+    def to_host(self, i: int, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Slot ``i``'s host tensor that ``t`` lands in (``t`` itself on
+        the CPU); readable once the slot's event has passed."""
+        if self.device.type == "cpu":
+            return t
+        buf = self._buffer(i, name, t.shape, t.dtype)
+        buf.copy_(t, non_blocking=True)
+        return buf
+
+    def record(self, i: int) -> torch.cuda.Event | None:
+        """The event after slot ``i``'s copies (None on the CPU)."""
+        if self.device.type == "cpu":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._events[i] = ev
+        return ev
 
 
 def _require_device(device) -> torch.device:
@@ -211,23 +413,40 @@ class _BatchedModel:
 
     Batch-size polymorphic: every entry point derives B from its operands,
     so the elastic slot pool needs nothing per capacity.
+
+    With ``pool_size`` (a tenant pool) axis 0 of every weight operand
+    stacks K complete variants — raw and in every kernel's layout — and
+    the hop takes a per-slot ``model_idx``.  Unfilled rows hold the
+    default model, so the stack SHAPES are fixed from construction:
+    admitting a variant is a row write (``set_model_row``).
     """
 
-    def __init__(self, plan: StreamPlan, backend: str, params: dict) -> None:
+    def __init__(self, plan: StreamPlan, backend: str, params: dict,
+                 pool_size: int | None = None, tenant_block: int = 8
+                 ) -> None:
         self.plan = plan
         self.backend = backend
-        self._w = list(params["w"])
-        self._thr = list(params["thr"])
-        self._flip = list(params["flip"])
-        self._fc_w = tuple(params["fc_w"])
-        self._fc_thr = tuple(params["fc_thr"])
-        self._fc_flip = tuple(params["fc_flip"])
+        self.pool_size = pool_size
+        self._tenant_block = tenant_block
+        if pool_size is None:
+            stack = lambda t: t  # noqa: E731
+        else:
+            stack = lambda t: torch.stack([t] * pool_size)  # noqa: E731
+        self._w = [stack(w) for w in params["w"]]
+        self._thr = [stack(t) for t in params["thr"]]
+        self._flip = [stack(f) for f in params["flip"]]
+        self._fc_w = tuple(stack(w) for w in params["fc_w"])
+        self._fc_thr = tuple(stack(t) for t in params["fc_thr"])
+        self._fc_flip = tuple(stack(f) for f in params["fc_flip"])
         self._fc_raw = tuple(st.out_raw for st in plan.fcs)
         if backend == "megakernel":
             # the kernel's operands, prepared once: int8 weights laid out
             # for its tensor-core GEMMs (carrying the fc weights too),
             # int32 flips
-            self._kw = params["hop"]
+            self._kw = params["hop"] if pool_size is None else \
+                prepare_hop_weights(
+                    tuple(w.to(torch.int8) for w in self._w),
+                    tuple(w.to(torch.int8) for w in self._fc_w))
             self._kflip = tuple(f.to(torch.int32) for f in self._flip)
             self._kfc_w = self._kw.fc_ws
         elif backend == "per_stage":
@@ -241,6 +460,60 @@ class _BatchedModel:
             self._kfc_w = conv_kernels.prepare_tail_weights(
                 w.to(torch.int8) for w in self._fc_w)
 
+    # -- tenant pool device side ---------------------------------------------
+
+    def set_model_row(self, idx: int, params: dict) -> None:
+        """Write one tenant's prepared params (``prepared_model_params``,
+        same plan) into pool row ``idx`` of every stack: the raw weights,
+        thresholds and flips, and every layout made from them — the hop
+        kernel's ``HopWeights`` and int32 flips, or the per-stage
+        ``ConvWeights`` and B.5's ``TailWeights``.  A layout that missed
+        the write would run the evicted model's bits."""
+        if self.pool_size is None or not 0 <= idx < self.pool_size:
+            raise ValueError(f"pool row {idx} of {self.pool_size}")
+
+        def put(dsts, srcs):
+            for dst, src in zip(dsts, srcs):
+                dst[idx].copy_(src)
+
+        put(self._w, params["w"])
+        put(self._thr, params["thr"])
+        put(self._flip, params["flip"])
+        put(self._fc_w, params["fc_w"])
+        put(self._fc_thr, params["fc_thr"])
+        put(self._fc_flip, params["fc_flip"])
+        if self.backend == "megakernel":
+            kw, one = self._kw, params["hop"]
+            for name in ("ws", "fc_ws", "conv", "wsum", "fc"):
+                put(getattr(kw, name), getattr(one, name))
+            put(self._kflip, params["flip"])
+        elif self.backend == "per_stage":
+            for cw, w, st in zip(self._cw, params["w"], self.plan.convs):
+                one = ops.conv_weights(w, layout=st.in_bits == 1)
+                for f in dataclasses.fields(cw):
+                    if getattr(cw, f.name) is not None:
+                        getattr(cw, f.name)[idx].copy_(getattr(one, f.name))
+            one = conv_kernels.prepare_tail_weights(
+                w.to(torch.int8) for w in params["fc_w"])
+            put(self._kfc_w.ws, one.ws)
+            put(self._kfc_w.frag, one.frag)
+
+    def _bb(self, b: int) -> int | None:
+        """Tenant-aligned slot block: placement keeps each
+        ``min(tenant_block, capacity)`` block single-model, so each of the
+        kernels' blocks gathers one weight row.  None when un-pooled."""
+        if self.pool_size is None:
+            return None
+        return min(self._tenant_block, max(1, b))
+
+    def _block_gather(self, stack: torch.Tensor, model_idx: torch.Tensor
+                      ) -> tuple[torch.Tensor, int]:
+        """One weight row per tenant block instead of per slot: the dense
+        backend's twin of the kernels' per-block gather, exact because
+        the contractions are integer."""
+        tb = self._bb(model_idx.shape[0])
+        return stack[model_idx.reshape(-1, tb)[:, 0].long()], tb
+
     # -- shared conv math (dense and per-stage backends) --------------------
 
     @staticmethod
@@ -250,38 +523,55 @@ class _BatchedModel:
         return torch.einsum(eq, a.to(torch.float64),
                             b.to(torch.float64)).to(torch.int32)
 
-    def _conv_raw(self, i: int, window: torch.Tensor, n_conv: int
-                  ) -> torch.Tensor:
+    def _conv_raw(self, i: int, window: torch.Tensor, n_conv: int,
+                  model_idx: torch.Tensor | None = None) -> torch.Tensor:
         """(B, len, Cin) window -> (B, n_conv, Cout) raw conv: one B.3
         or B.4 launch on the per-stage backend, a dense contraction on the
-        torch backend."""
+        torch backend.  With ``model_idx`` the weights are the pooled
+        stacks, one row per tenant block."""
         st = self.plan.convs[i]
         if self.backend == "per_stage":
+            bb = self._bb(window.shape[0])
             if st.in_bits > 1:
                 return ops.bitserial_conv1d_batched(
-                    window, self._cw[i], bits=st.in_bits,
-                    offset=st.in_offset, stride=st.stride)
-            return ops.bnn_conv1d_batched(window, self._cw[i],
-                                          stride=st.stride, mode="raw")
+                    window, self._cw[i], model_idx, bits=st.in_bits,
+                    offset=st.in_offset, stride=st.stride, bb=bb)
+            return ops.bnn_conv1d_batched(window, self._cw[i], None, None,
+                                          model_idx, stride=st.stride,
+                                          mode="raw", bb=bb)
         x = window - st.in_offset if st.in_bits > 1 else window
         taps = [
             x[:, t : t + (n_conv - 1) * st.stride + 1 : st.stride]
             for t in range(st.k)
         ]
-        return self._contract("bknc,kco->bno", torch.stack(taps, 1),
-                              self._w[i])
+        xs = torch.stack(taps, 1)
+        if model_idx is None:
+            return self._contract("bknc,kco->bno", xs, self._w[i])
+        wg, tb = self._block_gather(self._w[i], model_idx)
+        xg = xs.reshape(-1, tb, *xs.shape[1:])
+        return self._contract("gtknc,gkco->gtno", xg, wg).reshape(
+            xs.shape[0], n_conv, -1)
 
-    def _sa(self, i: int, raw: torch.Tensor) -> torch.Tensor:
+    def _sa(self, i: int, raw: torch.Tensor,
+            model_idx: torch.Tensor | None = None) -> torch.Tensor:
         """SA binarization, executor-exact: integer thresholds make the
         float32 compare knife-edge free."""
-        ge = raw.to(torch.float32) >= self._thr[i]
-        return torch.where(self._flip[i], ~ge, ge).to(torch.int32)
+        thr, flip = self._thr[i], self._flip[i]
+        if model_idx is not None:
+            thr, flip = thr[model_idx][:, None, :], flip[model_idx][:, None, :]
+        ge = raw.to(torch.float32) >= thr
+        return torch.where(flip, ~ge, ge).to(torch.int32)
 
     # -- the hop -------------------------------------------------------------
 
-    def step(self, audio, mask, tails, pendings, gap, *, emit: bool):
+    def step(self, audio, mask, tails, pendings, gap, model_idx=None, *,
+             emit: bool, out=None):
         """One batched hop; with ``emit`` also per-slot finalized logits +
-        posteriors.  ``mask`` (B,) bool selects the slots that advance."""
+        posteriors.  ``mask`` (B,) bool selects the slots that advance;
+        ``model_idx`` ((B,) int32, pooled models only) each slot's tenant
+        row, constant per tenant block, so the launches do not depend on
+        K.  ``out`` (megakernel only) is a state set the kernel writes
+        the new state into."""
         plan = self.plan
         stages = plan.convs
         cur = audio.reshape(audio.shape[0], plan.hop_samples, stages[0].cin)
@@ -289,8 +579,9 @@ class _BatchedModel:
             out = ops.hop_megakernel(
                 cur, mask.to(torch.int32), tuple(tails), tuple(pendings),
                 gap, self._kw, self._thr, self._kflip, self._kfc_w,
-                self._fc_thr, self._fc_flip, stages=stages, emit=emit,
-                fc_raw=self._fc_raw,
+                self._fc_thr, self._fc_flip, model_idx, stages=stages,
+                emit=emit, fc_raw=self._fc_raw, bb=self._bb(gap.shape[0]),
+                out=out,
             )
             state = out[0], out[1], out[2]
             if not emit:
@@ -300,9 +591,9 @@ class _BatchedModel:
         new_tails, new_pendings = [], []
         for i, st in enumerate(stages):
             window = torch.cat([tails[i], cur], 1)
-            raw = self._conv_raw(i, window, st.n_conv)
+            raw = self._conv_raw(i, window, st.n_conv, model_idx)
             new_tails.append(window[:, st.n_conv * st.stride :])
-            y = self._sa(i, raw)
+            y = self._sa(i, raw, model_idx)
             if st.pool > 1:
                 frames = torch.cat([pendings[i], y], 1) if st.phase else y
                 used = st.n_out * st.pool
@@ -332,12 +623,12 @@ class _BatchedModel:
         # finalization on the merged state: masked rows hold their
         # previous (still steady) state, so every primed slot's logits
         # are valid
-        logits, post = self.finalize(*state)
+        logits, post = self.finalize(*state, model_idx)
         return (*state, logits, post)
 
     # -- finalization tail ---------------------------------------------------
 
-    def finalize(self, tails, pendings, gap):
+    def finalize(self, tails, pendings, gap, model_idx=None):
         """Logits/posteriors as if every stream ended at this hop boundary:
         a ghost end-of-stream flush sized by the plan's ``flush_*``
         geometry, then the fc classifier on the saturated GAP counts."""
@@ -345,7 +636,8 @@ class _BatchedModel:
             logits = ops.finalize_megakernel(
                 tuple(tails), tuple(pendings), gap, self._kw, self._thr,
                 self._kflip, self._kfc_w, self._fc_thr, self._fc_flip,
-                stages=self.plan.convs, fc_raw=self._fc_raw,
+                model_idx, stages=self.plan.convs, fc_raw=self._fc_raw,
+                bb=self._bb(gap.shape[0]),
             )
             return logits, torch.softmax(logits.float(), -1)
         stages = self.plan.convs
@@ -362,7 +654,8 @@ class _BatchedModel:
                                          device=gap.device))
             if st.flush_conv > 0:
                 window = torch.cat(pieces, 1)
-                y = self._sa(i, self._conv_raw(i, window, st.flush_conv))
+                y = self._sa(i, self._conv_raw(i, window, st.flush_conv,
+                                               model_idx), model_idx)
             else:
                 y = torch.zeros((B, 0, st.cout), dtype=torch.int32,
                                 device=gap.device)
@@ -372,23 +665,32 @@ class _BatchedModel:
                 B, st.flush_out, st.pool, st.cout
             ).amax(2)
         gap_f = torch.clamp(gap + cur.sum(1, dtype=torch.int32), max=255)
-        logits = self._classifier(gap_f)
+        logits = self._classifier(gap_f, model_idx)
         return logits, torch.softmax(logits.float(), -1)
 
-    def _classifier(self, gap_f: torch.Tensor) -> torch.Tensor:
+    def _classifier(self, gap_f: torch.Tensor,
+                    model_idx: torch.Tensor | None = None) -> torch.Tensor:
         """Saturated GAP counts (B, C) -> raw logits (B, n_classes)."""
         if self.backend == "per_stage":
-            return ops.classifier_tail(gap_f, self._kfc_w, self._fc_thr,
-                                       self._fc_flip, out_raw=self._fc_raw)
+            return ops.classifier_tail(
+                gap_f, self._kfc_w, self._fc_thr, self._fc_flip, model_idx,
+                out_raw=self._fc_raw, bb=self._bb(gap_f.shape[0]))
         h = gap_f
         for j, st in enumerate(self.plan.fcs):
-            raw = self._contract("bc,co->bo", h, self._fc_w[j])
+            thr, flip = self._fc_thr[j], self._fc_flip[j]
+            if model_idx is None:
+                raw = self._contract("bc,co->bo", h, self._fc_w[j])
+            else:
+                wg, tb = self._block_gather(self._fc_w[j], model_idx)
+                raw = self._contract("gtc,gco->gto",
+                                     h.reshape(-1, tb, h.shape[1]),
+                                     wg).reshape(h.shape[0], -1)
+                thr, flip = thr[model_idx], flip[model_idx]
             if st.out_raw:
                 h = raw
             else:
-                ge = raw.to(torch.float32) >= self._fc_thr[j]
-                h = torch.where(self._fc_flip[j] != 0, ~ge, ge).to(
-                    torch.int32)
+                ge = raw.to(torch.float32) >= thr
+                h = torch.where(flip != 0, ~ge, ge).to(torch.int32)
         return h
 
     def dispatches_per_hop(self, emit: bool) -> int:
@@ -426,11 +728,19 @@ class StreamScheduler:
 
     Takes the reference's constructor arguments plus ``device`` (default
     ``"cuda"``; raises when CUDA is absent, never continues on the CPU).
-    ``interpret`` and ``tenant_block`` have no meaning here (there is no
-    interpret mode, and no tenant pool) and are accepted for signature
-    parity.  ``mesh``, ``max_models > 1`` and ``donate_buffers`` raise
-    ``NotImplementedError``.
+    ``interpret`` has no meaning here (there is no interpret mode) and is
+    accepted for signature parity.  ``max_models > 1`` turns on the tenant
+    weight pool (``register_model``, ``add_stream(model=...)``), whose
+    slot blocks of ``tenant_block`` (a power of two) stay single-model.
+    ``donate_buffers`` makes the megakernel write each hop's state into a
+    second resident state set, the two swapping every hop; on the
+    ``torch`` and ``per_stage`` backends it is accepted and changes
+    nothing.  ``mesh`` raises ``NotImplementedError`` (queue item A.9).
     """
+
+    #: hops the scheduler keeps in flight (the async plane raises it); the
+    #: host staging ring holds one slot more
+    _pipeline_depth = 0
 
     def __init__(
         self,
@@ -467,14 +777,12 @@ class StreamScheduler:
             raise NotImplementedError(
                 "mesh-sharded slot pools are not ported yet: ROADMAP queue "
                 "item A.9")
-        if max_models != 1:
-            raise NotImplementedError(
-                "the multi-tenant weight pool (max_models > 1) is not "
-                "ported yet: ROADMAP queue item A.8")
-        if donate_buffers:
-            raise NotImplementedError(
-                "donated state buffers belong to the async plane, not "
-                "ported yet: ROADMAP queue item A.7")
+        if max_models < 1:
+            raise ValueError(f"max_models must be >= 1, got {max_models}")
+        if max_models > 1 and (tenant_block < 1
+                               or tenant_block & (tenant_block - 1)):
+            raise ValueError(f"tenant_block {tenant_block} is not a power "
+                             "of two")
         self.device = _require_device(device)
         self._clock = clock
         self.plan = plan_stream(spec, hop_frames=hop_frames)
@@ -486,9 +794,19 @@ class StreamScheduler:
         self.obs = obs if obs is not None else Observability.create()
         self.metrics = StreamMetrics(self.plan, sample_rate, n_shards=1,
                                      registry=self.obs.registry)
+        # tenant weight pool: with max_models > 1 the device weights are
+        # (K, ...) stacks and each stream binds a registered variant at
+        # join time; row 0 always holds the construction weights
+        self._pool = WeightPool(max_models) if max_models > 1 else None
+        self._tenant_block = tenant_block
+        if self._pool is not None:
+            self._pool.admit(DEFAULT_MODEL, self.weights, self.thresholds)
         self._params = prepared_model_params(self.plan, weights, thresholds,
                                              self.device)
-        self._model = _BatchedModel(self.plan, backend, self._params)
+        self._model = _BatchedModel(
+            self.plan, backend, self._params,
+            pool_size=max_models if self._pool is not None else None,
+            tenant_block=tenant_block)
         # the generic slot-pool plane: slot<->sid binding, pow-2 elastic
         # resize, idle-time prewarm, resize observability.  This scheduler
         # is its client through device_state/slot_axes/shard/
@@ -498,6 +816,7 @@ class StreamScheduler:
             initial_capacity=initial_capacity,
             min_capacity=min_capacity,
             n_shards=1,
+            tenant_block=tenant_block if self._pool is not None else None,
             rebalance_threshold=rebalance_threshold,
             obs=self.obs,
             on_resize=self.metrics.on_resize,
@@ -513,6 +832,11 @@ class StreamScheduler:
         self._pendings = [self._zeros((cap0, st.phase, st.cout))
                           for st in self.plan.convs]
         self._gap = self._zeros((cap0, self.plan.gap_channels))
+        # donated state: the spare set the next hop writes (made at the
+        # current capacity on first use, dropped on every remap)
+        self._donate = donate_buffers and backend == "megakernel"
+        self._spare = None
+        self._staging = _HostStaging(self.device, self._pipeline_depth + 1)
         base_inbox = (
             inbox_samples if inbox_samples is not None
             else FrontendConfig().capacity_samples
@@ -528,6 +852,12 @@ class StreamScheduler:
         self._slot_sid = np.full(cap0, -1, np.int64)
         self._primed_mask = np.zeros(cap0, bool)
         self._frames_v = np.zeros(cap0, np.int64)  # frames per slot
+        # per-slot tenant rows (pool row 0 = default model); staged to the
+        # device when they change, remapped with every resize like the
+        # other slot-indexed vectors
+        self._model_idx_v = np.zeros(cap0, np.int32)
+        self._model_rows_dirty = False
+        self._model_idx_dev = None  # the device copy of the rows
         self._streams: dict[int, _Stream] = {}
         self._unprimed: set[int] = set()  # empty in steady state
         self._next_sid = 0
@@ -539,7 +869,6 @@ class StreamScheduler:
         self._emit_cache: np.ndarray | None = None
         self._emit_cache_step = -1
         self._warmed: set[tuple[int, bool]] = set()
-        self._last_dispatches = 0
 
     def _zeros(self, shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.int32, device=self.device)
@@ -573,6 +902,7 @@ class StreamScheduler:
         self._tails = list(tails)
         self._pendings = list(pendings)
         self._gap = gap
+        self._spare = None  # remade at the new capacity by the next hop
 
     def slot_axes(self):
         n = len(self.plan.convs)
@@ -589,6 +919,8 @@ class StreamScheduler:
         self._slot_sid = remap_rows(self._slot_sid, remap, new_cap, fill=-1)
         self._primed_mask = remap_rows(self._primed_mask, remap, new_cap)
         self._frames_v = remap_rows(self._frames_v, remap, new_cap)
+        self._model_idx_v = remap_rows(self._model_idx_v, remap, new_cap)
+        self._model_rows_dirty = True
         for s in self._streams.values():
             s.slot = remap[s.slot]
             s.frontend._slot = s.slot
@@ -597,10 +929,68 @@ class StreamScheduler:
     def warm(self, capacity: int) -> None:
         self._warm_capacity(capacity)
 
+    # -- tenant weight pool --------------------------------------------------
+
+    @property
+    def models(self) -> list[tuple[str, int]]:
+        """Resident pool variants as ``(model_id, pool row)`` pairs."""
+        if self._pool is None:
+            return [(DEFAULT_MODEL, 0)]
+        return self._pool.models()
+
     def register_model(self, model_id: str, weights, thresholds) -> int:
-        raise NotImplementedError(
-            "the multi-tenant weight pool is not ported yet: ROADMAP queue "
-            "item A.8")
+        """Admit one tenant variant into the weight pool; returns its row.
+
+        The variant must share the default model's plan geometry (same
+        spec, same hop).  Admission writes one row of every
+        device-resident ``(K, ...)`` stack, raw and laid out; shapes never
+        change.  When the pool is full, the least-recently-used variant
+        with NO live streams is evicted (MemoryError when every row is
+        pinned).  Re-admitting a resident id is an LRU touch.
+        """
+        if self._pool is None:
+            raise ValueError(
+                "single-model scheduler: construct with max_models > 1 "
+                "to enable the tenant weight pool"
+            )
+        if model_id in self._pool:
+            row, _ = self._pool.admit(model_id, weights, thresholds)
+            return row
+        row, evicted = self._pool.admit(model_id, weights, thresholds)
+        w, t = self._pool.params_for(model_id)
+        self._model.set_model_row(
+            row, prepared_model_params(self.plan, w, t, self.device))
+        if evicted is not None:
+            self.metrics.on_model_evict(evicted)
+            self.obs.events.emit("model_evict", model=evicted, row=row)
+        self.metrics.on_model_admit(model_id)
+        self.obs.events.emit("model_admit", model=model_id, row=row,
+                             evicted=evicted)
+        return row
+
+    def _stream_params(self, s: _Stream):
+        """The weights/thresholds the stream's slot computes with."""
+        if self._pool is None or s.model == DEFAULT_MODEL:
+            return self.weights, self.thresholds
+        return self._pool.params_for(s.model)
+
+    def _sync_model_rows(self) -> None:
+        """Rebuild the per-slot tenant rows block-uniformly from the live
+        streams.  The kernels gather ONE weight row per tenant block, so
+        every slot of a block — free slots included — must carry the
+        block's bound row: a freed or remapped slot left stale (or reset
+        to 0) would steer its whole block to the wrong weights.  Coalesced
+        by a dirty flag so joins/closes/resizes pay it once per hop."""
+        if self._pool is None or not self._model_rows_dirty:
+            return
+        v = np.zeros(self.capacity, np.int32)
+        tb = min(self._tenant_block, self._slots.shard_capacity)
+        for s in self._streams.values():
+            b0 = (s.slot // tb) * tb
+            v[b0:b0 + tb] = self._pool.index_of(s.model)
+        self._model_idx_v = v
+        self._model_rows_dirty = False
+        self._model_idx_dev = None  # rows changed: the next hop re-stages
 
     # -- stream lifecycle ----------------------------------------------------
 
@@ -608,16 +998,33 @@ class StreamScheduler:
                    frontend_cfg: FrontendConfig | None = None,
                    model: str | None = None) -> int:
         """Claim a slot for a new stream (growing the pool if needed);
-        returns the stream id."""
+        returns the stream id.  With a tenant pool, ``model`` binds the
+        stream to a registered variant (default: the construction
+        weights); placement keeps every ``tenant_block`` slot block
+        single-model."""
         sid = self._next_sid if sid is None else sid
         assert sid not in self._streams, f"stream {sid} already exists"
-        if model is not None:
-            raise ValueError(
-                "model binding needs a tenant pool (max_models > 1)"
-            )
-        # grow-on-demand alloc (pow-2 doubling to the ceiling) is the
-        # pool's; it raises MemoryError when every slot stays busy
-        slot = self._slots.alloc(sid)
+        if self._pool is not None:
+            model_id = DEFAULT_MODEL if model is None else model
+            if model_id not in self._pool:
+                raise KeyError(
+                    f"unknown model {model_id!r}; register_model() first"
+                )
+            midx = self._pool.acquire(model_id)
+        else:
+            if model is not None:
+                raise ValueError(
+                    "model binding needs a tenant pool (max_models > 1)"
+                )
+            model_id, midx = DEFAULT_MODEL, 0
+        try:
+            # grow-on-demand alloc (pow-2 doubling to the ceiling) is the
+            # pool's; it raises MemoryError when every slot stays busy
+            slot = self._slots.alloc(sid, model=model_id)
+        except MemoryError:
+            if self._pool is not None:
+                self._pool.release(model_id)
+            raise
         self._next_sid = max(self._next_sid, sid) + 1
         self._streams[sid] = _Stream(
             sid=sid,
@@ -625,8 +1032,11 @@ class StreamScheduler:
             frontend=AudioFrontend(frontend_cfg, arena=self._arena,
                                    slot=slot),
             events=[],
+            model=model_id,
         )
         self._slot_sid[slot] = sid
+        self._model_idx_v[slot] = midx
+        self._model_rows_dirty = True  # block fill happens at sync
         self._detector.reset_slot(slot)
         self._unprimed.add(sid)
         self.metrics.on_join(sid)
@@ -721,17 +1131,32 @@ class StreamScheduler:
         # priming consumed a non-hop-multiple; realign the inboxes so
         # every future hop window is one contiguous block
         self._arena.rebase_batch(slots)
-        steady = prime_batch(self.plan, self.weights, self.thresholds,
-                             samples)
-        idx = torch.as_tensor(slots, device=self.device)
+        # one vectorized warm-up per tenant model (a single group without
+        # a pool): each group's rows land via the same batched scatters
+        if self._pool is None:
+            groups = [(self.weights, self.thresholds,
+                       np.arange(len(sids), dtype=np.int64))]
+        else:
+            by_model: dict[str, list[int]] = {}
+            for j, sid in enumerate(sids):
+                by_model.setdefault(self._streams[sid].model, []).append(j)
+            groups = [
+                (*self._stream_params(self._streams[sids[pos[0]]]),
+                 np.asarray(pos, np.int64))
+                for pos in by_model.values()
+            ]
         put = lambda a: torch.as_tensor(  # noqa: E731
             np.ascontiguousarray(a, np.int32), device=self.device)
-        for i in range(len(self.plan.convs)):
-            self._tails[i][idx] = put(steady["tails"][i])
-            if self._pendings[i].shape[1]:
-                self._pendings[i][idx] = put(steady["pendings"][i])
-        self._gap[idx] = put(steady["gap"])
-        self._frames_v[slots] = steady["frames"]
+        for w, t, pos in groups:
+            steady = prime_batch(self.plan, w, t, samples[pos])
+            gslots = slots[pos]
+            idx = torch.as_tensor(gslots, device=self.device)
+            for i in range(len(self.plan.convs)):
+                self._tails[i][idx] = put(steady["tails"][i])
+                if self._pendings[i].shape[1]:
+                    self._pendings[i][idx] = put(steady["pendings"][i])
+            self._gap[idx] = put(steady["gap"])
+            self._frames_v[gslots] = steady["frames"]
         self._primed_mask[slots] = True
         for sid in sids:
             s = self._streams[sid]
@@ -762,7 +1187,7 @@ class StreamScheduler:
 
     def _extract_slot(self, s: _Stream, host=None) -> StreamState:
         tails, pendings, gap = host if host is not None else self._host_state()
-        st = StreamState(self.plan, self.weights, self.thresholds)
+        st = StreamState(self.plan, *self._stream_params(s))
         st.import_steady(
             [t[s.slot] for t in tails],
             [p[s.slot] for p in pendings],
@@ -794,35 +1219,79 @@ class StreamScheduler:
         t_pack = self._clock()
         return ready_slots, ready_mask, audio, shard_counts, t0, t_pack
 
-    def _dispatch_hop(self, ready_mask, audio):
-        """Dispatch stage: stage operands, run the batched hop, and
-        reassign the resident state from its results.  Returns the
-        logits/posterior tensors (None with emit off).  The launches the
-        hop made are counted through ``kernels.dispatch``."""
+    def _spare_set(self):
+        """The donated state set the next hop writes: the set the last
+        hop read, or a new one when a remap dropped it."""
+        if self._spare is None:
+            self._spare = tuple(
+                tuple(torch.empty_like(t) for t in part)
+                if isinstance(part, tuple) else torch.empty_like(part)
+                for part in self.device_state())
+        return self._spare
+
+    def _dispatch_hop(self, ready_mask, audio) -> _Dispatched:
+        """Dispatch stage: stage the operands through the host staging
+        ring, enqueue the batched hop, the copies of its logits and
+        posteriors to the host and an event after them, and reassign the
+        resident state.  Nothing here waits on the device: every copy is
+        ``non_blocking`` from or into pinned memory on the kernels' one
+        CUDA stream.  The launches the hop made are counted through
+        ``kernels.dispatch``."""
+        stg = self._staging
+        i = stg.next()
         args = (
-            torch.as_tensor(audio, device=self.device),
-            torch.as_tensor(ready_mask, device=self.device),
+            stg.to_device(i, "audio", audio),
+            stg.to_device(i, "mask", ready_mask),
             tuple(self._tails), tuple(self._pendings), self._gap,
         )
+        if self._pool is not None:
+            self._sync_model_rows()
+            if self._model_idx_dev is None:
+                # the rows move only on join/close/resize, not per hop
+                self._model_idx_dev = stg.to_device(i, "model_idx",
+                                                    self._model_idx_v)
+            args = args + (self._model_idx_dev,)
+        state_in = self.device_state()
+        out = self._spare_set() if self._donate else None
         n0 = dispatch.count()
+        res = self._model.step(*args, emit=self.emit_logits, out=out)
+        n_disp = dispatch.count() - n0
+        if self._donate:
+            self._spare = state_in  # the next hop writes the set just read
+        self._tails = list(res[0])
+        self._pendings = list(res[1])
+        self._gap = res[2]
+        logits = post = None
         if self.emit_logits:
-            tails, pendings, gap, logits, post = self._model.step(
-                *args, emit=True
-            )
-        else:
-            tails, pendings, gap = self._model.step(*args, emit=False)
-            logits = post = None
-        self._last_dispatches = dispatch.count() - n0
-        self._tails = list(tails)
-        self._pendings = list(pendings)
-        self._gap = gap
-        return logits, post
+            logits = stg.to_host(i, "logits", res[3])
+            post = stg.to_host(i, "post", res[4])
+        return _Dispatched(logits, post, stg.record(i), n_disp)
+
+    @staticmethod
+    def _fence(hop: _Dispatched):
+        """Wait for one dispatched hop's copies; its logits and
+        posteriors as numpy (None, None with emit off)."""
+        if hop.event is not None:
+            hop.event.synchronize()
+        if hop.logits is None:
+            return None, None
+        # copied out of the staging ring, which a later hop reuses
+        return hop.logits.numpy().copy(), hop.post.numpy().copy()
 
     def _fold_hop(self, ready_slots, shard_counts, logits_h, post_h,
-                  t0, t_pack, t_dispatch, t_device) -> HopBatch:
+                  t0, t_pack, t_dispatch, t_device,
+                  hidden_s: float = 0.0, fold_hidden: bool = False,
+                  dispatches: int = 0) -> HopBatch:
         """Fold stage: apply one resolved hop's results to the host-side
         planes — emit cache, frame counters, slot-vectorized detector,
-        metrics, lifecycle events, trace spans."""
+        metrics, lifecycle events, trace spans.  The sync path runs it
+        inline right after the fence; the async plane defers it to the
+        hop's retirement, strictly in FIFO dispatch order, which keeps
+        every per-slot sequence bit-identical to the synchronous schedule.
+        ``hidden_s`` is the hop's host time already spent under an earlier
+        hop's device time; with ``fold_hidden`` a later hop is executing
+        while this fold runs, so the detector phase counts as hidden too.
+        ``dispatches`` is the kernel launches the hop made."""
         if self.emit_logits:
             self._emit_step += 1
             self._emit_cache = logits_h
@@ -849,27 +1318,38 @@ class StreamScheduler:
                                      score=det.score)
                 detections.append(det)
         t_detector = self._clock()
-        n_disp = self._last_dispatches
+        if fold_hidden:
+            hidden_s += t_detector - t_device
+        model_counts = None
+        if self._pool is not None:
+            mc = np.bincount(self._model_idx_v[ready_slots],
+                             minlength=self._pool.max_models)
+            model_counts = {m: int(mc[row]) for m, row in self._pool.models()
+                            if mc[row]}
         self.metrics.on_step(
             ready_slots.size, self.plan.frames_per_hop,
             t_detector - t0, host_pack_s=t_pack - t0,
             shard_counts=shard_counts.tolist(), finalized=self.emit_logits,
             dispatch_s=t_dispatch - t_pack, device_s=t_device - t_dispatch,
-            detector_s=t_detector - t_device, dispatches=n_disp,
+            detector_s=t_detector - t_device, hidden_s=hidden_s,
+            dispatches=dispatches, model_counts=model_counts,
         )
         # fold the arena's push-side counters into the metrics at the hop
         # boundary: two scalar reads
         self.metrics.on_push_fold(self._arena.total_samples_in,
                                   self._arena.total_chunks_in)
         t_end = self._clock()
-        # hop trace: the stamps are consecutive, so the phase spans tile
-        # the hop span exactly; one batched call, B-independent
+        # hop trace: on the sync path the stamps are consecutive, so the
+        # phase spans tile the hop span exactly; under the async plane hop
+        # N+1's pack/dispatch spans overlap hop N's device span, which
+        # union coverage (``coverage(mode="overlap")``) accounts for.
+        # One batched call, B-independent.
         n_ready = int(ready_slots.size)
         self.obs.trace.add_batch((
             ("pack", t0, t_pack - t0, {"n": n_ready}),
             ("dispatch", t_pack, t_dispatch - t_pack, {}),
             ("device", t_dispatch, t_device - t_dispatch,
-             {"dispatches": n_disp}),
+             {"dispatches": dispatches}),
             ("detector", t_device, t_detector - t_device, {}),
             ("push_fold", t_detector, t_end - t_detector, {}),
             ("hop", t0, t_end - t0, {"n": n_ready}),
@@ -885,7 +1365,9 @@ class StreamScheduler:
         readiness is one vectorized compare over the arena, hop packing is
         one gather, bookkeeping updates are fancy-indexed vector ops, and
         detection advances through the slot-vectorized detector.  The body
-        is pack -> dispatch -> fence -> fold.
+        is pack -> dispatch -> fence -> fold, each stage a method the async
+        plane (``AsyncStreamScheduler``) reuses with the fence and fold
+        deferred to the hop's retirement.
         """
         self._hop_barriers()
         packed = self._pack_ready()
@@ -893,18 +1375,16 @@ class StreamScheduler:
             self._slots.maybe_prewarm()  # starved step = idle; warm the grow
             return None
         ready_slots, ready_mask, audio, shard_counts, t0, t_pack = packed
-        logits, post = self._dispatch_hop(ready_mask, audio)
-        # the device phase is the explicit fence + transfers: without the
-        # fence, wall time would measure the enqueue, not the execution
+        hop = self._dispatch_hop(ready_mask, audio)
+        # the device phase is the fence (the hop's event) + the host copy
+        # out of the staging ring: without the fence, wall time would
+        # measure the enqueue, not the execution
         t_dispatch = self._clock()
-        self._sync()
-        logits_h = post_h = None
-        if self.emit_logits:
-            logits_h = logits.cpu().numpy()  # one bulk transfer per hop
-            post_h = post.cpu().numpy()
+        logits_h, post_h = self._fence(hop)
         t_device = self._clock()
         return self._fold_hop(ready_slots, shard_counts, logits_h, post_h,
-                              t0, t_pack, t_dispatch, t_device)
+                              t0, t_pack, t_dispatch, t_device,
+                              dispatches=hop.dispatches)
 
     def _warm_capacity(self, cap: int) -> None:
         """Run the batched step once on zero dummies at ``cap`` slots, so
@@ -923,6 +1403,8 @@ class StreamScheduler:
             tuple(z((cap, st.phase, st.cout)) for st in plan.convs),
             z((cap, plan.gap_channels)),
         )
+        if self._pool is not None:
+            args = args + (z((cap,)),)
         self._model.step(*args, emit=self.emit_logits)
         self._sync()
         self.obs.trace.add("prewarm", t0, self._clock() - t0, capacity=cap)
@@ -989,8 +1471,12 @@ class StreamScheduler:
             if (self._emit_cache is not None
                     and s.stamp <= self._emit_cache_step):
                 return self._emit_cache[s.slot].copy()
-            logits, _ = self._model.finalize(
-                tuple(self._tails), tuple(self._pendings), self._gap)
+            fargs = (tuple(self._tails), tuple(self._pendings), self._gap)
+            if self._pool is not None:
+                self._sync_model_rows()
+                fargs = fargs + (torch.as_tensor(self._model_idx_v,
+                                                 device=self.device),)
+            logits, _ = self._model.finalize(*fargs)
             return logits[s.slot].cpu().numpy()
         return self._peek_fallback(s)
 
@@ -998,7 +1484,7 @@ class StreamScheduler:
         if s.primed:
             st = self._extract_slot(s)
         else:
-            st = StreamState(self.plan, self.weights, self.thresholds)
+            st = StreamState(self.plan, *self._stream_params(s))
         leftover = s.frontend.peek_all() if len(s.frontend) else None
         return st.peek_logits(leftover)
 
@@ -1013,7 +1499,7 @@ class StreamScheduler:
         if s.primed:
             st = self._extract_slot(s)
         else:
-            st = StreamState(self.plan, self.weights, self.thresholds)
+            st = StreamState(self.plan, *self._stream_params(s))
         st.advance(s.frontend.pop_all(), flush=True)
         logits = st.logits()
         # one last detector update with the flushed logits (host softmax),
@@ -1027,12 +1513,17 @@ class StreamScheduler:
             s.events.append(det)
             self.metrics.on_detection(sid)
         self._slots.free(s.slot)
+        if self._pool is not None:
+            self._pool.release(s.model)  # unpin; LRU may now evict it
         self._clear_slot(s.slot)  # scrub so the next tenant starts clean
         self._arena.clear_slot(s.slot)
         self._detector.reset_slot(s.slot)
         self._slot_sid[s.slot] = -1
         self._primed_mask[s.slot] = False
         self._frames_v[s.slot] = 0
+        # never zero the slot's tenant row: its block may still be bound
+        # to a tenant; the sync rebuilds the rows block-uniformly
+        self._model_rows_dirty = True
         self.metrics.on_close(sid, frames_out=st.frames,
                               samples_in=samples_in, chunks_in=chunks_in)
         self.obs.events.emit("close", sid=sid, frames=st.frames,

@@ -260,3 +260,39 @@ def drive_scheduler(pair: SchedulerPair, seed: int, min_hops: int = 10
     for sid in list(live):
         pair.close(sid)
     assert pair.hops > min_hops
+
+
+# ---------------------------------------------------------------------------
+# Hop records: every hop a scheduler folds, compared hop for hop
+# ---------------------------------------------------------------------------
+
+def record_hops(sched, hops: list) -> None:
+    """Spy on a scheduler's fold stage (the port's or the reference's):
+    every hop it folds, in order, whichever call (step, drain, peek,
+    close) retired it, lands in ``hops`` as its ``HopBatch``."""
+    fold = sched._fold_hop
+
+    def spy(*args, **kw):
+        hb = fold(*args, **kw)
+        hops.append(hb)
+        return hb
+    sched._fold_hop = spy
+
+
+def same_hops(got, want, exact_post: bool) -> None:
+    """Hop for hop: sids, frames, logits and detections equal; posteriors
+    equal with ``exact_post``, else within ``atol=1e-6, rtol=1e-5``
+    (softmax computed by two libraries)."""
+    assert len(got) == len(want), "hop counts differ"
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.sids, y.sids)
+        np.testing.assert_array_equal(x.frames, y.frames)
+        np.testing.assert_array_equal(x.logits, np.asarray(y.logits))
+        if exact_post:
+            np.testing.assert_array_equal(x.posteriors, y.posteriors)
+        else:
+            np.testing.assert_allclose(x.posteriors,
+                                       np.asarray(y.posteriors),
+                                       atol=1e-6, rtol=1e-5)
+        assert [(d.stream_id, d.cls, d.frame) for d in x.detections] == [
+            (d.stream_id, d.cls, d.frame) for d in y.detections]

@@ -5,8 +5,11 @@ slot block and cluster size) and the kernel library's (B.6 fused conv -> SA ->
 pool, B.7 popcount GEMM raw and ``sa``, B.8 int8 tensor-core GEMM)
 against their plain PyTorch versions on the card, bit for bit, and the
 megakernel and per-stage schedulers against the dense backend on the
-card.  They skip without a CUDA device.  This file imports neither JAX nor the reference package, so
-it runs on a machine that has only PyTorch:
+card, the async scheduler against the synchronous one (its dispatch
+stage under sync debug mode ``"error"``), donated state buffers, and a
+tenant pool's row reused after an eviction.  They skip without a CUDA
+device.  This file imports neither JAX nor the reference package, so it
+runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -22,7 +25,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels import hop_megakernel as mk
 from repro_torch.kernels import ops
 from repro_torch.models import kws
-from repro_torch.stream import StreamScheduler
+from repro_torch.stream import AsyncStreamScheduler, StreamScheduler
 from repro_torch.stream.state import plan_stream
 
 pytestmark = pytest.mark.gpu
@@ -305,6 +308,179 @@ def test_cuda_scheduler_matches_dense_backend(emit):
                 assert y is None
             else:
                 np.testing.assert_array_equal(x, y)
+
+
+def _strict_dispatch(sched):
+    """Run the scheduler's dispatch stage under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync in it (a
+    pageable copy, ``.item()``, ``nonzero``) raises."""
+    inner = sched._dispatch_hop
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sched._dispatch_hop = strict
+
+
+def _record_hops(sched, hops):
+    fold = sched._fold_hop
+
+    def spy(*args, **kw):
+        hb = fold(*args, **kw)
+        hops.append(hb)
+        return hb
+    sched._fold_hop = spy
+
+
+def _stream_run(sched, clips, seed, peek=True):
+    """Ragged pushes of ``clips`` (one stream each), steps until starved
+    after each round, a peek of stream 0, then every close.  Returns the
+    folded hops, the peeks and the closes' logits."""
+    hops = []
+    _record_hops(sched, hops)
+    n = len(clips)
+    for sid in range(n):
+        sched.add_stream(sid)
+    cut = np.random.default_rng(seed)
+    pos = [0] * n
+    peeks = []
+    while any(p < len(c) for p, c in zip(pos, clips)):
+        sids, chunks = [], []
+        for sid in range(n):
+            k = int(cut.integers(1, 400))
+            if pos[sid] < len(clips[sid]):
+                sids.append(sid)
+                chunks.append(clips[sid][pos[sid]:pos[sid] + k])
+                pos[sid] += k
+        sched.push_audio_batch(sids, chunks)
+        sched.drain()
+        if peek:
+            peeks.append(sched.peek(0))
+    closes = [sched.close_stream(sid).logits for sid in range(n)]
+    if isinstance(sched, AsyncStreamScheduler):
+        assert sched.in_flight == 0
+        sched.shutdown(timeout=60.0)
+    return hops, peeks, closes
+
+
+def _same_runs(a, b):
+    (ha, pa, ca), (hb, pb, cb) = a, b
+    assert len(ha) == len(hb) > 0
+    for x, y in zip(ha, hb):
+        np.testing.assert_array_equal(x.sids, y.sids)
+        np.testing.assert_array_equal(x.frames, y.frames)
+        if x.logits is None:
+            assert y.logits is None
+        else:
+            np.testing.assert_array_equal(x.logits, y.logits)
+            np.testing.assert_array_equal(x.posteriors, y.posteriors)
+        assert [(d.stream_id, d.cls, d.frame) for d in x.detections] == [
+            (d.stream_id, d.cls, d.frame) for d in y.detections]
+    for x, y in zip(pa + ca, pb + cb):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("backend,emit", [("megakernel", True),
+                                          ("megakernel", False),
+                                          ("per_stage", True)])
+def test_cuda_async_matches_sync(backend, emit):
+    """The async scheduler (pump, depth-1 pipeline, donated state on the
+    megakernel) equals the synchronous one on the card hop for hop, with
+    every async dispatch run under sync debug mode ``"error"``."""
+    dev = _cuda()
+    spec = kws.build_kws_smoke_spec()
+    weights, thresholds = _model(spec, 1)
+    rng = np.random.default_rng(2)
+    clips = [rng.integers(0, 256, int(rng.integers(1500, 3000)),
+                          dtype=np.uint8) for _ in range(6)]
+    kw = dict(capacity=8, initial_capacity=2, hop_frames=1, backend=backend,
+              emit_logits=emit, device=dev)
+    sync = _stream_run(StreamScheduler(spec, weights, thresholds, **kw),
+                       clips, 3)
+    asyn = AsyncStreamScheduler(spec, weights, thresholds, **kw)
+    assert asyn._donate == (backend == "megakernel")
+    _strict_dispatch(asyn)
+    _same_runs(sync, _stream_run(asyn, clips, 3))
+
+
+def test_cuda_donated_state_ping_pong():
+    """``donate_buffers`` on the card: two state sets alternate, a steady
+    hop allocates none of the state tensors the run without donation
+    allocates each hop, and the two runs are equal."""
+    dev = _cuda()
+    spec = kws.build_kws_smoke_spec()
+    weights, thresholds = _model(spec, 5)
+    clips = [np.random.default_rng(6 + i).integers(0, 256, 2400,
+                                                   dtype=np.uint8)
+             for i in range(3)]
+    runs, ptrs, allocs = [], [], []
+    for donate in (True, False):
+        s = StreamScheduler(spec, weights, thresholds, capacity=4,
+                            initial_capacity=4, hop_frames=1, device=dev,
+                            donate_buffers=donate)
+        seen, per_hop = [], []
+        step = s.step_batch
+
+        def tracked():
+            n0 = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+            hb = step()
+            if hb is not None:
+                seen.append(s._gap.data_ptr())
+                per_hop.append(torch.cuda.memory_stats(dev)[
+                    "allocation.all.allocated"] - n0)
+            return hb
+        s.step_batch = tracked
+        runs.append(_stream_run(s, clips, 7, peek=False))
+        ptrs.append(seen)
+        allocs.append(per_hop)
+    _same_runs(*runs)
+    assert len(set(ptrs[0])) == 2
+    assert all(a != b for a, b in zip(ptrs[0], ptrs[0][1:]))
+    plan = plan_stream(spec, hop_frames=1)
+    n_state = sum(1 for st in plan.convs if st.tail) + sum(
+        1 for st in plan.convs if st.phase) + 1
+    # the first hop of each run also makes the spare set or the staging
+    steady = lambda xs: sorted(xs[1:])[len(xs[1:]) // 2]  # noqa: E731
+    assert steady(allocs[1]) - steady(allocs[0]) == n_state
+
+
+@pytest.mark.parametrize("backend", ["megakernel", "per_stage"])
+def test_cuda_pooled_hop_after_eviction(backend):
+    """Model b takes pool row 1, runs and leaves; model c's admission
+    evicts it.  A stream of c then gives, hop for hop and at its close,
+    what a single-model scheduler of c gives on the card: the kernels
+    read row 1 of every laid-out copy, not only the raw weights."""
+    dev = _cuda()
+    spec = kws.build_kws_spec()
+    kw = dict(capacity=16, hop_frames=8, backend=backend, device=dev)
+    w0, t0 = _model(spec, 1)
+    s = StreamScheduler(spec, w0, t0, max_models=2, tenant_block=8, **kw)
+    pin = s.add_stream()  # keeps the default model resident
+    clip = np.random.default_rng(9).integers(0, 256, 6000, dtype=np.uint8)
+    assert s.register_model("b", *_model(spec, 2)) == 1
+    sb = s.add_stream(model="b")
+    s.push_audio(sb, clip)
+    s.drain()
+    s.close_stream(sb)
+    wc, tc = _model(spec, 3)
+    assert s.register_model("c", wc, tc) == 1
+    s.close_stream(pin)
+    single = StreamScheduler(spec, wc, tc, **kw)
+    runs = []
+    for sched, model in ((s, "c"), (single, None)):
+        hops = []
+        _record_hops(sched, hops)
+        sid = sched.add_stream(7, model=model)
+        sched.push_audio(sid, clip)
+        with dispatch.counting() as launched:
+            sched.drain()
+        assert sum(launched().values()) == \
+            len(hops) * sched._model.dispatches_per_hop(True)
+        runs.append((hops, [], [sched.close_stream(sid).logits]))
+    _same_runs(*runs)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,6 @@ import torch
 
 import _torch_port_cases as cases
 from repro.models import kws as ref_kws
-from repro_torch.stream import AsyncStreamScheduler
 from repro_torch.stream import StreamScheduler as PortScheduler
 
 
@@ -48,8 +47,6 @@ def test_default_device_is_cuda(smoke):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"mesh": object()}, "A.9"),
-    ({"max_models": 2}, "A.8"),
-    ({"donate_buffers": True}, "A.7"),
 ])
 def test_unported_features_raise(smoke, kwargs, item):
     spec, weights, thresholds = smoke
@@ -65,12 +62,6 @@ def test_pallas_backend_name_points_to_per_stage(smoke):
     with pytest.raises(ValueError, match="per_stage"):
         PortScheduler(cases.port_spec(spec), weights, thresholds,
                       device="cpu", backend="pallas")
-
-
-def test_async_scheduler_raises(smoke):
-    spec, weights, thresholds = smoke
-    with pytest.raises(NotImplementedError, match="A.7"):
-        AsyncStreamScheduler(cases.port_spec(spec), weights, thresholds)
 
 
 def test_prewarm_runs_next_capacity_when_starved(smoke):
