@@ -114,12 +114,29 @@ Phases (each prints one line, any failure exits non-zero):
               beside the unpooled one.  Each drive's counts are set to 0
               just before it and read just after.
 
+9. sharded — the main path's 256 streams and chunk plan through
+              ``make_stream_mesh(S)``, with leave churn skewed onto shard
+              0 halfway (``churn_sids``): the megakernel at S = 1, 2 and
+              8 sync and at S = 2 and 8 async, the per-stage backend at
+              S = 2, K = 2 tenants (blocks of 8) at S = 1 and 2.  Every
+              stream's hops, both peeks and every close equal the 1-shard
+              megakernel run's (with the same tenants); the launches a
+              hop are S times the per-shard figure; each sharded run
+              fires a rebalance.  One sharded hop (S = 2, 8; and S = 2
+              with K = 2 tenants) is bit-equal to ``hop_megakernel_plain``
+              on the whole batch.  Printed with the card: hop, dispatch
+              and device p50 at S = 1, 2 and 8, rebalances and rows
+              moved, the hop kernel at B / S slots, and ``_launch``'s
+              cost a hop under cProfile with the launch shape memoized
+              and recomputed.  Each drive's counts are set to 0 just
+              before it and read just after.
+
 The model is made here from ``--seed`` with numpy: random ternary weights
 and integer thresholds near the middle of each layer's accumulator range
 with random flips.  The script imports nothing of JAX or of the reference
 package.  Before its last line it prints one JSON object with each
 kernel's launches on the main paths (the stream backends', the
-library's, the async and the tenant drives'), error, time, plain time,
+library's, the async, tenant and sharded drives'), error, time, plain time,
 bound and library-call time (each
 summed over a kernel's launch shapes on its paths: B.3's l0 of a hop
 (hop and flush window) and of an utterance, the conv step's six of an
@@ -1603,14 +1620,18 @@ def per_stream(hops):
     return out
 
 
+def same_seq(a, b) -> bool:
+    """Two streams' hops, as ``per_stream`` lists them, are equal."""
+    return len(a) == len(b) and all(
+        f1 == f2 and (l1 is None) == (l2 is None)
+        and (l1 is None or np.array_equal(l1, l2))
+        for (f1, l1), (f2, l2) in zip(a, b))
+
+
 def same_streams(label, got, want):
     """``got`` and ``want`` map (model, sid) to a stream's hops."""
     for key, seq in got.items():
-        ref = want[key]
-        if len(seq) != len(ref) or any(
-                f1 != f2 or (l1 is None) != (l2 is None)
-                or (l1 is not None and not np.array_equal(l1, l2))
-                for (f1, l1), (f2, l2) in zip(seq, ref)):
+        if not same_seq(seq, want[key]):
             raise RuntimeError(f"{label}: stream {key[1]} differs from the "
                                f"single-model scheduler of model {key[0]}")
 
@@ -1737,6 +1758,289 @@ def tenants_phase(spec, plan, seed, audio, chunk_plan, dev, torch, dispatch,
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the slot pool over S shards of the card
+# ---------------------------------------------------------------------------
+
+#: shard counts of the sharded phase (S = 1 is the reference run)
+SHARDS = (1, 2, 8)
+
+
+def churn_sids(n: int, tenants: bool) -> tuple[int, ...]:
+    """The streams that leave halfway through a sharded drive, all below
+    ``n / 2``, chosen so that the survivors crowd shard 0 and the next
+    hop barrier migrates rows off it.  Least-loaded placement puts sid j
+    on shard j % S, so every sid but those with j % 8 == 0 leaves (shard
+    0 at S = 2 and at S = 8).  A tenant pool placed at full capacity
+    puts its k-th block of ``TENANT_BLOCK`` sids on shard k % 2, so the
+    odd blocks leave."""
+    if tenants:
+        return tuple(j for j in range(n // 2) if j // TENANT_BLOCK % 2)
+    return tuple(j for j in range(n // 2) if j % 8)
+
+
+def drive_churn(sched, audio, chunk_plan, torch, dispatch, leave,
+                models=None):
+    """Every stream joins (bound to ``models[sid]`` when given); each round
+    of ``chunk_plan`` lands through ``push_audio_batch`` and ``drain()``
+    runs its hops; halfway, the streams ``leave`` (``close_stream``) and
+    the rest stream on; then two peeks and ten closes of survivors.
+    Returns the folded hops, the peeks, every close's logits, and the
+    launches counted from just before the first round to just after the
+    last."""
+    n = len(audio)
+    hops = record_folds(sched)
+    for sid in range(n):
+        sched.add_stream(sid, model=None if models is None else models[sid])
+    fed = np.zeros(n, np.int64)
+    live = list(range(n))
+    closes = {}
+    torch.cuda.synchronize()
+    dispatch.reset()
+    for r, sizes in enumerate(chunk_plan):
+        if r == len(chunk_plan) // 2:
+            for sid in leave:
+                closes[sid] = sched.close_stream(sid).logits
+            live = [s for s in live if s not in closes]
+        ids = [s for s in live if sizes[s]]
+        sched.push_audio_batch(ids, [audio[s][fed[s]:fed[s] + sizes[s]]
+                                     for s in ids])
+        for s in ids:
+            fed[s] += sizes[s]
+        sched.drain()
+    torch.cuda.synchronize()
+    launched = dispatch.counts()
+    peeks = {sid: sched.peek(sid) for sid in (0, n // 2)}
+    for sid in (0, 16, *range(n // 2, n, n // 16)):
+        closes[sid] = sched.close_stream(sid).logits
+    if hasattr(sched, "shutdown"):
+        sched.shutdown(timeout=60.0)
+    return hops, peeks, closes, launched
+
+
+def full_state(plan, inp, torch):
+    """Packed hop operands -> one tail and one pending per conv stage
+    (zero-width ones empty), as the scheduler holds them."""
+    ti, pi = iter(inp["tails"]), iter(inp["pendings"])
+    b = inp["gap"].shape[0]
+    z = lambda n, c: torch.zeros((b, n, c), dtype=torch.int32,  # noqa: E731
+                                 device=inp["gap"].device)
+    return ([next(ti) if s.tail else z(0, s.cin) for s in plan.convs],
+            [next(pi) if s.phase else z(0, s.cout) for s in plan.convs])
+
+
+def check_sharded_hop(label, plan, hop_p, raw_p, inp, model_idx, S, torch,
+                      mk, ops, dispatch, make_mesh):
+    """``ops.hop_megakernel_sharded`` over S shards (S launches, each on
+    B / S rows, writing the state and logits in place) is bit-equal to
+    ``hop_megakernel_plain`` on the whole batch, emit and steady."""
+    geoms = tuple(mk.stage_geom(s) for s in plan.convs)
+    fc_raw = tuple(f.out_raw for f in plan.fcs)
+    tails, pends = full_state(plan, inp, torch)
+    for emit in (True, False):
+        with dispatch.counting() as launched:
+            got = ops.hop_megakernel_sharded(
+                inp["audio"], inp["mask"], tails, pends, inp["gap"], *hop_p,
+                model_idx, mesh=make_mesh(S), stages=plan.convs, emit=emit,
+                fc_raw=fc_raw, bb=None if model_idx is None else TENANT_BLOCK)
+        want = mk.hop_megakernel_plain(
+            inp["audio"], inp["mask"], inp["tails"], inp["pendings"],
+            inp["gap"], *raw_p, model_idx, geoms=geoms, emit=emit,
+            fc_raw=fc_raw)
+        torch.cuda.synchronize()
+        if launched() != {mk.HOP_KERNEL: S}:
+            raise RuntimeError(f"{label}: {launched()} for {S} shards")
+        flat_got = ([t for t, s in zip(got[0], plan.convs) if s.tail]
+                    + [p for p, s in zip(got[1], plan.convs) if s.phase]
+                    + list(got[2:]))
+        flat_want = [*want[0], *want[1], *want[2:]]
+        if len(flat_got) != len(flat_want) or not all(
+                torch.equal(g, w) for g, w in zip(flat_got, flat_want)):
+            raise RuntimeError(f"{label}: the {S}-shard hop (emit={emit}) "
+                               "differs from the plain hop on the batch")
+    phase("sharded", f"{label}: {S} launches of {inp['gap'].shape[0] // S}"
+          f" slots == hop_megakernel_plain on all {inp['gap'].shape[0]} "
+          "(emit and steady, state and logits)")
+
+
+def sharded_phase(spec, plan, seed, audio, chunk_plan, dev, torch, dispatch,
+                  mk, bk, ops, sched_cls, async_cls, make_mesh, full, hop_p,
+                  raw_p, params, weights, thresholds, card):
+    """The main path's 256 streams over ``make_stream_mesh(S)`` with leave
+    churn skewed onto shard 0 halfway (``drive_churn``): the megakernel at
+    S = 1, 2 and 8, sync, and at S = 2 and 8 async; the per-stage backend
+    at S = 2; K = 2 tenants (blocks of 8) at S = 1 and 2.  Every stream's
+    hops, peeks and closes equal the S = 1 megakernel run's (with the
+    same tenants), the
+    launches are S times the per-shard figure a hop, and a rebalance
+    fires in every sharded run.  Then one sharded hop against the plain
+    hop on the whole batch, and the hop kernel timed at B / S slots.
+    Returns the record and the launches of the drives."""
+    models = [(weights, thresholds), random_model(spec, seed + 400)]
+    bound = {s: (None if (s // TENANT_BLOCK) % 2 == 0 else "m1")
+             for s in range(B_MAIN)}
+    per_hop = {"megakernel": {mk.HOP_KERNEL: 1},
+               "per_stage": {bk.BITSERIAL_KERNEL: 2,
+                             bk.CONV_STEP_KERNEL: 6, bk.TAIL_KERNEL: 1}}
+    runs = [("megakernel", S, sched_cls, False) for S in SHARDS] + [
+        ("megakernel", 2, async_cls, False),
+        ("megakernel", 8, async_cls, False),
+        ("per_stage", 2, sched_cls, False),
+        ("megakernel", 1, sched_cls, True),
+        ("megakernel", 2, sched_cls, True)]
+    ref, launches, rec = {}, collections.Counter(), []
+    for backend, S, cls, tenants in runs:
+        kind = "async" if cls is async_cls else "sync"
+        label = (f"{backend} S={S} {kind}"
+                 f"{' K=2 tenants' if tenants else ''}")
+        kw = dict(capacity=B_MAIN, hop_frames=HOP_FRAMES, backend=backend,
+                  mesh=make_mesh(S))
+        if tenants:
+            kw.update(max_models=2, tenant_block=TENANT_BLOCK,
+                      initial_capacity=B_MAIN)
+        sched = cls(spec, weights, thresholds, **kw)
+        if tenants:
+            sched.register_model("m1", *models[1])
+        leave = churn_sids(B_MAIN, tenants)
+        hops, peeks, closes, launched = drive_churn(
+            sched, audio, chunk_plan, torch, dispatch, leave,
+            models=bound if tenants else None)
+        n = len(hops)
+        want = {k: S * v * n for k, v in per_hop[backend].items()}
+        if launched != want:
+            raise RuntimeError(f"{label}: launches {launched}, expected "
+                               f"{want} ({n} hops x {S} shards)")
+        launches.update(launched)
+        m = sched.metrics
+        if S > 1 and m.rebalances < 1:
+            raise RuntimeError(f"{label}: the skewed churn fired no "
+                               "rebalance")
+        got = (per_stream(hops), peeks, closes)
+        if tenants not in ref:
+            ref[tenants] = got   # the 1-shard megakernel run
+        else:
+            want_hops = ref[tenants][0]
+            if got[0].keys() != want_hops.keys() or not all(
+                    same_seq(got[0][k], want_hops[k]) for k in got[0]):
+                raise RuntimeError(f"{label}: a stream's hops differ from "
+                                   "the 1-shard run")
+            same_results(label, got, ref[tenants])
+        ph = m.phase_summary()
+        r = dict(label=label, backend=backend, shards=S, kind=kind,
+                 tenants=tenants, hops=n, launches=dict(launched),
+                 step_ms_p50=m.summary()["step_ms_p50"],
+                 phase_ms_p50={k: v["ms_p50"] for k, v in ph.items()},
+                 rebalances=m.rebalances, rows_migrated=m.rows_migrated,
+                 capacity_last=m.summary()["capacity_last"],
+                 shard_summary=m.shard_summary())
+        rec.append(r)
+        phase("sharded", f"{label}: {n} hops, {len(closes)} closes "
+              f"({len(leave)} halfway), 2 peeks"
+              f"{' == the 1-shard run stream for stream' if S > 1 else ''}"
+              f"; launches {dict(launched)} ({S} x per-shard); rebalances "
+              f"{m.rebalances}, rows moved {m.rows_migrated}; hop p50 "
+              f"{r['step_ms_p50']:.3f} ms, dispatch p50 "
+              f"{r['phase_ms_p50']['dispatch']:.3f}, device p50 "
+              f"{r['phase_ms_p50']['device']:.3f}")
+    # one sharded hop against the plain hop on the whole batch
+    for S in SHARDS[1:]:
+        check_sharded_hop(f"kws hf8 S={S}", plan, hop_p, raw_p, full, None,
+                          S, torch, mk, ops, dispatch, make_mesh)
+    tensors = [params, model_tensors(plan, *models[1], dev, torch)]
+    pooled = {k: [torch.stack(xs) for xs in zip(*(m[k] for m in tensors))]
+              for k in params}
+    pw = (mk.prepare_hop_weights(pooled["ws"], pooled["fc_ws"]),
+          pooled["thrs"], pooled["flips"], pooled["fc_ws"],
+          pooled["fc_thrs"], pooled["fc_flips"])
+    midx = torch.as_tensor((np.arange(B_MAIN) // TENANT_BLOCK % 2).astype(
+        np.int32), device=dev)
+    check_sharded_hop("kws hf8 S=2 pooled K=2", plan, pw,
+                      (pooled["ws"], *pw[1:]), full, midx, 2, torch, mk,
+                      ops, dispatch, make_mesh)
+    # the hop kernel at a shard's B / S slots beside the whole batch
+    geoms = tuple(mk.stage_geom(s) for s in plan.convs)
+    fc_raw = tuple(f.out_raw for f in plan.fcs)
+    launch_ms = {}
+    for S in SHARDS:
+        b = B_MAIN // S
+        rows = lambda x: x[:b]  # noqa: E731
+        args = (rows(full["audio"]), rows(full["mask"]),
+                tuple(map(rows, full["tails"])),
+                tuple(map(rows, full["pendings"])), rows(full["gap"]))
+        shard_inp = dict(zip(("audio", "mask", "tails", "pendings", "gap"),
+                             args))
+        launch_ms[S] = {emit: time_ms(lambda: mk.hop_megakernel_packed(
+            *args, *hop_p, geoms=geoms, emit=emit, fc_raw=fc_raw), torch)
+            for emit in (True, False)}
+        launch_ms[S]["bound"] = {emit: bound_ms(
+            plan, params, shard_inp, b, finalize=False, emit=emit)[0]
+            for emit in (True, False)}
+        lay = mk.slot_block(b, geoms, [(f.cin, f.cout) for f in plan.fcs],
+                            plan.gap_channels, mk._sms(dev))
+        launch_ms[S]["slots_per_cta"] = lay.slots
+        launch_ms[S]["ctas"] = -(-b // lay.slots)
+        phase("sharded", f"hop kernel at B/S = {b} slots (S={S}, "
+              f"{lay.slots} a CTA, {-(-b // lay.slots)} CTAs): emit "
+              f"{launch_ms[S][True]:.4f} ms, steady "
+              f"{launch_ms[S][False]:.4f} ms (bound "
+              f"{launch_ms[S]['bound'][True]:.6f} / "
+              f"{launch_ms[S]['bound'][False]:.6f}); x{S} per hop = "
+              f"{S * launch_ms[S][True]:.4f} / {S * launch_ms[S][False]:.4f}"
+              f" ms")
+    profile = launch_profile(spec, weights, thresholds, audio, torch,
+                             dispatch, mk, sched_cls, make_mesh)
+    sync = {r["shards"]: r for r in rec if r["kind"] == "sync"
+            and r["backend"] == "megakernel" and not r["tenants"]}
+    phase("sharded", "megakernel sync, hop p50 / dispatch p50 / device p50 "
+          "ms: " + "; ".join(
+              f"S={S} {sync[S]['step_ms_p50']:.3f} / "
+              f"{sync[S]['phase_ms_p50']['dispatch']:.3f} / "
+              f"{sync[S]['phase_ms_p50']['device']:.3f}" for S in SHARDS)
+          + f"; {card}")
+    return dict(runs=rec, launch_ms={str(k): {str(e): t for e, t in v.items()}
+                                     for k, v in launch_ms.items()},
+                launch_profile=profile), launches
+
+
+def launch_profile(spec, weights, thresholds, audio, torch, dispatch, mk,
+                   sched_cls, make_mesh):
+    """The hop kernel wrapper's host cost: the sync hop loop
+    (``drive_burst``) under cProfile at S = 1 and 8, with the launch
+    shape memoized (``_launch_shape``, ``_sms``) and, as before the memo,
+    recomputed on every call (their unwrapped functions).  Returns, per
+    run, ``_launch``'s own and cumulative ms a hop and its calls a hop
+    (cProfile slows Python calls: proportions, not times)."""
+    rows = {}
+    memo = (mk._launch_shape, mk._sms)
+    for S in (1, 8):
+        for label in ("memoized", "recomputed", "memoized again"):
+            if label == "recomputed":
+                mk._launch_shape, mk._sms = (f.__wrapped__ for f in memo)
+            prof = cProfile.Profile()
+            try:
+                sched = sched_cls(spec, weights, thresholds, capacity=B_MAIN,
+                                  hop_frames=HOP_FRAMES, mesh=make_mesh(S))
+                hops, _, _ = drive_burst(sched, audio,
+                                         sched.plan.hop_samples, torch,
+                                         dispatch, prof)
+            finally:
+                mk._launch_shape, mk._sms = memo
+            n = len(hops)
+            own = cum = calls = 0.0
+            for (path, _, fn), (_, nc, tt, ct, _) in pstats.Stats(
+                    prof).stats.items():
+                if fn == "_launch" and Path(path).name == "hop_megakernel.py":
+                    own, cum, calls = tt, ct, nc
+            rows[f"S={S} {label}"] = dict(
+                hops=n, launch_own_ms=own / n * 1e3,
+                launch_cum_ms=cum / n * 1e3, launch_calls=calls / n)
+    phase("sharded", "_launch under cProfile, own / cumulative ms a hop "
+          "(calls a hop): " + "; ".join(
+              f"{k} {v['launch_own_ms']:.4f} / {v['launch_cum_ms']:.4f} "
+              f"({v['launch_calls']:g})" for k, v in rows.items()))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1755,6 +2059,7 @@ def main() -> int:
         from repro_torch.kernels import hop_megakernel as mk
         from repro_torch.kernels import ops
         from repro_torch.kernels import twm_matmul as tm
+        from repro_torch.launch.mesh import make_stream_mesh
         from repro_torch.models import kws
         from repro_torch.stream import (
             AsyncStreamScheduler,
@@ -2252,7 +2557,12 @@ def main() -> int:
     tenant_rec, tenant_launches = tenants_phase(
         spec, plan, args.seed, audio, chunk_plan, dev, torch, dispatch, mk,
         bk, StreamScheduler, AsyncStreamScheduler, main_inp, p)
-    new_paths = async_launches + tenant_launches
+    # 9. the slot pool over S shards on the main path
+    shard_rec, shard_launches = sharded_phase(
+        spec, plan, args.seed, audio, chunk_plan, dev, torch, dispatch, mk,
+        bk, ops, StreamScheduler, AsyncStreamScheduler, make_stream_mesh,
+        full, p, raw_p, params, weights, thresholds, card)
+    new_paths = async_launches + tenant_launches + shard_launches
 
     ms, pms, bms, by = timing[("hop", True)]
     fms, fpms, fbms, fby = timing["fin"]
@@ -2321,7 +2631,8 @@ def main() -> int:
                   steady_hop=dict(zip(("ms", "plain_ms", "bound_ms",
                                        "bound_by"),
                                       timing[("hop", False)])),
-                  async_path=async_rec, tenants=tenant_rec)
+                  async_path=async_rec, tenants=tenant_rec,
+                  sharded=shard_rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

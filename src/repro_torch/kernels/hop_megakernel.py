@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -248,16 +249,18 @@ def hop_megakernel_plain(audio, mask, tails, pendings, gap, ws, thrs, flips,
                          *, geoms, emit, fc_raw=(), out=None):
     """Plain PyTorch version of :func:`hop_megakernel_packed` (any
     device).  Returns ``(tails, pendings, gap[, logits])``; with ``out``
-    the state is copied into its tensors, which are returned."""
+    the state (and logits, when ``out`` holds them) is copied into its
+    tensors, which are returned."""
     params = (ws, thrs, flips, fc_ws, fc_thrs, fc_flips)
     res = _plain(audio, mask, tails, pendings, gap, params, model_idx,
                  geoms=geoms, emit=emit, fc_raw=fc_raw, finalize_only=False)
     if out is None:
         return res
-    out_t, out_p, out_g = out
-    for dst, src in zip((*out_t, *out_p, out_g), (*res[0], *res[1], res[2])):
+    out_t, out_p, out_g, *out_l = out
+    for dst, src in zip((*out_t, *out_p, out_g, *out_l),
+                        (*res[0], *res[1], res[2], *res[3:])):
         dst.copy_(src)
-    return (tuple(out_t), tuple(out_p), out_g, *res[3:])
+    return (tuple(out_t), tuple(out_p), out_g, *(out_l or res[3:]))
 
 
 def finalize_megakernel_plain(tails, pendings, gap, ws, thrs, flips, fc_ws,
@@ -362,6 +365,7 @@ DYNAMIC_SMEM = MAX_SMEM - STATIC_SMEM
 H100_SMS = 132
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -536,6 +540,32 @@ def slot_block(b: int, geoms, fc_dims, gap_c: int, sms: int = H100_SMS
     return best[1]
 
 
+class LaunchShape(NamedTuple):
+    """What a launch derives from the plan and the batch alone:
+    :func:`state_offsets`, :func:`smem_layout`, :func:`sa_columns` and the
+    CTA layout (:func:`slot_block`, or :func:`cta_layout` of a forced slot
+    block)."""
+
+    offsets: tuple
+    smem: tuple
+    sa_cols: int
+    layout: CtaLayout
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_shape(geoms, fc_dims, gap_c: int, b: int, sms: int,
+                  slots: int | None) -> LaunchShape:
+    """The launch shape of ``b`` slots, memoized: every hop of a capacity
+    asks for the same one (S times a hop over S shards), and
+    :func:`slot_block` lays out each slot block to pick one.  ``fc_dims``
+    is a tuple of ``(cin, cout)`` pairs, empty on a steady hop."""
+    lay = (slot_block(b, geoms, fc_dims, gap_c, sms) if slots is None
+           else cta_layout(geoms, fc_dims, gap_c, slots))
+    return LaunchShape(state_offsets(geoms, gap_c),
+                       smem_layout(geoms, fc_dims, gap_c),
+                       sa_columns(geoms, fc_dims), lay)
+
+
 def _lib():
     lib = build.load(HOP_KERNEL)
     if not getattr(lib, "_hop_ready", False):
@@ -618,12 +648,16 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
         p.mask = _check(mask, "mask", torch.int32, (b,))
     ti = pi = 0
     tails_out, pends_out = [], []
+    out_l = ()
     if out is not None:
-        out_t, out_p, out_g = out
+        out_t, out_p, out_g, *out_l = out
         if len(out_t) != len(tails) or len(out_p) != len(pendings):
             raise ValueError("out does not match the stages' widths")
-    p.audio_sto, tail_sto, pend_sto, p.gap_sto, _ = state_offsets(geoms,
-                                                                  gap_c)
+    with_fc = emit or finalize_only
+    fc_dims = tuple((w.shape[-2], w.shape[-1]) for w in hw.fc_ws) \
+        if with_fc else ()
+    geo = _launch_shape(geoms, fc_dims, gap_c, b, _sms(dev), slots)
+    p.audio_sto, tail_sto, pend_sto, p.gap_sto, _ = geo.offsets
     for i, g in enumerate(geoms):
         s = p.st[i]
         s.tail_sto, s.pend_sto = tail_sto[i], pend_sto[i]
@@ -666,13 +700,13 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
                 pends_out.append(t)
     if ti != len(tails) or pi != len(pendings):
         raise ValueError("tails/pendings do not match the stages' widths")
-    with_fc = emit or finalize_only
-    fc_dims = []
     if with_fc:
+        if len(fc_dims) != nf:
+            raise ValueError(f"{len(fc_dims)} fc weights for {nf} fc layers")
         width = gap_c
         for j, raw in enumerate(fc_raw):
             f = p.fc[j]
-            cin, cout = hw.fc_ws[j].shape[-2:]
+            cin, cout = fc_dims[j]
             if cin != width:
                 raise ValueError(f"fc {j} takes {cin} inputs, gets {width}")
             f.cin, f.cout, f.raw = cin, cout, int(raw)
@@ -683,10 +717,14 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
                                lead + (cout,))
                 f.flip = _check(fc_flips[j], f"fc_flips[{j}]", torch.int32,
                                 lead + (cout,))
-            fc_dims.append((cin, cout))
             width = cout
         p.n_logits = width
-        logits = torch.empty((b, p.n_logits), dtype=torch.int32, device=dev)
+        if out_l and not finalize_only:
+            logits = out_l[0]
+            _check(logits, "out logits", torch.int32, (b, p.n_logits))
+        else:
+            logits = torch.empty((b, p.n_logits), dtype=torch.int32,
+                                 device=dev)
         p.logits = logits.data_ptr()
     else:
         p.n_fc = 0
@@ -699,11 +737,10 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
             _check(gap_out, "out gap", torch.int32, (b, gap_c))
         p.gap_out = gap_out.data_ptr()
     (p.win0_bytes, p.bin_bytes, p.frm_bytes, p.fc_pitch,
-     p.slot_bytes) = smem_layout(geoms, fc_dims, gap_c)
+     p.slot_bytes) = geo.smem
     p.stg_off = p.win0_bytes + 2 * p.bin_bytes + p.frm_bytes
-    p.sa_cols = sa_columns(geoms, fc_dims)
-    lay = (slot_block(b, geoms, fc_dims, gap_c, _sms(dev)) if slots is None
-           else cta_layout(geoms, fc_dims, gap_c, slots))
+    p.sa_cols = geo.sa_cols
+    lay = geo.layout
     p.slots, p.chunk_tiles, p.ring_bytes = (lay.slots, lay.chunk_tiles,
                                             lay.ring_bytes)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -5,8 +5,9 @@
     binding, pow-2 elastic grow/shrink with a ``min_capacity`` floor,
     idle-time prewarm, pool-emitted lifecycle observability;
   * :mod:`repro_torch.runtime.placement` — :class:`SlotPlacement`:
-    slot->shard mapping over contiguous per-shard blocks, cross-shard
-    rebalance planning, single-model tenant blocks;
+    slot->shard mapping over contiguous per-shard blocks (the shards of a
+    ``launch.mesh.make_stream_mesh`` mesh: row blocks of one device),
+    cross-shard rebalance planning, single-model tenant blocks;
   * :mod:`repro_torch.runtime.remap` — the row-remap contract (host
     ``remap_rows``, device ``remap_device_rows``/``perm_keep``);
   * :mod:`repro_torch.runtime.async_plane` — the async execution plane:

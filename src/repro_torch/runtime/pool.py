@@ -124,8 +124,9 @@ class SlotPool:
     fixed-size pool).  All capacities are multiples of ``n_shards`` and
     every resize scales the *per-shard* capacity, so rows never cross
     shard blocks outside the one deliberate ``rebalance`` path.  The
-    port's shards are logical blocks of one device (a device mesh is
-    queue item A.9).
+    port's shards are contiguous row blocks of one device
+    (``launch.mesh.make_stream_mesh``); the kernels launch once per
+    shard on its rows.
     """
 
     def __init__(

@@ -22,6 +22,10 @@ Modules:
              double-buffered hop dispatch with a deferred FIFO fold and
              epoch barriers
 
+A slot pool over S shards of one device: pass
+``mesh=make_stream_mesh(S)`` (from ``repro_torch.launch.mesh``, exported
+here too); every kernel launch of a hop is then issued once per shard.
+
 Quickstart (on the H100; pass ``device="cpu"`` to run the plain version):
 
     import numpy as np
@@ -40,6 +44,7 @@ Quickstart (on the H100; pass ``device="cpu"`` to run the plain version):
                 print("keyword", event.cls, "on stream", sid_)
     result = sched.close_stream(sid)              # flush; slot pool shrinks
 """
+from repro_torch.launch.mesh import make_stream_mesh
 from repro_torch.stream.async_plane import AsyncStreamScheduler, IngestPump
 from repro_torch.stream.detector import (
     BatchedDetector,
@@ -73,6 +78,7 @@ __all__ = [
     "AudioFrontend",
     "DEFAULT_MODEL",
     "WeightPool",
+    "make_stream_mesh",
     "param_cache_stats",
     "prepared_model_params",
     "BatchedDetector",

@@ -62,7 +62,9 @@ __all__ = ["AsyncStreamScheduler", "IngestPump"]
 @dataclasses.dataclass
 class _InFlight:
     """One dispatched-but-unretired hop: the host-side inputs its
-    deferred fold needs, plus the dispatched results to fence on."""
+    deferred fold needs (``shard_counts``: the ready streams of each
+    shard, counted at pack time, before any later migration), plus the
+    dispatched results to fence on."""
 
     ready_slots: np.ndarray
     shard_counts: np.ndarray
@@ -81,8 +83,10 @@ class AsyncStreamScheduler(StreamScheduler):
     results are bit-identical to the synchronous scheduler for any
     interleaving of calls.  Extra keywords: ``pipeline_depth`` (hops in
     flight, default 1), ``use_pump`` (land pushes from a worker thread,
-    default True); ``donate_buffers`` defaults to True.  The differences
-    are operational:
+    default True); ``donate_buffers`` defaults to True.  ``mesh`` passes
+    through: over S shards a hop dispatches its launches once per shard,
+    and a cross-shard rebalance, like a resize, runs behind an epoch
+    barrier.  The differences are operational:
 
       * ``push_audio_batch`` returns before samples land (the pump
         applies them; push errors surface at the next ``flush_ingest``/

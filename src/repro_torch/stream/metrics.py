@@ -254,10 +254,11 @@ class StreamMetrics:
         self._tail_ledger = plan_tail_ledger(plan)
         self.ledger = EnergyLedger()
         self.finalizations = 0
-        # per-shard device launches: running total + last hop's static
-        # per-hop figure (``_BatchedModel.dispatches_per_hop``)
-        self.device_dispatches_total = 0
-        self._dispatches_per_hop = 0
+        # device launches counted over every shard: running total + the
+        # last hop's; S times the per-shard figure
+        # (``_BatchedModel.dispatches_per_hop``) over S shards
+        self.device_launches_total = 0
+        self._launches_per_hop = 0
         # tenant weight pool: admissions/evictions plus per-model
         # stream-hop counters.  Bounded — ``model_hops`` only holds
         # RESIDENT variants (<= pool size); an evicted model's count
@@ -315,9 +316,10 @@ class StreamMetrics:
         dispatch / deferred fold) that ran while an earlier or later hop
         was executing on the device — zero on the synchronous path,
         reported by the async plane's pipelined dispatch.  ``dispatches``
-        is the per-shard device-launch (hand-written kernel) count for this
-        hop — a static plan+backend figure (``dispatches_per_hop``), 0
-        for plain-XLA backends.  ``model_counts`` (tenant pools only)
+        is the hand-written kernel launches the hop made, counted over
+        every shard: S times the per-shard figure
+        (``dispatches_per_hop``), 0 for the dense backend.
+        ``model_counts`` (tenant pools only)
         says how many of this hop's stream-hops each resident model
         advanced — one small dict add per hop, K-bounded.
         Aggregate-only — the hot path never walks per-stream counter
@@ -338,8 +340,8 @@ class StreamMetrics:
             self._rec(self._phase_res[p], self._phase_hist[p], v)
             pt[p] += v
         self.hidden_total_s += hidden_s
-        self.device_dispatches_total += dispatches
-        self._dispatches_per_hop = dispatches
+        self.device_launches_total += dispatches
+        self._launches_per_hop = dispatches
         self.steps += 1
         self.wall_total_s += wall_s
         self.stream_hops_total += n_ready
@@ -423,7 +425,7 @@ class StreamMetrics:
             h.reset()
         self._phase_total = dict.fromkeys(PHASES, 0.0)
         self.hidden_total_s = 0.0
-        self.device_dispatches_total = 0
+        self.device_launches_total = 0
         self.steps = 0
         self.wall_total_s = 0.0
         self.stream_hops_total = 0
@@ -492,10 +494,16 @@ class StreamMetrics:
             "rows_migrated": float(self.rows_migrated),
             "samples_pushed": float(self.samples_pushed),
             "chunks_pushed": float(self.chunks_pushed),
-            # per-shard device-launch accounting: last hop's static
-            # kernel launch count and the cumulative total (0 under torch)
-            "device_dispatches_per_hop": float(self._dispatches_per_hop),
-            "device_dispatches_total": float(self.device_dispatches_total),
+            # device-launch accounting (0 under the dense backend): the
+            # launches counted over every shard, last hop's and the
+            # total, and the same per shard (the reference's
+            # ``dispatches_per_hop`` figure), S times fewer
+            "device_launches_per_hop": float(self._launches_per_hop),
+            "device_launches_total": float(self.device_launches_total),
+            "device_dispatches_per_hop":
+                self._launches_per_hop / self.n_shards,
+            "device_dispatches_total":
+                self.device_launches_total / self.n_shards,
         }
 
     def tenant_summary(self) -> dict[str, object]:

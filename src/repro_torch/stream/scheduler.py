@@ -60,8 +60,19 @@ variant (``register_model``, ``add_stream(model=...)``; LRU eviction in
 single-model, and every kernel takes a per-slot model index, so a hop
 makes the same launches for any K.
 
-Not ported yet, and refused with ``NotImplementedError``: a device mesh
-(queue item A.9).
+**Mesh sharding (one pool, S shards).**  Pass ``mesh`` (see
+``launch.mesh.make_stream_mesh``) and the slot pool splits into S
+contiguous per-shard row blocks of one device: ``SlotPlacement`` puts a
+joining stream on the least-loaded shard and resizes per shard, and every
+kernel launch of a hop is issued once per shard on that shard's rows with
+the weights shared (the ``*_sharded`` entry points of ``kernels/ops.py``,
+the port of the reference's ``shard_map`` launches).  At hop barriers a
+cross-shard rebalance migrates rows when leave churn skews the shards
+(``SlotPool.hop_barrier``).  A sharded run is bit-exact with the
+single-device scheduler, stream for stream.  With no mesh or one shard
+every path collapses to the single-device one.  A mesh over several
+distinct devices is refused with ``NotImplementedError`` (queue item
+A.9b).
 """
 from __future__ import annotations
 
@@ -75,6 +86,7 @@ import torch
 from repro_torch.core.cnn_spec import CNN1DSpec
 from repro_torch.kernels import conv_kernels, dispatch, ops
 from repro_torch.kernels.hop_megakernel import prepare_hop_weights
+from repro_torch.launch.mesh import canonical_device, dp_size
 from repro_torch.obs import Observability
 from repro_torch.runtime.pool import SlotPool
 from repro_torch.stream.detector import (
@@ -414,6 +426,10 @@ class _BatchedModel:
     Batch-size polymorphic: every entry point derives B from its operands,
     so the elastic slot pool needs nothing per capacity.
 
+    With ``mesh`` every kernel launch goes through the sharded entry
+    points of ``kernels/ops.py``: one launch per shard on its row block,
+    the weights (and every layout of them) shared by the shards.
+
     With ``pool_size`` (a tenant pool) axis 0 of every weight operand
     stacks K complete variants — raw and in every kernel's layout — and
     the hop takes a per-slot ``model_idx``.  Unfilled rows hold the
@@ -422,10 +438,12 @@ class _BatchedModel:
     """
 
     def __init__(self, plan: StreamPlan, backend: str, params: dict,
-                 pool_size: int | None = None, tenant_block: int = 8
-                 ) -> None:
+                 pool_size: int | None = None, tenant_block: int = 8,
+                 mesh=None) -> None:
         self.plan = plan
         self.backend = backend
+        self.mesh = mesh
+        self._n_shards = 1 if mesh is None else dp_size(mesh)
         self.pool_size = pool_size
         self._tenant_block = tenant_block
         if pool_size is None:
@@ -500,11 +518,12 @@ class _BatchedModel:
 
     def _bb(self, b: int) -> int | None:
         """Tenant-aligned slot block: placement keeps each
-        ``min(tenant_block, capacity)`` block single-model, so each of the
-        kernels' blocks gathers one weight row.  None when un-pooled."""
+        ``min(tenant_block, shard_capacity)`` block single-model, so each
+        of the kernels' blocks gathers one weight row.  None when
+        un-pooled."""
         if self.pool_size is None:
             return None
-        return min(self._tenant_block, max(1, b))
+        return min(self._tenant_block, max(1, b // self._n_shards))
 
     def _block_gather(self, stack: torch.Tensor, model_idx: torch.Tensor
                       ) -> tuple[torch.Tensor, int]:
@@ -533,12 +552,13 @@ class _BatchedModel:
         if self.backend == "per_stage":
             bb = self._bb(window.shape[0])
             if st.in_bits > 1:
-                return ops.bitserial_conv1d_batched(
-                    window, self._cw[i], model_idx, bits=st.in_bits,
-                    offset=st.in_offset, stride=st.stride, bb=bb)
-            return ops.bnn_conv1d_batched(window, self._cw[i], None, None,
-                                          model_idx, stride=st.stride,
-                                          mode="raw", bb=bb)
+                return ops.bitserial_conv1d_batched_sharded(
+                    window, self._cw[i], model_idx, mesh=self.mesh,
+                    bits=st.in_bits, offset=st.in_offset, stride=st.stride,
+                    bb=bb)
+            return ops.bnn_conv1d_batched_sharded(
+                window, self._cw[i], None, None, model_idx, mesh=self.mesh,
+                stride=st.stride, mode="raw", bb=bb)
         x = window - st.in_offset if st.in_bits > 1 else window
         taps = [
             x[:, t : t + (n_conv - 1) * st.stride + 1 : st.stride]
@@ -576,12 +596,12 @@ class _BatchedModel:
         stages = plan.convs
         cur = audio.reshape(audio.shape[0], plan.hop_samples, stages[0].cin)
         if self.backend == "megakernel":
-            out = ops.hop_megakernel(
+            out = ops.hop_megakernel_sharded(
                 cur, mask.to(torch.int32), tuple(tails), tuple(pendings),
                 gap, self._kw, self._thr, self._kflip, self._kfc_w,
-                self._fc_thr, self._fc_flip, model_idx, stages=stages,
-                emit=emit, fc_raw=self._fc_raw, bb=self._bb(gap.shape[0]),
-                out=out,
+                self._fc_thr, self._fc_flip, model_idx, mesh=self.mesh,
+                stages=stages, emit=emit, fc_raw=self._fc_raw,
+                bb=self._bb(gap.shape[0]), out=out,
             )
             state = out[0], out[1], out[2]
             if not emit:
@@ -633,11 +653,11 @@ class _BatchedModel:
         a ghost end-of-stream flush sized by the plan's ``flush_*``
         geometry, then the fc classifier on the saturated GAP counts."""
         if self.backend == "megakernel":
-            logits = ops.finalize_megakernel(
+            logits = ops.finalize_megakernel_sharded(
                 tuple(tails), tuple(pendings), gap, self._kw, self._thr,
                 self._kflip, self._kfc_w, self._fc_thr, self._fc_flip,
-                model_idx, stages=self.plan.convs, fc_raw=self._fc_raw,
-                bb=self._bb(gap.shape[0]),
+                model_idx, mesh=self.mesh, stages=self.plan.convs,
+                fc_raw=self._fc_raw, bb=self._bb(gap.shape[0]),
             )
             return logits, torch.softmax(logits.float(), -1)
         stages = self.plan.convs
@@ -672,9 +692,10 @@ class _BatchedModel:
                     model_idx: torch.Tensor | None = None) -> torch.Tensor:
         """Saturated GAP counts (B, C) -> raw logits (B, n_classes)."""
         if self.backend == "per_stage":
-            return ops.classifier_tail(
+            return ops.classifier_tail_sharded(
                 gap_f, self._kfc_w, self._fc_thr, self._fc_flip, model_idx,
-                out_raw=self._fc_raw, bb=self._bb(gap_f.shape[0]))
+                mesh=self.mesh, out_raw=self._fc_raw,
+                bb=self._bb(gap_f.shape[0]))
         h = gap_f
         for j, st in enumerate(self.plan.fcs):
             thr, flip = self._fc_thr[j], self._fc_flip[j]
@@ -694,12 +715,13 @@ class _BatchedModel:
         return h
 
     def dispatches_per_hop(self, emit: bool) -> int:
-        """Hand-written kernel launches one hop makes: 1 for the
-        megakernel (emit's flush + classifier ride the same launch), 0 for
-        the dense backend, and for the per-stage backend one per conv
-        stage plus, on emit, a finalization's launches.  The scheduler
-        counts the real launches of every hop through ``kernels.dispatch``
-        and the tests hold the two equal."""
+        """Hand-written kernel launches one hop makes per shard, as the
+        reference counts them: 1 for the megakernel (emit's flush +
+        classifier ride the same launch), 0 for the dense backend, and for
+        the per-stage backend one per conv stage plus, on emit, a
+        finalization's launches.  The scheduler counts the real launches
+        of every hop through ``kernels.dispatch``, S times this over S
+        shards, and the tests hold the two to that."""
         if self.backend == "per_stage":
             n = len(self.plan.convs)
             return n + (self.dispatches_per_finalize() if emit else 0)
@@ -707,9 +729,9 @@ class _BatchedModel:
 
     def dispatches_per_finalize(self) -> int:
         """Launches of one standalone finalization (a hop-boundary peek no
-        emit covers): 1 for the megakernel, 0 for the dense backend, and
-        for the per-stage backend one per ghost-flush conv with
-        ``flush_conv > 0`` plus the classifier tail."""
+        emit covers) per shard: 1 for the megakernel, 0 for the dense
+        backend, and for the per-stage backend one per ghost-flush conv
+        with ``flush_conv > 0`` plus the classifier tail."""
         if self.backend == "per_stage":
             return sum(1 for st in self.plan.convs if st.flush_conv > 0) + 1
         return 1 if self.backend == "megakernel" else 0
@@ -726,8 +748,9 @@ class StreamScheduler:
     state, so a stream fed across a resize boundary produces bit-identical
     logits to one fed at a fixed capacity.
 
-    Takes the reference's constructor arguments plus ``device`` (default
-    ``"cuda"``; raises when CUDA is absent, never continues on the CPU).
+    Takes the reference's constructor arguments plus ``device`` (default:
+    the mesh's device, else ``"cuda"``; raises when CUDA is absent, never
+    continues on the CPU).
     ``interpret`` has no meaning here (there is no interpret mode) and is
     accepted for signature parity.  ``max_models > 1`` turns on the tenant
     weight pool (``register_model``, ``add_stream(model=...)``), whose
@@ -735,7 +758,16 @@ class StreamScheduler:
     ``donate_buffers`` makes the megakernel write each hop's state into a
     second resident state set, the two swapping every hop; on the
     ``torch`` and ``per_stage`` backends it is accepted and changes
-    nothing.  ``mesh`` raises ``NotImplementedError`` (queue item A.9).
+    nothing.
+
+    ``mesh`` (``launch.mesh.make_stream_mesh(S)``) spreads the pool over
+    S shards of its device: every capacity must be a multiple of S
+    (``ValueError``), a joining stream lands on the least-loaded shard,
+    resizes scale the per-shard capacity, leave churn that skews the
+    shards is levelled by a migration at the next hop barrier, and each
+    hop makes its kernel launches once per shard on the shard's rows.  A
+    mesh over several distinct devices raises ``NotImplementedError``
+    (queue item A.9b).
     """
 
     #: hops the scheduler keeps in flight (the async plane raises it); the
@@ -765,7 +797,7 @@ class StreamScheduler:
         max_models: int = 1,
         tenant_block: int = 8,
         prewarm: bool = False,
-        device="cuda",
+        device=None,
     ) -> None:
         if backend == "pallas":
             raise ValueError(
@@ -773,17 +805,33 @@ class StreamScheduler:
                 "port's per-stage kernel backend is 'per_stage'")
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        n_shards = 1
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded slot pools are not ported yet: ROADMAP queue "
-                "item A.9")
+            mesh_device = mesh.device  # refuses a mesh over several devices
+            n_shards = dp_size(mesh)
+            if device is None:
+                device = mesh_device
+            elif torch.device(device).type != mesh_device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh_device}")
+        for name, cap in (("capacity", capacity),
+                          ("initial_capacity", initial_capacity),
+                          ("min_capacity", min_capacity)):
+            if cap is not None and cap % n_shards:
+                raise ValueError(f"{name} {cap} is not a multiple of the "
+                                 f"mesh's {n_shards} shards")
         if max_models < 1:
             raise ValueError(f"max_models must be >= 1, got {max_models}")
         if max_models > 1 and (tenant_block < 1
                                or tenant_block & (tenant_block - 1)):
             raise ValueError(f"tenant_block {tenant_block} is not a power "
                              "of two")
-        self.device = _require_device(device)
+        self.device = _require_device("cuda" if device is None else device)
+        if mesh is not None and canonical_device(self.device) != mesh_device:
+            raise ValueError(f"device {self.device} is not the mesh's "
+                             f"device {mesh_device}")
+        self.mesh = mesh
+        self.n_shards = n_shards
         self._clock = clock
         self.plan = plan_stream(spec, hop_frames=hop_frames)
         self.weights = {k: np.asarray(v) for k, v in weights.items()}
@@ -792,7 +840,8 @@ class StreamScheduler:
         self.detector_cfg = detector_cfg or DetectorConfig()
         self.emit_logits = emit_logits
         self.obs = obs if obs is not None else Observability.create()
-        self.metrics = StreamMetrics(self.plan, sample_rate, n_shards=1,
+        self.metrics = StreamMetrics(self.plan, sample_rate,
+                                     n_shards=n_shards,
                                      registry=self.obs.registry)
         # tenant weight pool: with max_models > 1 the device weights are
         # (K, ...) stacks and each stream binds a registered variant at
@@ -806,7 +855,7 @@ class StreamScheduler:
         self._model = _BatchedModel(
             self.plan, backend, self._params,
             pool_size=max_models if self._pool is not None else None,
-            tenant_block=tenant_block)
+            tenant_block=tenant_block, mesh=mesh)
         # the generic slot-pool plane: slot<->sid binding, pow-2 elastic
         # resize, idle-time prewarm, resize observability.  This scheduler
         # is its client through device_state/slot_axes/shard/
@@ -815,7 +864,7 @@ class StreamScheduler:
             self, capacity,
             initial_capacity=initial_capacity,
             min_capacity=min_capacity,
-            n_shards=1,
+            n_shards=n_shards,
             tenant_block=tenant_block if self._pool is not None else None,
             rebalance_threshold=rebalance_threshold,
             obs=self.obs,
@@ -890,6 +939,11 @@ class StreamScheduler:
         """Capacity ceiling the elastic pool doubles toward."""
         return self._slots.max_capacity
 
+    @property
+    def shard_capacity(self) -> int:
+        """Current per-shard pool size (== ``capacity`` with no mesh)."""
+        return self._slots.shard_capacity
+
     # -- SlotPool client surface (see runtime.pool.SlotPoolClient) -----------
 
     def device_state(self):
@@ -909,7 +963,7 @@ class StreamScheduler:
         return ((0,) * n, (0,) * n, 0)
 
     def shard(self, x, axis: int = 0):
-        return x  # one device: nothing to settle
+        return x  # the shards are row blocks of one device: nothing to move
 
     def apply_host_remap(self, remap: dict[int, int], new_cap: int) -> None:
         """Ride the host-side ingest plane through a slot remap, so a
@@ -1040,7 +1094,8 @@ class StreamScheduler:
         self._detector.reset_slot(slot)
         self._unprimed.add(sid)
         self.metrics.on_join(sid)
-        self.obs.events.emit("join", sid=sid, slot=slot, shard=0)
+        self.obs.events.emit("join", sid=sid, slot=slot,
+                             shard=slot // self._slots.shard_capacity)
         return sid
 
     def _require(self, sid: int) -> _Stream:
@@ -1198,8 +1253,9 @@ class StreamScheduler:
         return st
 
     def _hop_barriers(self) -> None:
-        """Hop-boundary housekeeping: the pool's rebalance/shrink check
-        and the mass-join primer."""
+        """Hop-boundary housekeeping: the pool's rebalance-on-skew (a
+        cross-shard migration when leave churn skewed the shards) and the
+        shrink it unpins, then the mass-join primer."""
         self._slots.hop_barrier()
         if self._unprimed:
             self._prime_ready()  # numpy warm-up, excluded from step timing
@@ -1215,7 +1271,8 @@ class StreamScheduler:
         if ready_slots.size == 0:
             return None
         audio = self._arena.pack_hops(ready_slots, hop)
-        shard_counts = np.array([ready_slots.size])
+        shard_counts = np.bincount(ready_slots // self._slots.shard_capacity,
+                                   minlength=self.n_shards)
         t_pack = self._clock()
         return ready_slots, ready_mask, audio, shard_counts, t0, t_pack
 

@@ -6,8 +6,9 @@ pool, B.7 popcount GEMM raw and ``sa``, B.8 int8 tensor-core GEMM)
 against their plain PyTorch versions on the card, bit for bit, and the
 megakernel and per-stage schedulers against the dense backend on the
 card, the async scheduler against the synchronous one (its dispatch
-stage under sync debug mode ``"error"``), donated state buffers, and a
-tenant pool's row reused after an eviction.  They skip without a CUDA
+stage under sync debug mode ``"error"``), donated state buffers, a
+tenant pool's row reused after an eviction, and the slot pool over S
+shards of the card against one shard.  They skip without a CUDA
 device.  This file imports neither JAX nor the reference package, so it
 runs on a machine that has only PyTorch:
 
@@ -773,6 +774,81 @@ def test_cuda_per_stage_scheduler_matches_dense_backend():
                     assert y is None
                 else:
                     np.testing.assert_array_equal(x, y)
+
+
+def _sharded_run(sched, clips):
+    """Streams join, get their first clip halves, the odd sids leave (the
+    even ones crowd shard 0 at S = 2 and 8, so the next hop barrier
+    migrates), the rest stream on; returns each sid's (frame, logits)
+    hops, a peek and the closes, and the launches per hop."""
+    per_sid, launches = {}, []
+    fold = sched._fold_hop
+
+    def spy(*args, **kw):
+        hb = fold(*args, **kw)
+        for r, sid in enumerate(hb.sids.tolist()):
+            per_sid.setdefault(sid, []).append(
+                (int(hb.frames[r]), hb.logits[r].copy()))
+        return hb
+    sched._fold_hop = spy
+    n = len(clips)
+    for sid in range(n):
+        sched.add_stream(sid)
+    closes = {}
+    for half in (0, 1):
+        sched.push_audio_batch(list(range(n)) if half == 0 else
+                               [j for j in range(n) if j % 2 == 0],
+                               [c[:3000] if half == 0 else c[3000:]
+                                for j, c in enumerate(clips)
+                                if half == 0 or j % 2 == 0])
+        n0 = sum(map(len, per_sid.values()))
+        with dispatch.counting() as launched:
+            hops = sched.drain()
+        launches.append((hops, launched()))
+        assert sum(map(len, per_sid.values())) > n0
+        if half == 0:
+            closes.update({j: sched.close_stream(j).logits
+                           for j in range(1, n, 2)})
+    peek = sched.peek(0)
+    closes.update({j: sched.close_stream(j).logits for j in range(0, n, 2)})
+    return per_sid, peek, closes, launches
+
+
+@pytest.mark.parametrize("backend,S,cls", [
+    ("megakernel", 2, StreamScheduler), ("megakernel", 8, StreamScheduler),
+    ("per_stage", 2, StreamScheduler),
+    ("megakernel", 8, AsyncStreamScheduler)], ids=str)
+def test_cuda_sharded_scheduler_matches_one_shard(backend, S, cls):
+    """The slot pool over S shards of the card: every stream's hops, the
+    peek and the closes equal the 1-shard megakernel scheduler's, each
+    hop makes S times the per-shard launches, and the skewed leaves fire
+    a rebalance."""
+    dev = _cuda()
+    from repro_torch.launch.mesh import make_stream_mesh
+    spec = kws.build_kws_spec()
+    weights, thresholds = _model(spec, 6)
+    rng = np.random.default_rng(7)
+    clips = [rng.integers(0, 256, 9000, dtype=np.uint8) for _ in range(16)]
+    kw = dict(capacity=16, hop_frames=8)
+    want = _sharded_run(StreamScheduler(spec, weights, thresholds,
+                                        device=dev, **kw), clips)
+    sched = cls(spec, weights, thresholds, backend=backend,
+                mesh=make_stream_mesh(S), **kw)
+    got = _sharded_run(sched, clips)
+    if cls is AsyncStreamScheduler:
+        sched.shutdown(timeout=60.0)
+    assert got[0].keys() == want[0].keys()
+    for sid, seq in got[0].items():
+        assert [f for f, _ in seq] == [f for f, _ in want[0][sid]]
+        for (_, a), (_, b) in zip(seq, want[0][sid]):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[1], want[1])
+    for sid, lg in got[2].items():
+        np.testing.assert_array_equal(lg, want[2][sid])
+    per = sched._model.dispatches_per_hop(True)
+    for hops, launched in got[3]:
+        assert sum(launched.values()) == S * per * hops
+    assert sched.metrics.rebalances >= 1
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Port, hop kernel host functions: the slot-block choice
 (``hop_megakernel.slot_block``), the S-slot shared-memory layout
 (``cta_layout``, ``smem_layout``) and its refusal above 232,448 B, the
-weight layout (``prepare_hop_weights``) and B.3's launch shape
+launch shape memoized from them (``_launch_shape``), the weight layout
+(``prepare_hop_weights``) and B.3's launch shape
 (``conv_kernels.bitserial_tiles``).
 
 The CUDA kernels run only on the card, where ``tests/test_torch_gpu.py``
@@ -296,6 +297,30 @@ def test_laid_out_fc_weights_give_the_plain_classifier(name):
         raw = buf[:5, :kp] @ _b_matrix(hw.fc[j], cout, cin).T
         h = raw if fc_raw[j] else mk._sa(raw, thrs[j], flips[j]).long()
     assert torch.equal(h.int(), want)
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+@pytest.mark.parametrize("b", [1, 32, 128, 256])
+def test_launch_shape_memo_equals_fresh(name, b):
+    """``_launch_shape``, which a launch takes its shape from, memoizes
+    ``state_offsets``, ``smem_layout``, ``sa_columns`` and ``slot_block``
+    (or ``cta_layout`` of a forced slot block): on a steady hop (no fc
+    layers) and an emit hop its results equal fresh calls, and a second
+    call returns the memoized object."""
+    plan, geoms, fc = _geoms(name)
+    gap = plan.gap_channels
+    for fc_dims in ((), tuple(fc)):
+        for slots in (None, 1):
+            got = mk._launch_shape(geoms, fc_dims, gap, b, mk.H100_SMS,
+                                   slots)
+            lay = (mk.slot_block(b, geoms, list(fc_dims), gap)
+                   if slots is None
+                   else mk.cta_layout(geoms, list(fc_dims), gap, slots))
+            assert got == (mk.state_offsets(geoms, gap),
+                           mk.smem_layout(geoms, list(fc_dims), gap),
+                           mk.sa_columns(geoms, list(fc_dims)), lay)
+            assert mk._launch_shape(geoms, fc_dims, gap, b, mk.H100_SMS,
+                                    slots) is got
 
 
 def test_prepared_weights_keep_the_reference_operands_and_pool_axis():

@@ -16,6 +16,7 @@ import torch
 
 import _torch_port_cases as cases
 from repro.models import kws as ref_kws
+from repro_torch.launch.mesh import StreamMesh
 from repro_torch.stream import StreamScheduler as PortScheduler
 
 
@@ -46,7 +47,10 @@ def test_default_device_is_cuda(smoke):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "A.9"),
+    # a slot pool over two cards: the shards of a mesh are row blocks of
+    # one device (tests/test_torch_sharded.py)
+    ({"mesh": StreamMesh((torch.device("cuda", 0),
+                          torch.device("cuda", 1)))}, "A.9b"),
 ])
 def test_unported_features_raise(smoke, kwargs, item):
     spec, weights, thresholds = smoke
