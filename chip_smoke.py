@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build, check and drive the KWS stream
-hop and the kernel library on one CUDA card.
+hop, the kernel library and the chip twin on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -130,24 +130,49 @@ Phases (each prints one line, any failure exits non-zero):
               cost a hop under cProfile with the launch shape memoized
               and recomputed.  Each drive's counts are set to 0 just
               before it and read just after.
+10. chip_twin — the chip twin (``core.compiler``, ``core.executor``):
+              the full Fig. 7 spec and the same model, compiled with
+              ``ROTATE_HINTS`` and ``ROWSPLIT_HINTS`` on the card and on
+              the CPU (the same words and macro image); the executor on
+              the card, one launch per MAC chunk (1 B.3, 6 B.6 raw, 6 B.7
+              raw), equals the executor on the CPU (output, fmaps,
+              layer_cycles, bank_active_cycles, ledger) fused and with
+              the pool as a separate pass, and with every chunk of the
+              smoke spec rotating (the full model rotating whole must
+              overflow the weight SRAM); its logits equal
+              ``models.kws.offline_logits`` on the card; each of the 13
+              launches is bit-equal to its plain version.  Printed with
+              the card: the executor's wall time a run (median of
+              ``TWIN_RUNS``, synchronised), a cProfile of one run, and
+              each launch's device time beside its plain version, bound
+              and ``conv1d`` / float32 matmul.  Printed as the simulated
+              chip's figures, never the card's: Table I from the ledger
+              (cycles, MACs, latency, GOPS; energy and TOPS/W after
+              ``energy.calibrate_e_mac``, each held to the bands of
+              ``tests/test_system.py``), the PWB saving fused against
+              separate pooling at ``PWB_WIDTHS``, the flexible against
+              the fixed ping-pong fit, and the TWM and BWM flip rates at
+              ``TWM_SIGMAS`` (B.7 on the card).  Each counted run's
+              counts are set to 0 just before it and read just after.
 
 The model is made here from ``--seed`` with numpy: random ternary weights
 and integer thresholds near the middle of each layer's accumulator range
 with random flips.  The script imports nothing of JAX or of the reference
 package.  Before its last line it prints one JSON object with each
 kernel's launches on the main paths (the stream backends', the
-library's, the async, tenant and sharded drives'), error, time, plain time,
-bound and library-call time (each
+library's, the async, tenant and sharded drives', the chip twin's
+counted runs), error, time, plain time, bound and library-call time (each
 summed over a kernel's launch shapes on its paths: B.3's l0 of a hop
-(hop and flush window) and of an utterance, the conv step's six of an
-emit hop (three hop and three flush windows), B.6's three of an
-utterance, B.7's and B.8's of the library path; a library time only
+(hop and flush window), of an utterance and of the chip twin, the conv
+step's six of an emit hop (three hop and three flush windows), B.6's
+three of an utterance and six of the chip twin, B.7's and B.8's of the
+library path and B.7's six of the chip twin; a library time only
 where every one of them has one), and the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
 is ``{"ok": true, "device": {...}}``.  The same record, with every timed
 launch shape, the ``pick_path`` finding, the B.4 tile, B.5 slot-block and
-B.6 shape sweeps and the MMA rates, is written to ``chip_smoke.json`` in
-the output directory beside the script.
+B.6 shape sweeps, the MMA rates and the chip twin's record, is written
+to ``chip_smoke.json`` in the output directory beside the script.
 """
 from __future__ import annotations
 
@@ -1072,7 +1097,7 @@ def library_fns(bk, tm):
             tm.MXU_KERNEL: (tm.twm_matmul_mxu, tm.twm_matmul_mxu_plain)}
 
 
-def check_library(entries, torch, fns, dispatch):
+def check_library(entries, torch, fns, dispatch, tag="library"):
     """Each library kernel vs its plain version on the same operands on
     the card; returns the max |kernel - plain| per kernel name."""
     err = {}
@@ -1092,7 +1117,7 @@ def check_library(entries, torch, fns, dispatch):
         if d:
             raise RuntimeError(f"library {e['label']} ({e['name']}): kernel "
                                f"disagrees with plain by {d}")
-    phase("library", f"{len(entries)} launches bit-equal to their plain "
+    phase(tag, f"{len(entries)} launches bit-equal to their plain "
           f"versions: " + ", ".join(f"{e['name']} {e['label']}"
                                     for e in entries))
     return err
@@ -2041,6 +2066,372 @@ def launch_profile(spec, weights, thresholds, audio, torch, dispatch, mk,
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 10: the chip twin (core.compiler / core.executor)
+# ---------------------------------------------------------------------------
+
+#: ``benchmarks/twm_vs_bwm.py``'s noise sigmas, (rows, K, N) and trials
+TWM_SIGMAS = (0.5, 1.0, 2.0, 4.0)
+TWM_SHAPE = (128, 768, 64)
+TWM_TRIALS = 24
+#: ``benchmarks/pwb_latency.py``'s pool-unit widths
+PWB_WIDTHS = (32, 64, 128)
+#: Table I (paper) and the relative bands ``tests/test_system.py`` holds
+#: the simulated chip to: latency and throughput before calibration,
+#: energy and efficiency after ``energy.calibrate_e_mac``
+PAPER = dict(latency_us=(2320.0, 0.05), gops=(150.8, 0.05),
+             energy_uj=(0.399, 0.02), tops_per_w=(885.86, 0.01))
+#: executor runs timed on the card (the median is reported)
+TWIN_RUNS = 9
+
+
+class LaunchSpy:
+    """Records, in order, the operands of every launch of B.3, B.6 and
+    B.7 made inside a ``with`` block, by wrapping the three kernel entry
+    points that ``kernels/ops.py`` calls; each launch, and its count, is
+    still the entry point's own."""
+
+    def __init__(self, bk, tm):
+        self.targets = ((bk, bk.BITSERIAL_KERNEL), (bk, bk.CONV_KERNEL),
+                        (tm, tm.POPCOUNT_KERNEL))
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        for (m, n), fn in zip(self.targets, self.saved):
+            setattr(m, n, self._spy(n, fn))
+        return self
+
+    def _spy(self, name, fn):
+        def call(*args, **kw):
+            self.calls.append((name, args, dict(kw)))
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.targets, self.saved):
+            setattr(m, n, fn)
+
+
+def mac_launches(prog, bk, tm) -> dict:
+    """Launches per kernel one executor run of ``prog`` must make: one per
+    MAC chunk, B.3 for a bit-serial conv, B.6 for a binary conv, B.7 for
+    an fc chunk."""
+    from repro_torch.core.cnn_spec import FCSpec
+
+    out = collections.Counter()
+    for kind, payload in prog.instr_meta:
+        if kind == "mac":
+            lay = payload[0].spec
+            out[tm.POPCOUNT_KERNEL if isinstance(lay, FCSpec)
+                else bk.BITSERIAL_KERNEL if lay.in_bits > 1
+                else bk.CONV_KERNEL] += 1
+    return dict(out)
+
+
+def twin_entries(calls, prog, torch, bk, tm):
+    """The executor's recorded launches as ``library_entries``' entries,
+    labelled by their MAC chunk: the operands, the MACs the chunk does,
+    and what the one PyTorch call computing its contraction reads (the
+    unpacked lanes; the zero lanes past a word's channels add nothing)."""
+    from repro_torch.core.quant import unpack_bits
+
+    macs = [payload[1] for kind, payload in prog.instr_meta if kind == "mac"]
+    if len(macs) != len(calls):
+        raise RuntimeError(f"chip twin: {len(calls)} launches for "
+                           f"{len(macs)} MAC chunks")
+    out = []
+    for (name, args, kw), ch in zip(calls, macs):
+        kw = {k: v for k, v in kw.items() if k != "wf"}
+        n_ch = ch.ch1 - ch.ch0
+        e = dict(label=ch.name, name=name, args=args, kw=kw, main=True,
+                 timed=True)
+        if name == bk.BITSERIAL_KERNEL:
+            e["macs"] = kw["l_out"] * ch.rows * n_ch
+        else:
+            xq, wp, wn = args[:3]
+            planes = lambda p: unpack_bits(p, axis=-2)  # noqa: E731
+            if name == bk.CONV_KERNEL:
+                e["macs"] = kw["l_out"] * ch.rows * n_ch
+                e["lib"] = dict(x=unpack_bits(xq), w=planes(wp) - planes(wn),
+                                stride=kw["stride"], pad=kw["pad"])
+            else:
+                e["macs"] = xq.shape[0] * ch.rows * n_ch
+                e["shape"] = (xq.shape[0], ch.rows, n_ch)
+                e["lib"] = dict(xf=unpack_bits(xq).float(),
+                                wf=(planes(wp) - planes(wn)).float())
+        out.append(e)
+    return out
+
+
+def same_report(label, got, want, torch):
+    """Two ExecutionReports equal: output, fmaps, layer_cycles,
+    bank_active_cycles and every ledger field."""
+    if not torch.equal(got.output.cpu(), want.output.cpu()):
+        raise RuntimeError(f"chip twin {label}: output {got.output} != "
+                           f"{want.output}")
+    if sorted(got.fmaps) != sorted(want.fmaps) or not all(
+            torch.equal(got.fmaps[k].cpu(), want.fmaps[k].cpu())
+            for k in want.fmaps):
+        raise RuntimeError(f"chip twin {label}: feature maps differ")
+    if got.layer_cycles != want.layer_cycles or not np.array_equal(
+            got.bank_active_cycles, want.bank_active_cycles):
+        raise RuntimeError(f"chip twin {label}: cycles differ")
+    if dataclasses.asdict(got.ledger) != dataclasses.asdict(want.ledger):
+        raise RuntimeError(f"chip twin {label}: ledgers differ")
+
+
+def chip_twin_phase(weights, thresholds, seed, dev, torch, dispatch, bk, tm,
+                    lib_fns, card):
+    """Phase 10: the chip twin on the full Fig. 7 spec, the same model.
+    Returns (record, counted launches, per-launch timing records, the
+    kernels' max |kernel - plain|)."""
+    from repro_torch.core import compiler, energy, executor, pingpong, pwb
+    from repro_torch.core import twm
+    from repro_torch.models import kws
+
+    sim = "simulated PSCNN chip at 10 MHz, not the card"
+    spec = kws.build_kws_spec()
+    hints = dict(rotate_hints=kws.ROTATE_HINTS,
+                 rowsplit_hints=kws.ROWSPLIT_HINTS)
+    t0 = time.perf_counter()
+    prog = compiler.compile_model(spec, weights, thresholds, device=dev,
+                                  **hints)
+    compile_s = time.perf_counter() - t0
+    host = compiler.compile_model(spec, weights, thresholds, device="cpu",
+                                  **hints)
+    if prog.words != host.words or not (
+            torch.equal(prog.cim.pos.cpu(), host.cim.pos)
+            and torch.equal(prog.cim.neg.cpu(), host.cim.neg)):
+        raise RuntimeError("chip twin: the card's program differs from the "
+                           "CPU's")
+    x = np.random.default_rng(seed + 21).integers(
+        0, 256, (spec.in_len, 1)).astype(np.uint8)
+    launches = collections.Counter()
+
+    def counted(label, program, fuse, xin):
+        """One executor run on the card, its launches counted from 0 and
+        held to one per MAC chunk, against the same run on the CPU."""
+        want = mac_launches(program, bk, tm)
+        torch.cuda.synchronize()
+        dispatch.reset()   # this run's counts start here
+        rep = executor.Executor(program, fuse_pool=fuse).run(xin)
+        torch.cuda.synchronize()
+        got = dispatch.counts()
+        if got != want:
+            raise RuntimeError(f"chip twin {label}: launches {got} != {want}")
+        launches.update(got)
+        return rep, got
+
+    with LaunchSpy(bk, tm) as spy:
+        fused, fused_launches = counted("fused", prog, True, x)
+    cpu_fused = executor.Executor(host).run(x)
+    same_report("fused (card vs CPU)", fused, cpu_fused, torch)
+    if fused_launches != {bk.BITSERIAL_KERNEL: 1, bk.CONV_KERNEL: 6,
+                          tm.POPCOUNT_KERNEL: 6}:
+        raise RuntimeError(f"chip twin: launches {fused_launches}, not 13")
+    unfused, _ = counted("unfused", prog, False, x)
+    same_report("unfused (card vs CPU)", unfused,
+                executor.Executor(host, fuse_pool=False).run(x), torch)
+    if not torch.equal(unfused.output, fused.output):
+        raise RuntimeError("chip twin: unfused output differs from fused")
+    # every chunk rotating: the smoke spec (the full model's weights
+    # overflow the 512 Kb weight SRAM, as the compiler must say)
+    smoke = kws.build_kws_smoke_spec()
+    sw, st = random_model(smoke, seed + 22)
+    names = tuple(c.name for li, lay in enumerate(smoke.layers)
+                  for c in compiler.chunk_layer(lay, li, 0))
+    rot = compiler.compile_model(smoke, sw, st, rotate_hints=names,
+                                 device=dev)
+    rot_host = compiler.compile_model(smoke, sw, st, rotate_hints=names,
+                                      device="cpu")
+    base = compiler.compile_model(smoke, sw, st, device=dev)
+    if not all(c.rotating for b in rot.bindings for c in b.chunks):
+        raise RuntimeError("chip twin: a chunk did not rotate")
+    xs = np.random.default_rng(seed + 23).integers(
+        0, 256, (smoke.in_len, 1)).astype(np.uint8)
+    for fuse in (True, False):
+        got, _ = counted(f"rotated fuse={fuse}", rot, fuse, xs)
+        same_report(f"rotated fuse={fuse} (card vs CPU)", got,
+                    executor.Executor(rot_host, fuse_pool=fuse).run(xs),
+                    torch)
+        if not torch.equal(got.output, executor.Executor(
+                base, fuse_pool=fuse).run(xs).output):
+            raise RuntimeError("chip twin: rotation changed the output")
+    all_names = tuple(c.name for li, lay in enumerate(spec.layers)
+                      for c in compiler.chunk_layer(lay, li, 0))
+    try:
+        compiler.compile_model(spec, weights, thresholds,
+                               rotate_hints=all_names, device=dev)
+        raise RuntimeError("chip twin: the full model rotated whole")
+    except MemoryError as e:
+        overflow = str(e)
+    logits = kws.offline_logits(spec, weights, thresholds,
+                                torch.as_tensor(x[:, 0], device=dev))
+    if not torch.equal(fused.output.ravel(), logits.to(torch.int64)):
+        raise RuntimeError(f"chip twin: executor logits {fused.output} != "
+                           f"offline_logits {logits}")
+    n_rot = sum(c.rotating for b in prog.bindings for c in b.chunks)
+    phase("chip_twin", f"full Fig. 7 spec compiled on the card in "
+          f"{compile_s:.3f} s: {len(prog.words)} words, "
+          f"{len(spy.calls)} MAC chunks ({n_rot} rotating); executor on the card == executor on the CPU (output, "
+          f"fmaps, layer_cycles, bank_active_cycles, ledger) fused and "
+          f"unfused, launches {fused_launches} a run; every smoke chunk "
+          f"rotating ({len(names)} WREPs) == CPU == unrotated; the full "
+          f"model rotating whole refused ({overflow}); logits "
+          f"{fused.output.ravel().tolist()} == models.kws.offline_logits")
+
+    # each launch of the main run bit-equal to its plain version
+    entries = twin_entries(spy.calls, prog, torch, bk, tm)
+    err = check_library(entries, torch, lib_fns, dispatch, tag="chip_twin")
+
+    # the card's own numbers: the executor's wall time, each launch
+    walls = []
+    for _ in range(TWIN_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = executor.Executor(prog).run(x)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    same_report("run again on one program", last, fused, torch)
+    prof = cProfile.Profile()
+    prof.enable()
+    executor.Executor(prog).run(x)
+    torch.cuda.synchronize()
+    prof.disable()
+    top = host_profile(prof, 1, top=10)
+    wall = float(np.median(walls))
+    recs = []
+    for e in entries:
+        kernel, plain = lib_fns[e["name"]]
+        out = kernel(*e["args"], **e["kw"])
+        bms, t_b, t_o = launch_bound_ms(e, out)
+        yard, yard_name = library_yardstick(e, out, torch, tm)
+        rec = dict(label=e["label"], name=e["name"], macs=e["macs"],
+                   shape=[tuple(a.shape) for a in e["args"][:3]
+                          if a is not None],
+                   ms=time_ms(lambda: kernel(*e["args"], **e["kw"]), torch),
+                   call_ms=call_ms(lambda: kernel(*e["args"], **e["kw"]),
+                                   torch),
+                   plain_ms=time_ms(lambda: plain(*e["args"], **e["kw"]),
+                                    torch, iters=5),
+                   bound_ms=bms, bytes_s=t_b, ops_s=t_o,
+                   library_ms=time_ms(yard, torch), library_call=yard_name,
+                   tile=gemm_tile(e, tm))
+        recs.append(rec)
+        phase("chip_twin", f"time {rec['label']} ({rec['name']}, operands "
+              f"{rec['shape']}): kernel {rec['ms']:.4f} ms (issued from "
+              f"Python {rec['call_ms']:.4f}), plain {rec['plain_ms']:.4f} "
+              f"ms, bound {bms:.6f} ms ("
+              f"{'bytes' if t_b >= t_o else 'operations'}), "
+              f"{yard_name} {rec['library_ms']:.4f} ms; {card}")
+    phase("chip_twin", f"executor run on the card (13 launches and the "
+          f"host's bookkeeping), synchronised: median {wall:.3f} ms of "
+          f"{TWIN_RUNS} (min {min(walls):.3f}, max {max(walls):.3f}); its "
+          f"kernels' device time {sum(r['ms'] for r in recs):.4f} ms; "
+          f"{card}")
+    phase("chip_twin", "executor run under cProfile, own / cumulative ms: "
+          + "; ".join(f"{w} {own:.3f} / {cum:.3f} ({n:.0f} calls)"
+                      for w, own, cum, n in top[:6]))
+
+    # the simulated chip's figures: Table I, PWB, ping-pong, TWM vs BWM
+    led = fused.ledger
+    params = energy.calibrate_e_mac(led, led.macs / 885.86e12)
+    cal = executor.Executor(prog, params=params).run(x).ledger
+    table = dict(cycles=led.cycles, macs=led.macs,
+                 latency_us=led.latency_s * 1e6, gops=led.gops,
+                 energy_uj=cal.energy_j * 1e6, tops_per_w=cal.tops_per_w,
+                 uncalibrated_energy_uj=led.energy_j * 1e6,
+                 uncalibrated_tops_per_w=led.tops_per_w,
+                 e_mac_j=params.e_mac,
+                 wrep_cycles=fused.layer_cycles.get("wrep", 0),
+                 weight_sram_bits=prog.wsram.used_bits)
+    for key, (paper, band) in PAPER.items():
+        if abs(table[key] - paper) / paper >= band:
+            raise RuntimeError(f"chip twin: simulated {key} {table[key]} "
+                               f"outside {band:.0%} of the paper's {paper}")
+    pwb_rows = {}
+    default = pwb.POOL_UNIT_BITS
+    try:
+        for width in PWB_WIDTHS:
+            pwb.POOL_UNIT_BITS = width
+            f = executor.Executor(prog).run(x).ledger.cycles
+            u = executor.Executor(prog, fuse_pool=False).run(x).ledger.cycles
+            pwb_rows[width] = dict(fused=f, separate=u,
+                                   reduction_pct=100.0 * (1 - f / u))
+    finally:
+        pwb.POOL_UNIT_BITS = default
+    if not 25.0 < pwb_rows[default]["reduction_pct"] < 56.0:
+        raise RuntimeError(f"chip twin: PWB saving {pwb_rows[default]}")
+    fixed = pingpong.FixedPingPong()
+    fits = dict(flexible=True, fixed=True)
+    l, c = spec.in_len, spec.in_channels
+    fmt = "u8" if spec.in_bits > 1 else "bits"
+    for b, (ol, oc) in zip(prog.bindings, spec.trace_shapes()):
+        out_fmt = ("u8" if getattr(b.spec, "out_raw", False)
+                   or b.spec.name == "gap" else "bits")
+        ifm = pingpong.FmapRef(b.ifm_addr, l, c, fmt)
+        ofm = pingpong.FmapRef(b.ofm_addr, ol, oc, out_fmt)
+        fits["fixed"] &= fixed.fits(ifm, ofm)
+        try:
+            pingpong.PingPongSRAM.check_layer(ifm, ofm)
+        except MemoryError:
+            fits["flexible"] = False
+        l, c, fmt = ol, oc, out_fmt
+    big = pingpong.FmapRef(0, 5000, 32, "bits")
+    small = pingpong.FmapRef(6144, 2000, 32, "bits")
+    pingpong.PingPongSRAM.check_layer(big, small)
+    fits["large_fmap_fixed"] = fixed.fits(big, small)
+    fits["bank_off_fraction"] = 1.0 - float(
+        fused.bank_active_cycles.sum()) / (4.0 * led.cycles)
+    if not fits["flexible"] or fits["large_fmap_fixed"]:
+        raise RuntimeError(f"chip twin: ping-pong fits {fits}")
+    rng = np.random.default_rng(seed + 24)
+    rows, kdim, n = TWM_SHAPE
+    xb = torch.as_tensor(rng.integers(0, 2, (rows, kdim), dtype=np.int32),
+                         device=dev)
+    wt = torch.as_tensor(rng.integers(-1, 2, (kdim, n), dtype=np.int32),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flips = {}
+    for sigma in TWM_SIGMAS:
+        ft, fb = (float(twm.flip_rate_under_noise(gen, xb, wt, sigma, m,
+                                                  trials=TWM_TRIALS))
+                  for m in ("twm", "bwm"))
+        flips[sigma] = dict(twm=ft, bwm=fb)
+        if not ft < fb:
+            raise RuntimeError(f"chip twin: TWM flips {ft} >= BWM {fb} at "
+                               f"sigma {sigma}")
+    phase("chip_twin", f"{sim}: {led.cycles} cycles, {led.macs} MACs, "
+          f"latency {table['latency_us']:.1f} us, {table['gops']:.2f} GOPS "
+          f"(paper 2320 us, 150.8 GOPS); after calibrate_e_mac (e_mac "
+          f"{params.e_mac:.4e} J): {table['energy_uj']:.4f} uJ and "
+          f"{table['tops_per_w']:.2f} TOPS/W per inference (paper 0.399, "
+          f"885.86); WREP {table['wrep_cycles']} cycles, weight SRAM "
+          f"{table['weight_sram_bits']} bits")
+    phase("chip_twin", f"{sim}: PWB fused vs separate pool, cycles and "
+          "saving by pool-unit width: " + "; ".join(
+              f"{w} bit {r['fused']} / {r['separate']} "
+              f"({r['reduction_pct']:.1f} %)" for w, r in pwb_rows.items())
+          + f" (default {default} bit; paper 35.9 %); ping-pong: the KWS "
+          f"maps fit flexible {fits['flexible']} / fixed {fits['fixed']}, "
+          f"a 5000-word IFM beside a 2000-word OFM fits fixed "
+          f"{fits['large_fmap_fixed']} (flexible True), banks off "
+          f"{fits['bank_off_fraction']:.2f} of the run")
+    phase("chip_twin", f"{sim}: SA flip rate TWM / BWM, {rows} x {kdim} x "
+          f"{n}, {TWM_TRIALS} trials (B.7 on the card): " + "; ".join(
+              f"sigma {s_} {f['twm']:.4f} / {f['bwm']:.4f}"
+              for s_, f in flips.items()))
+    rec = dict(words=len(prog.words), compile_s=compile_s,
+               launches_per_run=fused_launches, executor_ms=walls,
+               executor_ms_median=wall, executor_profile=top,
+               launch_shapes=recs, table1=table, pwb=pwb_rows,
+               pingpong=fits, twm_flip_rates=flips,
+               full_rotation_refused=overflow, card=card)
+    return rec, dict(launches), recs, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2459,7 +2850,6 @@ def main() -> int:
               f"B.7 at {pick[str(shape)]['popcount_macs_per_s']:.4e} MAC/s")
     lib_main = [rec for rec in lib_times if rec["main"]]
     lib_kernel = aggregate(lib_main)
-    path_kernel = aggregate(per_launch + lib_main)
     phase("library", f"phase took {time.perf_counter() - t_lib:.1f} s")
 
     # 6. the main path
@@ -2562,7 +2952,14 @@ def main() -> int:
         spec, plan, args.seed, audio, chunk_plan, dev, torch, dispatch, mk,
         bk, ops, StreamScheduler, AsyncStreamScheduler, make_stream_mesh,
         full, p, raw_p, params, weights, thresholds, card)
-    new_paths = async_launches + tenant_launches + shard_launches
+    # 10. the chip twin: the compiled program through the executor
+    twin_rec, twin_launches, twin_recs, twin_err = chip_twin_phase(
+        weights, thresholds, args.seed, dev, torch, dispatch, bk, tm,
+        lib_fns, card)
+    merge(twin_err)
+    path_kernel = aggregate(per_launch + lib_main + twin_recs)
+    new_paths = (async_launches + tenant_launches + shard_launches
+                 + collections.Counter(twin_launches))
 
     ms, pms, bms, by = timing[("hop", True)]
     fms, fpms, fbms, fby = timing["fin"]
@@ -2632,7 +3029,7 @@ def main() -> int:
                                        "bound_by"),
                                       timing[("hop", False)])),
                   async_path=async_rec, tenants=tenant_rec,
-                  sharded=shard_rec)
+                  sharded=shard_rec, chip_twin=twin_rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

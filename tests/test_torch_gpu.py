@@ -7,9 +7,9 @@ against their plain PyTorch versions on the card, bit for bit, and the
 megakernel and per-stage schedulers against the dense backend on the
 card, the async scheduler against the synchronous one (its dispatch
 stage under sync debug mode ``"error"``), donated state buffers, a
-tenant pool's row reused after an eviction, and the slot pool over S
-shards of the card against one shard.  They skip without a CUDA
-device.  This file imports neither JAX nor the reference package, so it
+tenant pool's row reused after an eviction, the slot pool over S
+shards of the card against one shard, and the chip twin's executor on the
+card against its CPU run.  They skip without a CUDA device.  This file imports neither JAX nor the reference package, so it
 runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -859,7 +859,10 @@ def test_cuda_sharded_scheduler_matches_one_shard(backend, S, cls):
 # stride 2, an even k, and unaligned channels
 LIB_CONV = [(2000, 64, 128, 3, 1, 1), (1000, 128, 256, 5, 1, 2),
             (500, 256, 352, 3, 1, 1), (300, 40, 48, 7, 2, 3),
-            (33, 8, 12, 2, 2, 0), (129, 100, 65, 5, 1, 2)]
+            (33, 8, 12, 2, 2, 0), (129, 100, 65, 5, 1, 2),
+            # the chip twin's column chunks of b2 and b3 (b1's is the first)
+            (1000, 128, 128, 5, 1, 2), (500, 256, 128, 3, 1, 1),
+            (500, 256, 96, 3, 1, 1)]
 
 
 @pytest.mark.parametrize("pool,mode", [(1, "raw"), (1, "sa"), (2, "sa"),
@@ -919,6 +922,7 @@ def test_cuda_bnn_conv1d_matches_plain(l, cin, cout, k, stride, pad, pool,
 
 
 # (M, K, N): kernel_bench's GEMMs, the utterance's fc1 bit planes and fc2,
+# the chip twin's fc1 bit-plane column chunk and fc2 row slice,
 # test_kernels' unaligned shapes, a contraction of several 32-word
 # chunks, then shapes on both sides of the tile thresholds (M = 12 / 13
 # for B.8's GEMV / wgmma tiles, 16 / 17 for B.7's row blocks, 64 / 65 for
@@ -926,6 +930,7 @@ def test_cuda_bnn_conv1d_matches_plain(l, cin, cout, k, stride, pad, pool,
 # wgmma tiles, 2048 / 2049 at N = 512 for B.7's GEMV / 64 x 64 tiles) with
 # ragged N and K
 LIB_GEMM = [(1, 1024, 512), (256, 1024, 512), (8, 352, 512), (1, 512, 12),
+            (8, 352, 128), (1, 256, 12),
             (7, 100, 12), (33, 513, 65), (70, 2100, 130),
             (2, 32, 65), (12, 1024, 512), (13, 100, 130), (16, 513, 130),
             (17, 1024, 12), (64, 100, 4096), (65, 2100, 512),
@@ -1016,3 +1021,67 @@ def test_cuda_every_gemm_tile_matches_plain(m, k, n):
         got = tm._mxu_cuda(x8, wt8, thr, flip, tile=tile)
         torch.cuda.synchronize()
         assert torch.equal(got, want), tile
+
+
+# ---------------------------------------------------------------------------
+# The chip twin (core.compiler / core.executor) on the card
+# ---------------------------------------------------------------------------
+
+def _chip_twin_spec(name):
+    """The smoke spec, or a seeded random geometry: a bit-serial first
+    conv (4 or 8 bits, random k / stride / pad), 1-3 binary convs of up to
+    160 channels (two column chunks) with random k / pad / pool, GAP, a
+    bit-serial fc of up to 200 channels and a raw fc."""
+    if name == "smoke":
+        return kws.build_kws_smoke_spec()
+    rng = np.random.default_rng(int(name[4:]))
+    k0, bits0 = int(rng.integers(3, 13)), int(rng.choice([4, 8]))
+    layers = [Conv1DSpec(1, int(rng.choice([8, 32, 64])), k=k0,
+                         stride=int(rng.choice([2, 4, 8])),
+                         pad=int(rng.integers(0, k0)), in_bits=bits0,
+                         in_offset=1 << (bits0 - 1), name="l0")]
+    for j in range(int(rng.integers(1, 4))):
+        k = int(rng.choice([3, 5]))
+        layers.append(Conv1DSpec(layers[-1].cout,
+                                 int(rng.choice([8, 48, 96, 160])), k=k,
+                                 pad=int(rng.integers(0, k // 2 + 1)),
+                                 pool=int(rng.choice([1, 2, 4])),
+                                 name=f"b{j + 1}"))
+    cin, hidden = layers[-1].cout, int(rng.choice([16, 200]))
+    layers += [GAPSpec(cin, name="gap"),
+               FCSpec(cin, hidden, in_bits=8, name="fc1"),
+               FCSpec(hidden, 12, out_raw=True, name="fc2")]
+    return CNN1DSpec(in_len=1500, in_channels=1, in_bits=bits0,
+                     layers=tuple(layers), name=name)
+
+
+@pytest.mark.parametrize("fuse_pool", [True, False])
+@pytest.mark.parametrize("name", ["smoke", "rand1", "rand2"])
+def test_cuda_executor_matches_cpu(name, fuse_pool):
+    """The executor on the card (one B.3 / B.6 raw / B.7 raw launch per
+    MAC chunk) gives the CPU run's whole report."""
+    from repro_torch.core import compiler, executor
+
+    dev = _cuda()
+    spec = _chip_twin_spec(name)
+    weights, thresholds = _model(spec, 3)
+    x = np.random.default_rng(4).integers(
+        0, 1 << spec.in_bits, (spec.in_len, 1)).astype(np.uint8)
+    reps = []
+    for d in ("cpu", dev):
+        prog = compiler.compile_model(spec, weights, thresholds, device=d)
+        assert prog.cim.pos.device.type == torch.device(d).type
+        with dispatch.counting() as launched:
+            reps.append(executor.Executor(prog, fuse_pool=fuse_pool).run(x))
+        n_mac = sum(k == "mac" for k, _ in prog.instr_meta)
+        assert sum(launched().values()) == n_mac
+    torch.cuda.synchronize()
+    cpu, card = reps
+    assert card.output.device.type == "cuda"
+    assert torch.equal(card.output.cpu(), cpu.output)
+    assert sorted(card.fmaps) == sorted(cpu.fmaps)
+    for li, fm in cpu.fmaps.items():
+        assert torch.equal(card.fmaps[li].cpu(), fm), li
+    assert card.layer_cycles == cpu.layer_cycles
+    assert np.array_equal(card.bank_active_cycles, cpu.bank_active_cycles)
+    assert dataclasses.asdict(card.ledger) == dataclasses.asdict(cpu.ledger)
