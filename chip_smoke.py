@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build, check and drive the KWS stream
-hop, the kernel library and the chip twin on one CUDA card.
+hop, the kernel library, the chip twin and KWS training on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -154,24 +154,49 @@ Phases (each prints one line, any failure exits non-zero):
               the fixed ping-pong fit, and the TWM and BWM flip rates at
               ``TWM_SIGMAS`` (B.7 on the card).  Each counted run's
               counts are set to 0 just before it and read just after.
+11. train   — KWS training on the card: the full Fig. 7 model
+              (``init_kws_params`` from a generator seeded ``--seed``),
+              ``TRAIN_STEPS`` AdamW steps (lr 2e-3, clip 1.0, as in
+              ``examples/kws_train.py``) through ``train.loop.Trainer``
+              at batch ``TRAIN_BATCH`` on ``gscd.batch(seed=0, step=i)``
+              batches made and staged on the card before the timed loop.
+              Printed with the card: the step's ms (median, min, max;
+              synchronised, data excluded), ``gscd.batch``'s ms a batch,
+              the first and last loss and the eval accuracy on
+              ``TRAIN_EVAL`` clips.  Held: the loss falls; the card's QAT
+              logits equal the CPU's on ``TRAIN_CPU_CLIPS`` clips, every
+              pre-activation an integer; after ``export_kws``,
+              ``offline_logits`` on a ``prepare_offline`` model equals
+              the QAT logits on ``TRAIN_OFFLINE_CLIPS`` clips and the
+              program compiled with ``ROTATE_HINTS`` and
+              ``ROWSPLIT_HINTS`` through the executor on
+              ``TRAIN_TWIN_CLIPS`` (the deploy's counts set to 0 just
+              before it and read just after; each of its B.3, B.6 and
+              B.7 launches then bit-equal to its plain version); a
+              checkpoint of the trained state restores on the card bit
+              for bit.
 
 The model is made here from ``--seed`` with numpy: random ternary weights
 and integer thresholds near the middle of each layer's accumulator range
-with random flips.  The script imports nothing of JAX or of the reference
-package.  Before its last line it prints one JSON object with each
-kernel's launches on the main paths (the stream backends', the
+with random flips (phase ``train`` trains its own, from a generator
+seeded ``--seed``).  The script imports nothing of JAX or of the
+reference package.  Before its last line it prints one JSON object with
+each kernel's launches on the main paths (the stream backends', the
 library's, the async, tenant and sharded drives', the chip twin's
-counted runs), error, time, plain time, bound and library-call time (each
-summed over a kernel's launch shapes on its paths: B.3's l0 of a hop
-(hop and flush window), of an utterance and of the chip twin, the conv
-step's six of an emit hop (three hop and three flush windows), B.6's
-three of an utterance and six of the chip twin, B.7's and B.8's of the
-library path and B.7's six of the chip twin; a library time only
-where every one of them has one), and the
-card's name and power limit as ``nvidia-smi`` reports them; the last line
-is ``{"ok": true, "device": {...}}``.  The same record, with every timed
-launch shape, the ``pick_path`` finding, the B.4 tile, B.5 slot-block and
-B.6 shape sweeps, the MMA rates and the chip twin's record, is written
+counted runs, the trained model's deploy), error, time, plain time,
+bound and library-call time (each summed over a kernel's launch shapes
+on its paths: B.3's l0 of a hop (hop and flush window), of an utterance
+and of the chip twin, the conv step's six of an emit hop (three hop and
+three flush windows), B.6's three of an utterance and six of the chip
+twin, B.7's and B.8's of the library path and B.7's six of the chip
+twin; a library time only where every one of them has one; the trained
+model's deploy runs at the utterance's and the chip twin's shapes, so
+its launches are counted, not timed again), and the card's name and
+power limit as ``nvidia-smi`` reports them; the last line is ``{"ok":
+true, "device": {...}}``.  The same record, with every timed launch
+shape, the ``pick_path`` finding, the B.4 tile, B.5 slot-block and B.6
+shape sweeps, the MMA rates, the chip twin's record and the training
+record, is written
 to ``chip_smoke.json`` in the output directory beside the script.
 """
 from __future__ import annotations
@@ -2432,6 +2457,207 @@ def chip_twin_phase(weights, thresholds, seed, dev, torch, dispatch, bk, tm,
     return rec, dict(launches), recs, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: KWS training on the card, then the deploy through the kernels
+# ---------------------------------------------------------------------------
+
+#: AdamW steps, batch, and the eval batch (``examples/kws_train.py``'s)
+TRAIN_STEPS = 20
+#: the last steps, run under ``torch.profiler`` for the device's time
+TRAIN_PROFILED = 3
+TRAIN_BATCH = 32
+TRAIN_EVAL = 96
+#: eval clips held card vs CPU (QAT), through ``offline_logits``, and
+#: through the chip twin's executor
+TRAIN_CPU_CLIPS = 8
+TRAIN_OFFLINE_CLIPS = 16
+TRAIN_TWIN_CLIPS = 4
+
+
+def check_spied(calls, torch, fns, label):
+    """Each recorded launch again, kernel against its plain version on the
+    same operands (B.6's laid-out weights ``wf`` go to the kernel only);
+    returns the max |kernel - plain| per kernel name."""
+    err = collections.Counter()
+    for i, (name, args, kw) in enumerate(calls):
+        kernel, plain = fns[name]
+        got = kernel(*args, **kw)
+        want = plain(*args, **{k: v for k, v in kw.items() if k != "wf"})
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or got.shape != want.shape:
+            raise RuntimeError(f"{label} launch {i} ({name}): output "
+                               f"{got.dtype} {tuple(got.shape)} vs "
+                               f"{tuple(want.shape)}")
+        d = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        err[name] = max(err[name], d)
+        if d:
+            raise RuntimeError(f"{label} launch {i} ({name}): kernel "
+                               f"disagrees with plain by {d}")
+    return dict(err)
+
+
+def train_phase(seed, dev, torch, dispatch, bk, tm, lib_fns, card):
+    """Phase 11: ``TRAIN_STEPS`` AdamW steps of the full Fig. 7 model on
+    the card through ``train.loop.Trainer``, then its deploy: the exported
+    model through ``offline_logits`` and the chip twin, bit for bit with
+    the QAT forward.  Returns (record, the deploy's counted launches, the
+    deploy kernels' max |kernel - plain|)."""
+    import tempfile
+
+    from repro_torch.core import compiler, executor
+    from repro_torch.data import gscd
+    from repro_torch.models import kws
+    from repro_torch.train import checkpoint, loop, optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    spec = kws.build_kws_spec()
+    t0 = time.perf_counter()
+    batches = [gscd.batch(seed=0, step=i, batch_size=TRAIN_BATCH,
+                          n=spec.in_len) for i in range(TRAIN_STEPS)]
+    data_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    staged = [(torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+              for x, y in batches]
+    xe, ye = gscd.batch(seed=7, step=10_000, batch_size=TRAIN_EVAL,
+                        n=spec.in_len)
+    xe_d, ye_d = torch.as_tensor(xe, device=dev), torch.as_tensor(ye,
+                                                                   device=dev)
+    params = kws.init_kws_params(
+        spec, generator=torch.Generator().manual_seed(seed), device=dev)
+    # the reference's AdamW (lr 2e-3, clip 1.0); no warm-up, a cosine to
+    # 0.1 x over the run
+    tcfg = loop.TrainConfig(opt=optimizer.OptConfig(lr=2e-3, clip_norm=1.0),
+                            warmup_steps=0, total_steps=TRAIN_STEPS)
+    trainer = loop.Trainer(spec, tcfg,
+                           lambda p, b: kws.kws_loss(p, *b, spec), params,
+                           iter(staged))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.run(TRAIN_STEPS - TRAIN_PROFILED)
+    train_s = time.perf_counter() - t0
+    # the last steps under the profiler: the device's time a step, by
+    # kernel (the profiler slows the host, so their wall times stay out
+    # of the step time)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        hist += trainer.run(TRAIN_PROFILED)
+    cuda = torch.autograd.DeviceType.CUDA
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3
+                         / TRAIN_PROFILED, e.count / TRAIN_PROFILED)
+                        for e in prof.key_averages()
+                        if e.device_type == cuda),
+                       key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms, _ in by_kernel)
+    params = trainer.state["params"]
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["step_time_s"] * 1e3 for h in hist[:-TRAIN_PROFILED]]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train: the loss did not fall: {losses}")
+    with torch.no_grad():
+        acc = float(kws.kws_accuracy(params, xe_d, ye_d, spec))
+    phase("train", f"full Fig. 7 spec (width {spec.layers[0].cout}, in_len "
+          f"{spec.in_len}), "
+          f"batch {TRAIN_BATCH}, {TRAIN_STEPS} AdamW steps (lr 2e-3, clip "
+          f"1.0) through Trainer in {train_s:.2f} s: step ms (synchronised, "
+          f"data excluded) median {float(np.median(step_ms)):.3f}, min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f} (first "
+          f"{step_ms[0]:.3f}; {len(step_ms)} steps unprofiled); device "
+          f"time a step under the profiler {device_ms:.3f} ms "
+          f"({len(by_kernel)} kernels and copies, "
+          f"{sum(n for _, _, n in by_kernel):.0f} a step; "
+          + (f"idle {1 - device_ms / float(np.median(step_ms)):.2f} of the "
+             "median step" if device_ms else "not measured: no device "
+             "time in the trace") + "; top: " + ", ".join(
+              f"{k[:40]} {ms:.3f}" for k, ms, _ in by_kernel[:5])
+          + f"); gscd.batch {data_ms:.1f} ms a batch on the "
+          f"host; loss {losses[0]:.4f} -> {losses[-1]:.4f}; eval accuracy "
+          f"{acc:.3f} on {TRAIN_EVAL} clips (synthetic GSCD, "
+          f"{TRAIN_STEPS} steps); {card}")
+
+    # the card's QAT forward against the CPU's, same params; every
+    # pre-activation an integer
+    pre_card, pre_cpu = [], []
+    with torch.no_grad():
+        qat = kws.kws_forward(params, xe_d[:TRAIN_OFFLINE_CLIPS], spec,
+                              preacts=pre_card)
+        cpu = kws.kws_forward(tree_map(lambda t: t.cpu(), params),
+                              torch.as_tensor(xe[:TRAIN_CPU_CLIPS]), spec,
+                              preacts=pre_cpu)
+    if not torch.equal(qat[:TRAIN_CPU_CLIPS].cpu(), cpu):
+        raise RuntimeError("train: the card's QAT logits differ from the "
+                           "CPU's")
+    for li, (a, b) in enumerate(zip(pre_card, pre_cpu)):
+        if not (torch.equal(a, a.round()) and torch.equal(b, b.round())
+                and torch.equal(a[:TRAIN_CPU_CLIPS].cpu(), b)):
+            raise RuntimeError(f"train: pre-activation {li} not exact")
+
+    # the deploy: export, the kernel library and the chip twin, counted
+    weights, thresholds = kws.export_kws(params, spec)
+    model = kws.prepare_offline(spec, weights, thresholds, device=dev)
+    prog = compiler.compile_model(spec, weights, thresholds, device=dev,
+                                  rotate_hints=kws.ROTATE_HINTS,
+                                  rowsplit_hints=kws.ROWSPLIT_HINTS)
+    want = qat.to(torch.int64)
+    torch.cuda.synchronize()
+    dispatch.reset()   # the deploy's counts start here
+    with LaunchSpy(bk, tm) as spy:
+        offline = [kws.offline_logits(model, xe_d[i])
+                   for i in range(TRAIN_OFFLINE_CLIPS)]
+        twin = [executor.Executor(prog).run(xe[i][:, None]).output.ravel()
+                for i in range(TRAIN_TWIN_CLIPS)]
+    torch.cuda.synchronize()
+    launches = dispatch.counts()
+    n_off = sum(not torch.equal(o.to(torch.int64), w)
+                for o, w in zip(offline, want))
+    n_twin = sum(not torch.equal(o.to(torch.int64), w)
+                 for o, w in zip(twin, want))
+    if n_off or n_twin:
+        raise RuntimeError(f"train: the deployed model differs from the "
+                           f"QAT forward on {n_off} of {TRAIN_OFFLINE_CLIPS}"
+                           f" offline clips and {n_twin} of "
+                           f"{TRAIN_TWIN_CLIPS} chip-twin clips")
+    per_clip = {bk.BITSERIAL_KERNEL: 1, bk.CONV_KERNEL: 3,
+                tm.POPCOUNT_KERNEL: 2}
+    want_launches = collections.Counter()
+    for name, n in per_clip.items():
+        want_launches[name] += n * TRAIN_OFFLINE_CLIPS
+    for name, n in mac_launches(prog, bk, tm).items():
+        want_launches[name] += n * TRAIN_TWIN_CLIPS
+    if launches != dict(want_launches) or len(spy.calls) != sum(
+            launches.values()):
+        raise RuntimeError(f"train: deploy launches {launches} != "
+                           f"{dict(want_launches)}")
+    err = check_spied(spy.calls, torch, lib_fns, "train deploy")
+
+    # a checkpoint of the trained state, saved and restored on the card
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, trainer.step_idx, trainer.state)
+        step, back, _ = checkpoint.restore(d, trainer.state)
+    leaves, got = tree_leaves(trainer.state), tree_leaves(back)
+    if step != TRAIN_STEPS or len(got) != len(leaves) or not all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+            for a, b in zip(leaves, got)):
+        raise RuntimeError("train: the checkpoint did not round-trip")
+    phase("train", f"card QAT logits == CPU QAT logits on "
+          f"{TRAIN_CPU_CLIPS} clips, every pre-activation an integer; "
+          f"export_kws -> offline_logits == QAT on {TRAIN_OFFLINE_CLIPS} "
+          f"clips; compile_model (ROTATE_HINTS, ROWSPLIT_HINTS) + Executor "
+          f"== QAT on {TRAIN_TWIN_CLIPS} clips; deploy launches {launches},"
+          f" each bit-equal to its plain version; checkpoint of "
+          f"{len(leaves)} leaves restored on the card bit for bit; phase "
+          f"took {time.perf_counter() - t_phase:.1f} s; {card}")
+    rec = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, step_ms=step_ms,
+               step_ms_median=float(np.median(step_ms)),
+               data_ms_per_batch=data_ms, losses=losses,
+               profiled_steps=TRAIN_PROFILED, device_ms_per_step=device_ms,
+               device_by_kernel=by_kernel[:20],
+               eval_accuracy=acc, eval_clips=TRAIN_EVAL,
+               deploy_launches=launches,
+               phase_s=time.perf_counter() - t_phase, card=card)
+    return rec, launches, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2957,9 +3183,14 @@ def main() -> int:
         weights, thresholds, args.seed, dev, torch, dispatch, bk, tm,
         lib_fns, card)
     merge(twin_err)
+    # 11. KWS training on the card, and the trained model's deploy
+    train_rec, train_launches, train_err = train_phase(
+        args.seed, dev, torch, dispatch, bk, tm, lib_fns, card)
+    merge(train_err)
     path_kernel = aggregate(per_launch + lib_main + twin_recs)
     new_paths = (async_launches + tenant_launches + shard_launches
-                 + collections.Counter(twin_launches))
+                 + collections.Counter(twin_launches)
+                 + collections.Counter(train_launches))
 
     ms, pms, bms, by = timing[("hop", True)]
     fms, fpms, fbms, fby = timing["fin"]
@@ -3029,7 +3260,7 @@ def main() -> int:
                                        "bound_by"),
                                       timing[("hop", False)])),
                   async_path=async_rec, tenants=tenant_rec,
-                  sharded=shard_rec, chip_twin=twin_rec)
+                  sharded=shard_rec, chip_twin=twin_rec, train=train_rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

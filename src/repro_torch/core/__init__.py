@@ -1,8 +1,7 @@
 """PSCNN core: the paper's contribution as composable subsystems, the
 chip twin of the reference's ``repro/core`` in PyTorch.
 
-quant     — bit-packing and ternary planes (the straight-through
-            quantizers wait for the training slice)
+quant     — straight-through quantizers, bit-packing, ternary planes
 twm       — ternary weight mapping + sense-amplifier model (Fig. 3)
 macro     — 1Mb CIM macro simulator (1024x1024, 128 SAs)
 isa       — 32-bit MAC/WREP/PTR/HALT instruction set (Fig. 2)

@@ -1,11 +1,12 @@
-"""Bit packing and ternary planes for the popcount kernels (PyTorch).
+"""Quantization primitives for the PSCNN binary/ternary regime (PyTorch).
 
-The port's copy of the parts of the reference's ``repro/core/quant.py``
-that the kernels and their oracles need: ``PACK``, ``pack_bits`` (with
+The port's copy of the reference's ``repro/core/quant.py``: the
+straight-through quantizers that quantization-aware training uses
+(``binarize_act``, ``ternarize_weight``, each a
+``torch.autograd.Function``), ``PACK``, ``pack_bits`` (with
 ``unpack_bits`` and the numpy ``np_pack_bits``), ``ternary_planes`` and
 ``planes_to_ternary``, ``pad_to_multiple``, and the folded batch-norm
-threshold (``fold_bn_to_threshold``, ``apply_threshold``).  The
-straight-through quantizers wait for the training slice.
+threshold (``fold_bn_to_threshold``, ``apply_threshold``).
 
 Packed words are carried as ``int32`` bit patterns, not ``uint32``: CUDA
 PyTorch has few ``uint32`` ops, and the kernels cast each word to
@@ -19,6 +20,51 @@ import numpy as np
 import torch
 
 PACK = 32  # bits per packed word
+
+
+# ---------------------------------------------------------------------------
+# Straight-through estimators
+# ---------------------------------------------------------------------------
+
+class _BinarizeAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return (x >= 0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (x.abs() <= 1.0).to(g.dtype)
+
+
+class _TernarizeWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, threshold_scale):
+        delta = threshold_scale * w.abs().mean()
+        return (torch.sign(w) * (w.abs() > delta)).to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def binarize_act(x: torch.Tensor) -> torch.Tensor:
+    """Binary activation {1, 0}: the sense-amplifier decision of eq. (1).
+
+    Forward: 1 where x >= 0, else 0, in x's dtype.  Backward: clipped
+    straight-through, the gradient passing where |x| <= 1 (the standard
+    BNN hard-tanh window)."""
+    return _BinarizeAct.apply(x)
+
+
+def ternarize_weight(w: torch.Tensor, threshold_scale: float = 0.05
+                     ) -> torch.Tensor:
+    """Ternary weight {-1, 0, +1} with a per-tensor magnitude threshold
+    ``delta = threshold_scale * mean(|w|)`` (TWN-style, in w's dtype).
+    Backward: the identity (the weights live in a float32 shadow);
+    ``threshold_scale`` gets no gradient."""
+    return _TernarizeWeight.apply(w, threshold_scale)
 
 
 def ternary_planes(w_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

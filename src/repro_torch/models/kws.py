@@ -1,13 +1,17 @@
-"""The paper's binary keyword-spotting model (Fig. 7): its spec builders
-and its offline forward through the kernel library.
+"""The paper's binary keyword-spotting model (Fig. 7): its specs, its
+quantization-aware training graph and export, and its offline forward
+through the kernel library.
 
 The topology -- ``build_kws_spec`` (the Fig. 7 reconstruction at full
-width, 64) and the reduced ``build_kws_smoke_spec`` with their constants
--- and ``offline_logits``, the whole-utterance forward through the kernel
-library, with ``prepare_offline``, which lays a model out once for it.
-The QAT graph and ``export_kws`` stay in the reference package until the
-training slice is ported; the port takes the exported numpy
-``weights``/``thresholds`` dicts as they are.
+width, 64) and the reduced ``build_kws_smoke_spec`` with their constants;
+the QAT graph -- ``init_kws_params``, the batched ``kws_forward``,
+``kws_loss``, ``kws_accuracy`` and the ``KWSQAT`` module -- and
+``export_kws``, which folds it into ternary weights and integer SA
+thresholds; ``params_from_numpy`` / ``params_to_numpy``, which carry a
+parameter tree across as numpy (the port cannot draw ``jax.random``, so
+the reference's params come in that way); and ``offline_logits``, the
+whole-utterance forward of an exported model through the kernel library,
+with ``prepare_offline``, which lays a model out once for it.
 
   input   16,000 samples (1 s @ 16 kHz), 8-bit offset-binary
   l0   conv( 1->64,  K19, S8, pad9) bitser-8      out 2000
@@ -17,16 +21,28 @@ training slice is ported; the port takes the exported numpy
   gap  250x352 -> 8-bit counts
   fc1  352->512, bitser-8, SA binary
   fc2  512->12, raw logits
+
+QAT recipe (Hubara et al. [6] + TWN-style ternary weights): float32
+shadow weights, ternarized forward with an identity STE; binary
+activations {1, 0} with a clipped STE; a per-channel affine (a, b) before
+binarization, the foldable stand-in for BN, exported as SA thresholds;
+the last layer's raw popcount counts as logits, scaled by a learnable
+temperature for the CE loss only (argmax-invariant).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.core.cnn_spec import CNN1DSpec, Conv1DSpec, FCSpec, GAPSpec
 from repro_torch.kernels import ops
+from repro_torch.utils.tree import tree_map
 
 N_CLASSES = 12
 IN_LEN = 16000
@@ -64,6 +80,218 @@ def build_kws_spec(
 def build_kws_smoke_spec() -> CNN1DSpec:
     """Reduced config for CPU smoke tests (same family, tiny)."""
     return build_kws_spec(in_len=800, width=16)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_kws_params(spec: CNN1DSpec, *,
+                    generator: torch.Generator | None = None,
+                    device=None) -> dict:
+    """QAT parameters under the reference's keys: per conv / fc layer
+    ``layer{i}`` a float32 ``w`` ((K, Cin, Cout) or (Cin, Cout)), drawn
+    normal with scale ``1 / sqrt(fan_in)``, and for each SA layer the
+    affine ``a`` = ``1 / (sqrt(fan_in) * input_scale)`` and ``b`` = 0;
+    and the CE temperature ``temp`` = 0.3.  The draws come from
+    ``generator`` (default: a CPU generator seeded 0), on its own device,
+    so one seed gives one model wherever it is put; the tensors go to
+    ``device`` (default: the card, by ``ops.resolve_device``)."""
+    device = ops.resolve_device(None, device)
+    gen = generator if generator is not None else (
+        torch.Generator().manual_seed(0))
+    params: dict = {}
+    for li, lay in enumerate(spec.layers):
+        if isinstance(lay, Conv1DSpec):
+            fan_in, shape = lay.k * lay.cin, (lay.k, lay.cin, lay.cout)
+        elif isinstance(lay, FCSpec):
+            fan_in, shape = lay.cin, (lay.cin, lay.cout)
+        else:
+            continue
+        w = torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * (1.0 / math.sqrt(fan_in))
+        entry = {"w": w.to(device)}
+        if not lay.out_raw:
+            # affine before the sign (the folded-BN stand-in), a > 0, scaled
+            # so a * s lands inside the STE window |x| <= 1: the
+            # pre-activation's std is ~sqrt(fan_in) * input_scale (~73 for
+            # 8-bit offset-binary audio, ~L/8 for GAP counts, ~0.6 for
+            # binary activations)
+            if lay.in_bits > 1:
+                input_scale = 74.0 if isinstance(lay, Conv1DSpec) else 32.0
+            else:
+                input_scale = 0.6
+            entry["a"] = torch.full(
+                (lay.cout,), 1.0 / (math.sqrt(fan_in) * input_scale),
+                dtype=torch.float32, device=device)
+            entry["b"] = torch.zeros(lay.cout, dtype=torch.float32,
+                                     device=device)
+        params[f"layer{li}"] = entry
+    # CE logit scale (learnable; argmax-invariant): 0.3 puts raw-count
+    # logits in a useful softmax range from step 0
+    params["temp"] = torch.tensor(0.3, dtype=torch.float32, device=device)
+    return params
+
+
+def params_from_numpy(tree, device=None):
+    """A parameter tree of numpy arrays (the reference's params, through
+    ``np.asarray``) as tensors of the same dtypes on ``device`` (default:
+    the card, by ``ops.resolve_device``)."""
+    device = ops.resolve_device(None, device)
+    return tree_map(lambda a: torch.as_tensor(np.array(a)).to(device),
+                    tree)
+
+
+def params_to_numpy(params):
+    """A parameter tree of tensors as numpy arrays on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+# ---------------------------------------------------------------------------
+# QAT forward (batched)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _exact_float32():
+    """Float32 matmuls at full precision (no TF32) inside the block, the
+    setting restored after.  The QAT pre-activations are integer sums
+    below 2^24 (|s| <= 2413 at l0, 1280 at b2, 88,000 at fc1 at full
+    width), exact in float32 in any order, and the export's integer
+    thresholds rely on that exactness; TF32 would round them."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _conv1d(h: torch.Tensor, w: torch.Tensor, stride: int, pad: int
+            ) -> torch.Tensor:
+    """(B, L, Cin) x (K, Cin, Cout) -> (B, L_out, Cout) as an unfold and
+    one float32 matmul: exact integer math, no algorithm choice."""
+    k, cin, cout = w.shape
+    win = F.pad(h, (0, 0, pad, pad)).unfold(1, k, stride)  # (B, Lo, Cin, K)
+    cols = win.transpose(2, 3).reshape(h.shape[0], win.shape[1], k * cin)
+    return cols @ w.reshape(k * cin, cout)
+
+
+def _maxpool(h: torch.Tensor, p: int) -> torch.Tensor:
+    """Max over windows of ``p`` positions of (B, L, C).  ``amax`` splits
+    the gradient evenly among tied maxima, as the reference's ``jnp.max``
+    does (``max_pool1d`` would send it to one of them); with {0, 1}
+    activations most windows tie."""
+    b, length, c = h.shape
+    n = (length // p) * p
+    return h[:, :n].reshape(b, n // p, p, c).amax(2)
+
+
+def kws_forward(params: dict, x_u8: torch.Tensor, spec: CNN1DSpec,
+                preacts: list | None = None) -> torch.Tensor:
+    """x_u8: (B, L) uint8 offset-binary audio -> (B, n_classes) float32
+    raw-count logits: the reference's per-example forward over a batch.
+    ``preacts``, when a list, receives each conv / fc layer's
+    pre-activation ``s`` (integer-valued float32)."""
+    h = (x_u8.to(torch.float32) - IN_OFFSET)[:, :, None]  # (B, L, 1)
+    with _exact_float32():
+        for li, lay in enumerate(spec.layers):
+            p = params.get(f"layer{li}")
+            if isinstance(lay, Conv1DSpec):
+                s = _conv1d(h, quant.ternarize_weight(p["w"]), lay.stride,
+                            lay.pad)
+                h = quant.binarize_act(p["a"] * s + p["b"])
+                if lay.pool > 1:
+                    h = _maxpool(h, lay.pool)
+            elif isinstance(lay, GAPSpec):
+                # counts per example (the PWB counters).  The QAT GAP does
+                # not saturate where the deployed one clamps at 255; the
+                # counts stay <= 250 at full width (<= 12 on the smoke
+                # spec), so both give the same answer
+                h = h.sum(1)
+                continue
+            elif isinstance(lay, FCSpec):
+                s = h.reshape(h.shape[0], -1) @ quant.ternarize_weight(
+                    p["w"])
+                h = s if lay.out_raw else quant.binarize_act(
+                    p["a"] * s + p["b"])
+            if preacts is not None:
+                preacts.append(s)
+    return h
+
+
+def kws_loss(params: dict, batch_x: torch.Tensor, batch_y: torch.Tensor,
+             spec: CNN1DSpec) -> torch.Tensor:
+    """Mean cross-entropy of the temperature-scaled logits."""
+    logits = kws_forward(params, batch_x, spec) * params["temp"]
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(1, batch_y.long()[:, None]).mean()
+
+
+def kws_accuracy(params: dict, batch_x: torch.Tensor, batch_y: torch.Tensor,
+                 spec: CNN1DSpec) -> torch.Tensor:
+    """Share of the batch whose logits' argmax is the label (float32)."""
+    logits = kws_forward(params, batch_x, spec)
+    return (logits.argmax(-1) == batch_y.long()).to(torch.float32).mean()
+
+
+class KWSQAT(torch.nn.Module):
+    """The QAT model as a module: ``layers[f"layer{i}"]`` holds the
+    layer's ``w`` / ``a`` / ``b`` and ``temp`` the CE temperature, the
+    reference's keys; :meth:`forward` is :func:`kws_forward`."""
+
+    def __init__(self, spec: CNN1DSpec, params: dict) -> None:
+        super().__init__()
+        self.spec = spec
+        self.layers = torch.nn.ModuleDict({
+            key: torch.nn.ParameterDict(
+                {k: torch.nn.Parameter(v) for k, v in entry.items()})
+            for key, entry in params.items() if key != "temp"})
+        self.temp = torch.nn.Parameter(params["temp"])
+
+    def param_tree(self) -> dict:
+        """The parameters as the functional API's tree."""
+        tree = {key: dict(entry.items()) for key, entry in self.layers.items()}
+        tree["temp"] = self.temp
+        return tree
+
+    def forward(self, x_u8: torch.Tensor) -> torch.Tensor:
+        return kws_forward(self.param_tree(), x_u8, self.spec)
+
+
+# ---------------------------------------------------------------------------
+# Export: QAT params -> (ternary weights, SA thresholds) for the deploy
+# ---------------------------------------------------------------------------
+
+def export_kws(params: dict, spec: CNN1DSpec) -> tuple[dict, dict]:
+    """Fold the affines into *integer* SA thresholds: numpy int8 ternary
+    weights (the QAT shapes) and per SA layer (float64 thresholds, bool
+    flips).
+
+    Pre-activations s are integers, so ``a*s+b >= 0`` is exactly ``s >=
+    ceil(-b/a)`` (a > 0), ``s <= floor(-b/a)`` (a < 0: the threshold
+    ``floor(-b/a) + 1`` with the flip), and a constant where a == 0
+    (``-inf`` when b >= 0, else ``+inf``).  The raw layer gets zero
+    thresholds and no flips."""
+    weights: dict[int, np.ndarray] = {}
+    thresholds: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+    for li, lay in enumerate(spec.layers):
+        p = params.get(f"layer{li}")
+        if p is None:
+            continue
+        with torch.no_grad():
+            w_t = quant.ternarize_weight(p["w"])
+        weights[li] = w_t.cpu().numpy().astype(np.int8)
+        if "a" in p:
+            a = p["a"].detach().cpu().numpy().astype(np.float64)
+            b = p["b"].detach().cpu().numpy().astype(np.float64)
+            t = -b / np.where(a == 0, 1.0, a)
+            thr = np.where(a > 0, np.ceil(t), np.floor(t) + 1)
+            thr = np.where(a == 0, np.where(b >= 0, -np.inf, np.inf), thr)
+            thresholds[li] = (thr.astype(np.float64), a < 0)
+        else:
+            thresholds[li] = (np.zeros(lay.cout, np.float64),
+                              np.zeros(lay.cout, bool))
+    return weights, thresholds
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,8 @@ slot block and cluster size) and the kernel library's (B.6 fused conv -> SA ->
 pool, B.7 popcount GEMM raw and ``sa``, B.8 int8 tensor-core GEMM)
 against their plain PyTorch versions on the card, bit for bit, and the
 megakernel and per-stage schedulers against the dense backend on the
-card, the async scheduler against the synchronous one (its dispatch
+card, the KWS training step (the QAT forward, a train step, the trained
+model's deploy) on the card against the CPU, the async scheduler against the synchronous one (its dispatch
 stage under sync debug mode ``"error"``), donated state buffers, a
 tenant pool's row reused after an eviction, the slot pool over S
 shards of the card against one shard, and the chip twin's executor on the
@@ -1085,3 +1086,112 @@ def test_cuda_executor_matches_cpu(name, fuse_pool):
     assert card.layer_cycles == cpu.layer_cycles
     assert np.array_equal(card.bank_active_cycles, cpu.bank_active_cycles)
     assert dataclasses.asdict(card.ledger) == dataclasses.asdict(cpu.ledger)
+
+
+# ---------------------------------------------------------------------------
+# KWS training on the card (models.kws QAT graph, train.loop)
+# ---------------------------------------------------------------------------
+
+def _kws_train_step(spec, device):
+    from repro_torch.train import loop, optimizer
+
+    tcfg = loop.TrainConfig(opt=optimizer.OptConfig(lr=2e-3, clip_norm=1.0),
+                            warmup_steps=0, total_steps=10)
+    step = loop.make_train_step(
+        None, tcfg, lambda p, b: kws.kws_loss(p, *b, spec))
+    params = kws.init_kws_params(
+        spec, generator=torch.Generator().manual_seed(2), device=device)
+    return step, loop.init_train_state(tcfg, params)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["smoke", "full"])
+def test_cuda_qat_forward_matches_cpu(full):
+    """The card's QAT forward equals the CPU's bit for bit on the same
+    params (init from one CPU generator), every pre-activation an
+    integer: no TF32, no inexact algorithm."""
+    from repro_torch.data import gscd
+    from repro_torch.utils.tree import tree_map
+
+    dev = _cuda()
+    spec = kws.build_kws_spec() if full else kws.build_kws_smoke_spec()
+    params = kws.init_kws_params(
+        spec, generator=torch.Generator().manual_seed(1), device=dev)
+    x, _ = gscd.batch(seed=3, step=0, batch_size=4, n=spec.in_len)
+    pre_card, pre_cpu = [], []
+    with torch.no_grad():
+        got = kws.kws_forward(params, torch.as_tensor(x, device=dev), spec,
+                              preacts=pre_card)
+        want = kws.kws_forward(tree_map(lambda t: t.cpu(), params),
+                               torch.as_tensor(x), spec, preacts=pre_cpu)
+    assert got.device.type == "cuda" and got.shape == (4, 12)
+    assert torch.equal(got.cpu(), want)
+    assert len(pre_card) == len(pre_cpu) == 6
+    for a, b in zip(pre_card, pre_cpu):
+        assert torch.equal(a, a.round()) and torch.equal(a.cpu(), b)
+
+
+def test_cuda_train_step_matches_cpu():
+    """One AdamW step on the card and on the CPU from the same params and
+    batch: the loss within 1e-5 relative; every gradient leaf within rtol
+    1e-4 and atol 1e-6 x its max |g| (float32 sums in another order);
+    the masters within atol 1e-5 (lr / 200): where a clipped gradient is
+    near Adam's eps (1e-8) the update is ~lr * g / eps, linear in g, and
+    carries the gradients' last-bit differences; and the same ternary
+    weights after export."""
+    from repro_torch.data import gscd
+    from repro_torch.train import loop
+    from repro_torch.utils.tree import tree_leaves
+
+    dev = _cuda()
+    spec = kws.build_kws_smoke_spec()
+    x, y = gscd.batch(seed=0, step=0, batch_size=4, n=spec.in_len)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        step, state = _kws_train_step(spec, d)
+        batch = (torch.as_tensor(x, device=d), torch.as_tensor(y, device=d))
+        _, grads = loop.value_and_grad(
+            lambda p, b: kws.kws_loss(p, *b, spec), state["params"], batch)
+        state, m = step(state, batch)
+        out.append((state, float(m["loss"]), grads))
+    (card, loss_card, g_card), (cpu, loss_cpu, g_cpu) = out
+    assert loss_card == pytest.approx(loss_cpu, rel=1e-5)
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                   atol=1e-6 * float(b.abs().max()))
+    for a, b in zip(tree_leaves(card["opt"]["master"]),
+                    tree_leaves(cpu["opt"]["master"])):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    w_card, _ = kws.export_kws(card["params"], spec)
+    w_cpu, _ = kws.export_kws(cpu["params"], spec)
+    for li in w_cpu:
+        assert np.array_equal(w_card[li], w_cpu[li]), li
+
+
+def test_cuda_deploy_matches_qat():
+    """Two training steps on the card, then the export through
+    ``offline_logits`` and the chip twin's executor on the card: both
+    equal the QAT logits bit for bit."""
+    from repro_torch.core import compiler, executor
+    from repro_torch.data import gscd
+
+    dev = _cuda()
+    spec = kws.build_kws_smoke_spec()
+    step, state = _kws_train_step(spec, dev)
+    for i in range(2):
+        x, y = gscd.batch(seed=0, step=i, batch_size=4, n=spec.in_len)
+        state, _ = step(state, (torch.as_tensor(x, device=dev),
+                                torch.as_tensor(y, device=dev)))
+    params = state["params"]
+    weights, thresholds = kws.export_kws(params, spec)
+    xe, _ = gscd.batch(seed=7, step=10_000, batch_size=3, n=spec.in_len)
+    with torch.no_grad():
+        qat = kws.kws_forward(params, torch.as_tensor(xe, device=dev), spec)
+    model = kws.prepare_offline(spec, weights, thresholds, device=dev)
+    prog = compiler.compile_model(spec, weights, thresholds, device=dev)
+    for clip, want in zip(xe, qat.to(torch.int64)):
+        off = kws.offline_logits(model, torch.as_tensor(clip, device=dev))
+        rep = executor.Executor(prog).run(clip[:, None])
+        torch.cuda.synchronize()
+        assert torch.equal(off.to(torch.int64), want)
+        assert torch.equal(rep.output.ravel().to(torch.int64), want)
