@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build, check and drive the KWS stream
-hop, the kernel library, the chip twin and KWS training on one CUDA card.
+hop, the kernel library, the chip twin, KWS training and LM serving on one
+CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -175,6 +176,28 @@ Phases (each prints one line, any failure exits non-zero):
               B.7 launches then bit-equal to its plain version); a
               checkpoint of the trained state restores on the card bit
               for bit.
+12. lm_serve — LM serving: Qwen3-0.6B at its published width and depth
+              (28 layers, d_model 1024, vocab 151,936; ``api.init_params``
+              on the card from a generator seeded ``--seed``).  Held,
+              within the reference's prefill/decode bound (``LM_RTOL``,
+              ``LM_ATOL``): ``prefill_fn`` on ``LM_PROMPTS`` prompts of
+              ``LM_PROMPT_LEN`` tokens on the card against the CPU copy
+              of the params (and the argmax where the CPU's top-2 margin
+              exceeds the tolerance), and ``LM_DECODE`` decode steps
+              against ``forward``.  Then ``serve.engine.Engine`` serves
+              ``LM_REQUESTS`` requests (``LM_PROMPT`` prompt and
+              ``LM_NEW`` new tokens, ``max_seq`` ``LM_MAX_SEQ``), and
+              these runs give identical tokens: sync and async at
+              ``LM_SLOTS`` slots, an elastic pool (2 -> 8) and a fixed 8,
+              and 2 shards (``make_stream_mesh(2)``) and one at 2 slots,
+              whose shared clock passes ``max_seq`` (ROADMAP C.6).  The
+              LM path reaches no reference kernel: the kernel counts stay
+              0 over the drives.  Printed with the card: the parameter
+              and KV-cache bytes, the peak allocation, the prefill p50 a
+              request, the decode tick p50 (sync and async), tokens/s of
+              each drive, and from a ``torch.profiler`` trace of
+              ``LM_PROFILED`` sync ticks the device's busy ms and kernel
+              count a tick and its idle share of the sync p50 tick.
 
 The model is made here from ``--seed`` with numpy: random ternary weights
 and integer thresholds near the middle of each layer's accumulator range
@@ -2658,6 +2681,251 @@ def train_phase(seed, dev, torch, dispatch, bk, tm, lib_fns, card):
     return rec, launches, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: LM serving, Qwen3-0.6B at its published width and depth
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+#: card vs CPU prefill: prompts x tokens, teacher-forced
+LM_PROMPTS, LM_PROMPT_LEN = 2, 32
+#: decode steps held against the parallel forward
+LM_DECODE = 8
+#: the engine drives: requests, prompt and new tokens, slots, cache rows
+LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 16, 16
+LM_SLOTS, LM_MAX_SEQ = 4, 64
+#: sync decode ticks traced by ``torch.profiler``
+LM_PROFILED = 5
+#: logits tolerance: the reference's own prefill/decode bound
+#: (``tests/test_models.py``)
+LM_RTOL, LM_ATOL = 0.06, 0.15
+
+
+def lm_drive(engine, cfg, params, seed, torch, asyn=False, **kw):
+    """``LM_REQUESTS`` requests of ``LM_PROMPT`` seeded tokens through an
+    ``Engine``, drained -> (tokens by rid, wall s, the engine)."""
+    eng = engine.Engine(cfg, params, max_seq=LM_MAX_SEQ, **kw)
+    rng = np.random.default_rng(seed)
+    for i in range(LM_REQUESTS):
+        eng.submit(engine.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, LM_PROMPT).astype(
+                np.int32), max_new_tokens=LM_NEW))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = (eng.run_until_drained_async() if asyn
+            else eng.run_until_drained())
+    wall = time.perf_counter() - t0
+    tokens = {r.rid: list(r.out_tokens) for r in done}
+    if sorted(tokens) != list(range(LM_REQUESTS)) or any(
+            len(t) != LM_NEW or not all(0 <= x < cfg.vocab for x in t)
+            for t in tokens.values()):
+        raise RuntimeError(f"lm_serve: a request did not get its {LM_NEW} "
+                           f"tokens in [0, {cfg.vocab}): {tokens}")
+    return tokens, wall, eng
+
+
+def lm_serve_phase(seed, dev, torch, dispatch, card):
+    """Phase 12: Qwen3-0.6B (28 layers, d_model 1024, vocab 151,936) with
+    seeded random weights on the card: prefill against the CPU, decode
+    against forward, and the continuous-batching engine sync, async,
+    elastic and over 2 shards, with its times and a profiler trace of
+    sync ticks.  Returns the record."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_stream_mesh
+    from repro_torch.models import api, stack
+    from repro_torch.serve import engine
+    from repro_torch.utils.tree import (
+        tree_count_params,
+        tree_map,
+        tree_size_bytes,
+    )
+
+    t_phase = time.perf_counter()
+    split = {}    # the phase's wall seconds by part
+
+    def lap(part, t0):
+        split[part] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    n_params, p_bytes = tree_count_params(params), tree_size_bytes(params)
+    if n_params != api.param_count(cfg):
+        raise RuntimeError("lm_serve: the params differ from param_count")
+    rng = np.random.default_rng(seed + 40)
+    t0 = lap("init", t_phase)
+
+    # card against CPU, teacher-forced: the same params, the same prompts
+    toks = rng.integers(0, cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN)).astype(
+        np.int32)
+    prefill = api.prefill_fn(cfg)
+    with torch.no_grad():
+        card_logits, card_caches = prefill(
+            params, {"tokens": torch.as_tensor(toks, device=dev)})
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        cpu_logits, _ = prefill(cpu_params, {"tokens": torch.as_tensor(toks)})
+    del cpu_params
+    got = card_logits.cpu()[..., :cfg.vocab]
+    want = cpu_logits[..., :cfg.vocab]
+    if not (torch.isfinite(got).all() and got.shape == (
+            LM_PROMPTS, LM_PROMPT_LEN, cfg.vocab)):
+        raise RuntimeError(f"lm_serve: bad prefill logits {got.shape}")
+    prefill_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=LM_RTOL, atol=LM_ATOL):
+        raise RuntimeError(f"lm_serve: card prefill logits differ from the "
+                           f"CPU's by up to {prefill_err}")
+    top2 = torch.topk(want, 2, dim=-1).values
+    checkable = (top2[..., 0] - top2[..., 1]) > LM_ATOL
+    same = got.argmax(-1) == want.argmax(-1)
+    if not bool(same[checkable].all()):
+        raise RuntimeError("lm_serve: card and CPU argmax differ where the "
+                           "CPU's top-2 margin exceeds the tolerance")
+    n_unchecked = int((~checkable).sum())
+    if card_caches[0][0].shape != (cfg.n_layers, LM_PROMPTS, LM_PROMPT_LEN,
+                                   cfg.n_kv_heads, cfg.head_dim):
+        raise RuntimeError(f"lm_serve: prefill cache {card_caches[0][0].shape}")
+    del card_caches, card_logits, cpu_logits
+    t0 = lap("prefill card vs CPU", t0)
+
+    # decode against forward on the card
+    dtoks = torch.as_tensor(toks[:1, :LM_DECODE], device=dev)
+    with torch.no_grad():
+        full, _ = stack.forward(cfg, params, dtoks, mode="train")
+        state = api.init_decode_state(cfg, 1, 2 * LM_DECODE, device=dev)
+        dec = api.decode_fn(cfg)
+        for t in range(LM_DECODE):
+            logits, state = dec(params, state, dtoks[:, t:t + 1])
+    decode_err = float((logits[0, -1] - full[0, -1]).abs().max())
+    if not torch.allclose(logits[0, -1], full[0, -1], rtol=LM_RTOL,
+                          atol=LM_ATOL):
+        raise RuntimeError(f"lm_serve: decode differs from forward by up to "
+                           f"{decode_err}")
+    del state, full
+    t0 = lap("decode vs forward", t0)
+
+    # the engine: every drive's tokens equal the fixed sync drive's
+    dispatch.reset()
+    drives = {}
+    with torch.no_grad():
+        for label, asyn, kw in (
+                ("fixed", False, dict(batch_slots=LM_SLOTS)),
+                ("async", True, dict(batch_slots=LM_SLOTS)),
+                ("fixed 8", False, dict(batch_slots=2 * LM_SLOTS)),
+                ("elastic 2-8", False, dict(batch_slots=2,
+                                            max_slots=2 * LM_SLOTS,
+                                            min_slots=2)),
+                ("fixed 2", False, dict(batch_slots=2)),
+                ("2 shards", False, dict(
+                    batch_slots=2, mesh=make_stream_mesh(2, device=dev)))):
+            drives[label] = lm_drive(engine, cfg, params, seed, torch, asyn,
+                                     **kw)
+    if dispatch.counts():
+        raise RuntimeError(f"lm_serve: the LM path launched a reference "
+                           f"kernel: {dispatch.counts()}")
+    for label, want_label in (("async", "fixed"), ("elastic 2-8", "fixed 8"),
+                              ("2 shards", "fixed 2")):
+        if drives[label][0] != drives[want_label][0]:
+            raise RuntimeError(f"lm_serve: {label} tokens differ from "
+                               f"{want_label}'s")
+    clocks = {k: int(v[2].state["cache_len"]) for k, v in drives.items()}
+    if not clocks["fixed 2"] > LM_MAX_SEQ:
+        raise RuntimeError(f"lm_serve: the shared clock stayed at "
+                           f"{clocks['fixed 2']} <= {LM_MAX_SEQ}")
+    resizes = [e for e in drives["elastic 2-8"][2].obs.events.tail()
+               if e["event"] == "lm_resize"]
+    if not resizes or max(e["new"] for e in resizes) != 2 * LM_SLOTS:
+        raise RuntimeError(f"lm_serve: the elastic pool did not grow to "
+                           f"{2 * LM_SLOTS}: {resizes}")
+    kv_bytes = tree_size_bytes(drives["fixed"][2].state["layers"])
+    t0 = lap("engine drives", t0)
+
+    def p50_ms(eng, name):
+        return eng.obs.registry.histogram(name).quantile(0.5) * 1e3
+
+    fixed_eng, async_eng = drives["fixed"][2], drives["async"][2]
+    prefill_ms = p50_ms(fixed_eng, "serve.prefill_s")
+    tick_ms = p50_ms(fixed_eng, "serve.decode_tick_s")
+    async_tick_ms = p50_ms(async_eng, "serve.decode_tick_s")
+    tok_s = {k: LM_REQUESTS * LM_NEW / v[1] for k, v in drives.items()}
+
+    # sync ticks under the profiler: the device's busy time a tick (short
+    # prompts: only the decode ticks are traced)
+    eng = engine.Engine(cfg, params, batch_slots=LM_SLOTS,
+                        max_seq=LM_MAX_SEQ)
+    for i in range(LM_SLOTS):
+        eng.submit(engine.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, 2).astype(np.int32),
+            max_new_tokens=LM_PROFILED + 3))
+    # the device's activity alone: ~2,600 kernels a tick, and the host
+    # ops' events would multiply the trace's processing time
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(LM_PROFILED):
+                eng.step()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3
+                         / LM_PROFILED, e.count / LM_PROFILED)
+                        for e in prof.key_averages()
+                        if e.device_type == cuda), key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in by_kernel)
+    kernels_tick = sum(n for _, _, n in by_kernel)
+    idle = 1 - busy_ms / tick_ms if busy_ms else None
+    peak = torch.cuda.max_memory_allocated()
+    lap("profiled ticks", t0)
+    phase_s = time.perf_counter() - t_phase
+
+    phase("lm_serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (tied, "
+          f"qk-norm); {n_params} params, {p_bytes / 1e9:.3f} GB bf16 (+ a "
+          f"float32 copy of the tied head); KV cache {kv_bytes / 1e6:.1f} MB "
+          f"at {LM_SLOTS} slots x {LM_MAX_SEQ} rows; peak allocated "
+          f"{peak / 1e9:.3f} GB")
+    phase("lm_serve", f"prefill {LM_PROMPTS} x {LM_PROMPT_LEN} tokens, card "
+          f"vs CPU: max |dlogit| {prefill_err:.4f} (tolerance rtol {LM_RTOL}"
+          f", atol {LM_ATOL}); argmax equal wherever the CPU's top-2 margin "
+          f"> {LM_ATOL} ({n_unchecked} of {LM_PROMPTS * LM_PROMPT_LEN} "
+          f"positions below it, unchecked); {LM_DECODE} decode steps vs "
+          f"forward: max |dlogit| {decode_err:.4f}")
+    phase("lm_serve", f"engine, {LM_REQUESTS} requests x {LM_PROMPT} prompt "
+          f"+ {LM_NEW} new tokens, max_seq {LM_MAX_SEQ}: tokens equal for "
+          f"sync == async (4 slots), elastic 2->8 == fixed 8, 2 shards == 1"
+          f" (2 slots); final clocks {clocks}; no reference kernel "
+          f"launched; tokens/s " + ", ".join(
+              f"{k} {v:.1f}" for k, v in tok_s.items()) + f"; {card}")
+    phase("lm_serve", f"prefill p50 {prefill_ms:.3f} ms a request "
+          f"({LM_PROMPT} sequential decode steps at batch 1); decode tick "
+          f"p50 {tick_ms:.3f} ms sync, {async_tick_ms:.3f} ms async "
+          f"(dispatch to retire) at {LM_SLOTS} slots; profiler over "
+          f"{LM_PROFILED} sync ticks: device busy {busy_ms:.3f} ms and "
+          f"{kernels_tick:.0f} kernels a tick, "
+          + (f"idle {idle:.3f} of the sync p50 tick" if idle is not None
+             else "idle not measured: no device time in the trace")
+          + "; top: " + ", ".join(f"{k[:40]} {ms:.3f}"
+                                  for k, ms, _ in by_kernel[:4])
+          + f"; phase took {phase_s:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in split.items()) + f"); {card}")
+    return dict(arch=cfg.name, params=n_params, param_bytes=p_bytes,
+                kv_cache_bytes=kv_bytes, peak_allocated_bytes=peak,
+                prefill_card_vs_cpu_max_abs_err=prefill_err,
+                prefill_unchecked_positions=n_unchecked,
+                decode_vs_forward_max_abs_err=decode_err,
+                clocks=clocks, tokens_per_s=tok_s,
+                drive_wall_s={k: v[1] for k, v in drives.items()},
+                prefill_ms_p50=prefill_ms, decode_tick_ms_p50=tick_ms,
+                async_decode_tick_ms_p50=async_tick_ms,
+                profiled_ticks=LM_PROFILED, device_busy_ms_per_tick=busy_ms,
+                kernels_per_tick=kernels_tick, idle_share=idle,
+                device_by_kernel=by_kernel[:20], phase_s=phase_s,
+                phase_split_s=split, card=card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3187,6 +3455,8 @@ def main() -> int:
     train_rec, train_launches, train_err = train_phase(
         args.seed, dev, torch, dispatch, bk, tm, lib_fns, card)
     merge(train_err)
+    # 12. LM serving: Qwen3-0.6B through the continuous-batching engine
+    lm_rec = lm_serve_phase(args.seed, dev, torch, dispatch, card)
     path_kernel = aggregate(per_launch + lib_main + twin_recs)
     new_paths = (async_launches + tenant_launches + shard_launches
                  + collections.Counter(twin_launches)
@@ -3260,7 +3530,8 @@ def main() -> int:
                                        "bound_by"),
                                       timing[("hop", False)])),
                   async_path=async_rec, tenants=tenant_rec,
-                  sharded=shard_rec, chip_twin=twin_rec, train=train_rec)
+                  sharded=shard_rec, chip_twin=twin_rec, train=train_rec,
+                  lm_serve=lm_rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

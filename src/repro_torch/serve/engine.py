@@ -1,0 +1,380 @@
+"""Batched serving engine on the shared continuous-batching runtime.
+
+The port of the reference's ``repro/serve/engine.py``.  Requests enter a
+queue; free batch slots are filled per decode tick (continuous batching),
+finished sequences vacate their slot.  The slot state is the stacked
+cache tree of ``models.api.init_decode_state``; a request's prefill runs
+the decode step over its prompt tokens one by one into a one-row state,
+and its install copies that row into the batch in place.
+
+Everything structural about the slot plane (slot <-> request binding,
+pow-2 elastic grow/shrink, S shards of the slot axis, the epoch barrier
+that drains in-flight decode ticks before any slot remap) comes from
+:class:`repro_torch.runtime.SlotPool`; the engine is a pool client like
+the KWS stream scheduler, and the pool emits the ``lm_resize`` /
+``lm_rebalance`` events.  By default (``max_slots=None``) the pool is
+pinned at ``batch_slots``; pass ``max_slots`` / ``min_slots`` for elastic
+capacity and ``mesh`` (``launch.mesh.make_stream_mesh``: S row blocks of
+one device) to shard the slot axis.
+
+The engine runs where its params lie; CUDA params with no card raise.
+Every decode tick syncs with the host once, for the sampled tokens.  The
+clock ``cache_len`` is shared by all slots and merged with ``max`` at an
+install, as in the reference (ROADMAP C.6, reproduced: a request
+installed while the clock is ahead attends to the zero rows between its
+prompt and the clock, and past ``max_seq`` the cache row write clamps to
+the last row).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import canonical_device, dp_size
+from repro_torch.models import api
+from repro_torch.obs import Observability
+from repro_torch.runtime import InFlightQueue, SlotPool, infer_slot_axes
+from repro_torch.runtime.pool import tree_map
+from repro_torch.serve import sampler
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("serve")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # (S,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    out_tokens: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _flat(state: dict) -> tuple:
+    """The decode state as the nested tuples the slot pool walks."""
+    return (state["cache_len"], tuple(state["layers"]), tuple(state["head"]))
+
+
+def _unflat(flat: tuple) -> dict:
+    cache_len, layers, head = flat
+    return {"cache_len": cache_len, "layers": list(layers),
+            "head": list(head)}
+
+
+class Engine:
+    def __init__(self, cfg: ArchConfig, params, batch_slots: int = 4,
+                 max_seq: int = 128, obs: Observability | None = None,
+                 max_slots: int | None = None,
+                 min_slots: int | None = None,
+                 mesh=None):
+        """Greedy decoding, as the reference's engine does (its ``seed``
+        seeds a key it never draws from, so the port has none)."""
+        self.cfg = cfg
+        self.params = params
+        self.max_seq = max_seq
+        self.device = canonical_device(params["embed"].device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("the engine's params lie on a CUDA device and "
+                               "none is available")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, params on "
+                             f"{self.device}")
+
+        # prefill and decode-tick latencies land in bounded histograms,
+        # spans cover both paths (fenced: the tick's token copy syncs),
+        # request lifecycle goes to the structured event log
+        self.obs = obs if obs is not None else Observability.create()
+        self._prefill_hist = self.obs.registry.histogram("serve.prefill_s")
+        self._decode_hist = self.obs.registry.histogram("serve.decode_tick_s")
+        self._decode = api.decode_fn(cfg)
+
+        # the slot axis of every cache leaf, by shape-diffing the state at
+        # two batch sizes on the meta device (cache_len's shared clock maps
+        # to -1: the pool never touches it, _install merges it via max)
+        self._cache_axes = infer_slot_axes(lambda b: _flat(
+            api.init_decode_state(cfg, b, max_seq, device="meta")))
+        # ``batch_slots`` is the initial capacity; with no ``max_slots``
+        # the pool is pinned there, otherwise it doubles on demand up to
+        # the ceiling and halves at quarter occupancy down to ``min_slots``
+        self._slots = SlotPool(
+            self, max_slots if max_slots is not None else batch_slots,
+            initial_capacity=batch_slots,
+            min_capacity=min_slots if min_slots is not None else min(
+                batch_slots, max_slots if max_slots is not None
+                else batch_slots),
+            n_shards=1 if mesh is None else dp_size(mesh),
+            obs=self.obs, event_prefix="lm_", noun="request",
+        )
+        self.state = api.init_decode_state(cfg, batch_slots, max_seq,
+                                           device=self.device)
+        self.slot_req: list[Request | None] = [None] * batch_slots
+        self.slot_remaining = np.zeros(batch_slots, np.int32)
+        self.queue: list[Request] = []
+        # async decode plane (step_async): the last sampled token per slot
+        # stays ON DEVICE so tick T+1 dispatches on tick T's tokens, and
+        # each tick's host copy retires one tick late; the InFlightQueue's
+        # barrier is the pool's pre_structural hook, so a resize or
+        # rebalance on ANY path drains in-flight ticks first
+        self._last_tok: torch.Tensor | None = None   # (slots, 1) int32
+        self._pending = InFlightQueue(self._retire_tick, depth=1)
+        self._barrier_finished: list[Request] = []
+
+    @property
+    def slots(self) -> int:
+        """Current slot capacity (elastic pools grow/shrink this)."""
+        return self._slots.capacity
+
+    # -- SlotPool client surface (see repro_torch.runtime.pool) ------------
+
+    def device_state(self):
+        """The per-slot device tree the pool resizes/remaps: the stacked
+        cache (slot axis 1: leaves are (reps, batch, ...)) and the
+        device-resident async feedback token (slot axis 0)."""
+        return (_flat(self.state), self._last_tok)
+
+    def set_device_state(self, state) -> None:
+        self.state = _unflat(state[0])
+        self._last_tok = state[1]
+
+    def slot_axes(self):
+        return (self._cache_axes, -1 if self._last_tok is None else 0)
+
+    def shard(self, x, axis: int = 0):
+        """Every shard of a ``make_stream_mesh`` mesh lies on the one
+        device the params are on: nothing moves."""
+        return x
+
+    def apply_host_remap(self, remap: dict[int, int], new_cap: int) -> None:
+        """Ride the host-side planes (request binding, budget counters)
+        through a slot remap: a request's bookkeeping stays glued to its
+        cache rows across grows, shrinks and migrations."""
+        slot_req: list[Request | None] = [None] * new_cap
+        remaining = np.zeros(new_cap, np.int32)
+        for old, new in remap.items():
+            slot_req[new] = self.slot_req[old]
+            remaining[new] = self.slot_remaining[old]
+        self.slot_req = slot_req
+        self.slot_remaining = remaining
+
+    def pre_structural(self) -> None:
+        """Epoch barrier: the pool is about to resize or rebalance; fold
+        every in-flight decode tick so the remap never invalidates
+        in-flight slot rows.  Requests that finish inside the barrier
+        surface from the next ``step_async`` return."""
+        for finished in self._pending.barrier():
+            self._barrier_finished.extend(finished)
+
+    # -- prefill -------------------------------------------------------------
+
+    def _prefill_one(self, prompt: np.ndarray):
+        """Sequential prefill through the decode step, token by token,
+        into a fresh one-row state -> (state, last logits (padded_vocab,))
+        (the reference's scan of the decode step over the prompt)."""
+        st = api.init_decode_state(self.cfg, 1, self.max_seq,
+                                   device=self.device)
+        toks = torch.as_tensor(np.asarray(prompt, np.int32)).to(self.device)
+        last = None
+        for t in range(toks.shape[0]):
+            logits, st = self._decode(self.params, st, toks[t:t + 1, None])
+            last = logits[0, -1]
+        if last is None:
+            last = torch.zeros(self.cfg.padded_vocab, device=self.device)
+        return st, last
+
+    # -- queue management ------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+        self.obs.events.emit("lm_submit", rid=req.rid,
+                             prompt_tokens=len(req.prompt),
+                             max_new=req.max_new_tokens)
+
+    def _fill_slots(self) -> None:
+        while self.queue:
+            try:
+                # least-loaded placement; an elastic pool grows (pow-2,
+                # epoch-barriered) on demand up to its ceiling
+                slot = self._slots.alloc(self.queue[0].rid)
+            except MemoryError:
+                break  # every slot busy at the ceiling: stay queued
+            req = self.queue.pop(0)
+            with self.obs.trace.span("prefill", rid=req.rid,
+                                     tokens=len(req.prompt)):
+                t0 = time.perf_counter()
+                st1, last_logits = self._prefill_one(req.prompt)
+                tok = int(sampler.greedy(last_logits[None],
+                                         self.cfg.vocab)[0])
+                self._prefill_hist.record(time.perf_counter() - t0)
+            req.out_tokens.append(tok)
+            self._install(slot, st1)
+            if self._last_tok is not None:
+                # keep the device-resident feedback token in sync so the
+                # next async dispatch feeds the prefill's token; a copy,
+                # as the reference's ``.at[].set``: the old one is a view
+                # of an in-flight tick's tokens, which retire later
+                last = self._last_tok.clone()
+                last[slot, 0] = tok
+                self._last_tok = last
+            self.slot_req[slot] = req
+            self.slot_remaining[slot] = req.max_new_tokens - 1
+            self.obs.events.emit("lm_slot_fill", slot=slot, rid=req.rid,
+                                 prompt_tokens=len(req.prompt))
+            log.info("slot %d <- request %d (prompt %d toks)",
+                     slot, req.rid, len(req.prompt))
+
+    def _install(self, slot: int, st1: dict) -> None:
+        """Copy a one-row cache tree into batch row ``slot``, in place;
+        the shared clock merges with ``max``."""
+        def put(full, one, ax):
+            if ax < 0:
+                return torch.maximum(full, one)  # cache_len: shared clock
+            full.narrow(ax, slot, 1).copy_(one)
+            return full
+
+        self.state = _unflat(tree_map(put, _flat(self.state), _flat(st1),
+                                      self._cache_axes))
+
+    def _release(self, slot: int) -> None:
+        """Vacate a finished request's slot (the pool rebalances and
+        shrinks at the tick barrier)."""
+        self.slot_req[slot] = None
+        self._slots.free(slot)
+
+    def _tick_barrier(self) -> None:
+        self._slots.hop_barrier()
+        self._slots.maybe_shrink()
+
+    def _feed(self) -> torch.Tensor:
+        """(slots, 1) int32 last tokens on the device (empty slots: 0)."""
+        return torch.tensor(
+            [(r.out_tokens[-1] if r is not None and r.out_tokens else 0)
+             for r in self.slot_req], dtype=torch.int32)[:, None].to(
+                 self.device)
+
+    # -- decode tick -----------------------------------------------------------
+
+    def step(self) -> list[Request]:
+        """One continuous-batching tick: fill slots, decode, retire."""
+        self._fill_slots()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return []
+        last = self._feed()
+        with self.obs.trace.span("decode", active=len(active)):
+            t0 = time.perf_counter()
+            logits, self.state = self._decode(self.params, self.state, last)
+            # the tokens' copy to the host is the tick's one sync: the
+            # recorded tick is the decode step, not its enqueue
+            toks = sampler.greedy(logits[:, -1], self.cfg.vocab).cpu().numpy()
+            self._decode_hist.record(time.perf_counter() - t0)
+        finished = []
+        for slot in active:
+            req = self.slot_req[slot]
+            req.out_tokens.append(int(toks[slot]))
+            self.slot_remaining[slot] -= 1
+            if self.slot_remaining[slot] <= 0:
+                req.done = True
+                finished.append(req)
+                self._release(slot)
+                self.obs.events.emit("lm_finish", rid=req.rid, slot=slot,
+                                     tokens=len(req.out_tokens))
+        if finished:
+            self._tick_barrier()
+        return finished
+
+    def run_until_drained(self, max_ticks: int = 1000) -> list[Request]:
+        done: list[Request] = []
+        for _ in range(max_ticks):
+            done.extend(self.step())
+            if not self.queue and all(r is None for r in self.slot_req):
+                break
+        return done
+
+    # -- async decode (double-buffered ticks) ---------------------------------
+
+    def step_async(self) -> list[Request]:
+        """One *pipelined* tick: dispatch tick T on tick T-1's
+        device-resident sampled tokens (``sampler.greedy`` runs on the
+        device, so the feedback loop never leaves it) and retire tick
+        T-1's host copy while T executes.  Requests finish one call later
+        than with ``step`` but with identical tokens: ``slot_remaining``
+        counts down at dispatch, so slots refill at the same ticks."""
+        self._fill_slots()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if active:
+            if self._last_tok is None:
+                self._last_tok = self._feed()
+            with self.obs.trace.span("decode_dispatch", active=len(active)):
+                t0 = time.perf_counter()
+                logits, self.state = self._decode(self.params, self.state,
+                                                  self._last_tok)
+                toks = sampler.greedy(logits[:, -1], self.cfg.vocab)
+                self._last_tok = toks[:, None]
+            # bookkeeping happens at dispatch (retirement counts are
+            # static), but the token lands at retire, one tick later
+            snapshot = []
+            for slot in active:
+                req = self.slot_req[slot]
+                self.slot_remaining[slot] -= 1
+                finishing = self.slot_remaining[slot] <= 0
+                snapshot.append((slot, req, finishing))
+                if finishing:
+                    self._release(slot)  # refill next tick
+            self._pending.push((toks, snapshot, t0))
+        # finishes folded by an epoch barrier (a grow inside _fill_slots,
+        # a shrink/rebalance at the tick boundary) surface here
+        finished = self._take_barrier_finished()
+        # depth-1 pipeline: retire once a newer tick is executing (or when
+        # idle, to drain)
+        for batch in self._pending.settle(bool(active), max_retire=None):
+            finished.extend(batch)
+        # structural housekeeping at the same tick boundary as the sync
+        # path; a rebalance or shrink here drains the in-flight tick first
+        self._tick_barrier()
+        return finished
+
+    def _take_barrier_finished(self) -> list[Request]:
+        out, self._barrier_finished = self._barrier_finished, []
+        return out
+
+    def _retire_tick(self, item, still_in_flight: bool) -> list[Request]:
+        """Fence on the oldest in-flight tick and append its host-side
+        tokens; emits ``lm_finish`` for requests that completed there."""
+        toks, snapshot, t0 = item
+        with self.obs.trace.span("decode_retire", n=len(snapshot)):
+            toks_h = toks.cpu().numpy()  # fence + one bulk transfer
+        self._decode_hist.record(time.perf_counter() - t0)
+        finished = []
+        for slot, req, finishing in snapshot:
+            req.out_tokens.append(int(toks_h[slot]))
+            if finishing:
+                req.done = True
+                finished.append(req)
+                self.obs.events.emit("lm_finish", rid=req.rid, slot=slot,
+                                     tokens=len(req.out_tokens))
+        return finished
+
+    def shutdown(self) -> list[Request]:
+        """Retire every in-flight decode tick (nothing stays unfolded at
+        teardown)."""
+        finished = self._take_barrier_finished()
+        for batch in self._pending.barrier():
+            finished.extend(batch)
+        self._tick_barrier()
+        return finished
+
+    def run_until_drained_async(self, max_ticks: int = 1000
+                                ) -> list[Request]:
+        done: list[Request] = []
+        for _ in range(max_ticks):
+            done.extend(self.step_async())
+            if (not self.queue and not self._pending
+                    and all(r is None for r in self.slot_req)):
+                break
+        done.extend(self.shutdown())
+        return done

@@ -1195,3 +1195,134 @@ def test_cuda_deploy_matches_qat():
         torch.cuda.synchronize()
         assert torch.equal(off.to(torch.int64), want)
         assert torch.equal(rep.output.ravel().to(torch.int64), want)
+
+
+# ---------------------------------------------------------------------------
+# LM serving (A.13): the engine on the card against the CPU
+# ---------------------------------------------------------------------------
+
+#: logits tolerance of the LM cases (tests/test_torch_lm.py's) and the
+#: reference's own prefill/decode bound for the full-width model
+LM_RTOL, LM_ATOL = 0.02, 0.08
+LM_REF_RTOL, LM_REF_ATOL = 0.06, 0.15
+
+
+def _lm_run(cfg, params, asyn):
+    """6 requests through 2 slots at max_seq 16 (the shared clock passes
+    it) -> (tokens by rid, each request's logits row per token: the
+    prefill's, then each decode tick's)."""
+    from repro_torch.serve import engine
+
+    eng = engine.Engine(cfg, params, batch_slots=2, max_seq=16)
+    rows: dict = {}
+    firsts: list = []
+    in_prefill = [False]       # the prefill runs the decode step too
+    decode, prefill = eng._decode, eng._prefill_one
+
+    def rec_decode(p, state, last):
+        logits, state = decode(p, state, last)
+        if in_prefill[0]:
+            return logits, state
+        out = logits[:, -1].float().cpu()
+        for slot, req in enumerate(eng.slot_req):
+            if req is not None:
+                rows.setdefault(req.rid, []).append(out[slot])
+        return logits, state
+
+    def rec_prefill(prompt):
+        in_prefill[0] = True
+        state, last = prefill(prompt)
+        in_prefill[0] = False
+        firsts.append(last.float().cpu())
+        return state, last
+
+    eng._decode, eng._prefill_one = rec_decode, rec_prefill
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        eng.submit(engine.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, 6).astype(np.int32),
+            max_new_tokens=(8, 3, 8, 3, 5, 5)[i]))
+    done = (eng.run_until_drained_async() if asyn
+            else eng.run_until_drained())
+    assert int(eng.state["cache_len"]) > 16
+    fills = [e["rid"] for e in eng.obs.events.tail()
+             if e["event"] == "lm_slot_fill"]
+    return ({r.rid: r.out_tokens for r in done},
+            {rid: [first] + rows.get(rid, [])
+             for rid, first in zip(fills, firsts)})
+
+
+@pytest.mark.parametrize("asyn", [False, True], ids=["sync", "async"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "phi-3-vision-4.2b"])
+def test_cuda_engine_tokens_match_cpu(name, asyn):
+    """The engine on the card gives the CPU's tokens at smoke size; where
+    one differs, the CPU's logits there are a near tie (its logit of its
+    own token exceeds that of the card's token by at most LM_ATOL), and
+    that request is compared no further."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_map
+
+    dev = _cuda()
+    cfg = get_arch(name, smoke=True)
+    params = api.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    want, rows = _lm_run(cfg, params, asyn)
+    got, _ = _lm_run(cfg, tree_map(lambda t: t.to(dev), params), asyn)
+    assert got.keys() == want.keys()
+    for rid, toks in want.items():
+        assert len(got[rid]) == len(toks) == len(rows[rid])
+        for j, (a, b) in enumerate(zip(toks, got[rid])):
+            row = rows[rid][j][:cfg.vocab]
+            assert int(row.argmax()) == a
+            if a != b:
+                assert float(row[a] - row[b]) <= LM_ATOL, (rid, j)
+                break
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "yi-9b",
+                                  "phi-3-vision-4.2b"])
+def test_cuda_lm_decode_matches_cpu(name):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_map
+
+    dev = _cuda()
+    cfg = get_arch(name, smoke=True)
+    params = api.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                             device="cpu")
+    card = tree_map(lambda t: t.to(dev), params)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 10)).astype(np.int32))
+    dec = api.decode_fn(cfg)
+    s_cpu = api.init_decode_state(cfg, 2, 8, device="cpu")
+    s_card = api.init_decode_state(cfg, 2, 8, device=dev)
+    for t in range(10):           # past max_seq: the clamped write
+        a, s_cpu = dec(params, s_cpu, toks[:, t:t + 1])
+        b, s_card = dec(card, s_card, toks[:, t:t + 1].to(dev))
+        torch.testing.assert_close(b.cpu(), a, rtol=LM_RTOL, atol=LM_ATOL)
+    assert int(s_card["cache_len"]) == 10
+
+
+def test_cuda_full_width_prefill_matches_cpu():
+    """Qwen3-0.6B at its published width and depth: prefill logits on the
+    card within the reference's bound of the CPU's, same params."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_map
+
+    dev = _cuda()
+    cfg = get_arch("qwen3-0.6b")
+    params = api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (1, 16)).astype(
+        np.int32)
+    prefill = api.prefill_fn(cfg)
+    got, caches = prefill(params, {"tokens": torch.as_tensor(toks,
+                                                             device=dev)})
+    want, _ = prefill(tree_map(lambda t: t.cpu(), params),
+                      {"tokens": torch.as_tensor(toks)})
+    assert got.shape == (1, 16, cfg.padded_vocab) and len(caches) == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=LM_REF_RTOL,
+                               atol=LM_REF_ATOL)

@@ -267,7 +267,8 @@ def test_port_imports_no_jax_or_reference(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys; import repro_torch.stream, repro_torch.kernels.ops; "
+    code = ("import sys; import repro_torch.stream, repro_torch.kernels.ops, "
+            "repro_torch.serve.engine; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
