@@ -198,6 +198,34 @@ Phases (each prints one line, any failure exits non-zero):
               each drive, and from a ``torch.profiler`` trace of
               ``LM_PROFILED`` sync ticks the device's busy ms and kernel
               count a tick and its idle share of the sync p50 tick.
+13. lm_families — LM serving of the MoE, SSM, hybrid and encoder-decoder
+              families.  DeepSeek-MoE-16B at its published width and
+              depth (28 layers, 64 routed experts top-6 and 2 shared,
+              16.38 B params, 32.8 GB bf16): ``param_count`` equals the
+              params built; ``prefill_fn`` card vs CPU at a cut depth
+              (``LMF_CUT_LAYERS``: the dense layer and 3 MoE layers, full
+              width) on the served ``dropping`` dispatch, and
+              ``LMF_DECODE`` decode steps against ``forward`` at full
+              depth on the ``dense`` dispatch, both within the
+              reference's bound, the card's routing held to the other
+              run's (``RouterPin``: router probabilities within
+              ``ROUTER_RTOL`` / ``ROUTER_ATOL``, an expert taken over only
+              at such a near tie, counted); the engine sync and async at
+              ``LMF_SLOTS`` slots, token-equal, with its tick and prefill
+              p50, tokens/s and a profiler trace of sync ticks.
+              xLSTM-350M and SeamlessM4T-medium whole: the same checks
+              and engine drives, the encoder-decoder decoding against
+              ``encode(frames)``; the random-weight xLSTM is chaotic at
+              full depth, so its card-vs-CPU prefill and decode-vs-
+              forward are held layer by layer (each layer on the other
+              side's inputs), the free-running differences printed with
+              the logits' response to noise-sized changes of the
+              embeddings, and the chunked mLSTM against its sequential
+              scan.  Jamba and Llama-4-Scout at smoke size: prefill,
+              decode and the engine card vs CPU; one Mamba mixer at
+              Jamba's width (d_model 8192), the prefill against
+              token-by-token steps and the CPU.  No reference kernel is
+              launched.
 
 The model is made here from ``--seed`` with numpy: random ternary weights
 and integer thresholds near the middle of each layer's accumulator range
@@ -226,6 +254,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import cProfile
 import dataclasses
 import json
@@ -2700,27 +2729,59 @@ LM_PROFILED = 5
 LM_RTOL, LM_ATOL = 0.06, 0.15
 
 
-def lm_drive(engine, cfg, params, seed, torch, asyn=False, **kw):
-    """``LM_REQUESTS`` requests of ``LM_PROMPT`` seeded tokens through an
+def lm_drive(engine, cfg, params, seed, torch, asyn=False, *,
+             tag="lm_serve", requests=LM_REQUESTS, prompt=LM_PROMPT,
+             new=LM_NEW, max_seq=LM_MAX_SEQ, **kw):
+    """``requests`` requests of ``prompt`` seeded tokens through an
     ``Engine``, drained -> (tokens by rid, wall s, the engine)."""
-    eng = engine.Engine(cfg, params, max_seq=LM_MAX_SEQ, **kw)
+    eng = engine.Engine(cfg, params, max_seq=max_seq, **kw)
     rng = np.random.default_rng(seed)
-    for i in range(LM_REQUESTS):
+    for i in range(requests):
         eng.submit(engine.Request(
-            rid=i, prompt=rng.integers(0, cfg.vocab, LM_PROMPT).astype(
-                np.int32), max_new_tokens=LM_NEW))
+            rid=i, prompt=rng.integers(0, cfg.vocab, prompt).astype(
+                np.int32), max_new_tokens=new))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = (eng.run_until_drained_async() if asyn
             else eng.run_until_drained())
     wall = time.perf_counter() - t0
     tokens = {r.rid: list(r.out_tokens) for r in done}
-    if sorted(tokens) != list(range(LM_REQUESTS)) or any(
-            len(t) != LM_NEW or not all(0 <= x < cfg.vocab for x in t)
+    if sorted(tokens) != list(range(requests)) or any(
+            len(t) != new or not all(0 <= x < cfg.vocab for x in t)
             for t in tokens.values()):
-        raise RuntimeError(f"lm_serve: a request did not get its {LM_NEW} "
+        raise RuntimeError(f"{tag}: a request did not get its {new} "
                            f"tokens in [0, {cfg.vocab}): {tokens}")
     return tokens, wall, eng
+
+
+def lm_tick_profile(engine, cfg, params, rng, torch, slots, max_seq,
+                    ticks):
+    """``ticks`` sync decode ticks at ``slots`` live slots (2-token
+    prompts: only the decode ticks are traced) under ``torch.profiler``,
+    the device's activity alone (thousands of kernels a tick, and the
+    host ops' events would multiply the trace's processing time) ->
+    (device busy ms a tick, kernels a tick, [(kernel, ms, count) a tick]
+    by device time)."""
+    eng = engine.Engine(cfg, params, batch_slots=slots, max_seq=max_seq)
+    for i in range(slots):
+        eng.submit(engine.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, 2).astype(np.int32),
+            max_new_tokens=ticks + 3))
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(ticks):
+                eng.step()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3 / ticks,
+                         e.count / ticks)
+                        for e in prof.key_averages()
+                        if e.device_type == cuda), key=lambda r: -r[1])
+    return (sum(ms for _, ms, _ in by_kernel),
+            sum(n for _, _, n in by_kernel), by_kernel)
 
 
 def lm_serve_phase(seed, dev, torch, dispatch, card):
@@ -2850,31 +2911,9 @@ def lm_serve_phase(seed, dev, torch, dispatch, card):
     async_tick_ms = p50_ms(async_eng, "serve.decode_tick_s")
     tok_s = {k: LM_REQUESTS * LM_NEW / v[1] for k, v in drives.items()}
 
-    # sync ticks under the profiler: the device's busy time a tick (short
-    # prompts: only the decode ticks are traced)
-    eng = engine.Engine(cfg, params, batch_slots=LM_SLOTS,
-                        max_seq=LM_MAX_SEQ)
-    for i in range(LM_SLOTS):
-        eng.submit(engine.Request(
-            rid=i, prompt=rng.integers(0, cfg.vocab, 2).astype(np.int32),
-            max_new_tokens=LM_PROFILED + 3))
-    # the device's activity alone: ~2,600 kernels a tick, and the host
-    # ops' events would multiply the trace's processing time
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.no_grad():
-        eng.step()
-        eng.step()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(LM_PROFILED):
-                eng.step()
-    cuda = torch.autograd.DeviceType.CUDA
-    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3
-                         / LM_PROFILED, e.count / LM_PROFILED)
-                        for e in prof.key_averages()
-                        if e.device_type == cuda), key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in by_kernel)
-    kernels_tick = sum(n for _, _, n in by_kernel)
+    # sync ticks under the profiler: the device's busy time a tick
+    busy_ms, kernels_tick, by_kernel = lm_tick_profile(
+        engine, cfg, params, rng, torch, LM_SLOTS, LM_MAX_SEQ, LM_PROFILED)
     idle = 1 - busy_ms / tick_ms if busy_ms else None
     peak = torch.cuda.max_memory_allocated()
     lap("profiled ticks", t0)
@@ -2924,6 +2963,747 @@ def lm_serve_phase(seed, dev, torch, dispatch, card):
                 kernels_per_tick=kernels_tick, idle_share=idle,
                 device_by_kernel=by_kernel[:20], phase_s=phase_s,
                 phase_split_s=split, card=card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: LM serving of the MoE, SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+LMF_MOE = "deepseek-moe-16b"
+#: the card-vs-CPU prefill's cut of DeepSeek-MoE: the dense first layer
+#: and 3 MoE layers, at full width
+LMF_CUT_LAYERS = 4
+#: card vs CPU prefill: prompts x tokens (and encoder frames), teacher-forced
+LMF_PROMPTS, LMF_PROMPT_LEN = 2, 16
+#: decode steps held against the parallel forward
+LMF_DECODE = 8
+#: the engine drives of the whole models: requests, prompt and new tokens,
+#: slots, cache rows (requests of one length, a multiple of the slots: no
+#: row is ever empty, so sync and async feed every row the same tokens)
+LMF_REQUESTS, LMF_PROMPT, LMF_NEW = 8, 16, 16
+LMF_SLOTS, LMF_MAX_SEQ = 4, 64
+#: sync decode ticks traced by ``torch.profiler``
+LMF_PROFILED = 3
+#: smoke-size drives card vs CPU: requests x (prompt + new) through slots
+LMF_SMOKE_REQUESTS, LMF_SMOKE_SLOTS = 4, 2
+#: the whole models against the CPU: the reference's own prefill/decode
+#: bound; the smoke sizes: the CPU parity tests' bound
+#: (``tests/test_torch_lm_families.py``)
+LMF_RTOL, LMF_ATOL = LM_RTOL, LM_ATOL
+LMF_SMOKE_RTOL, LMF_SMOKE_ATOL = 0.02, 0.08
+#: the router's probabilities of one run against another's (each from its
+#: own hidden states, which differ by the bf16 noise of the layers below):
+#: within the logits' relative tolerance, at every routed token, so an
+#: expert can differ only where two experts' probabilities are that close
+ROUTER_RTOL, ROUTER_ATOL = LM_RTOL, 1e-4
+#: Jamba's Mamba mixer at its full width, over 2 x 64 tokens
+JAMBA_MAMBA = dict(d_model=8192, d_state=16, expand=2)
+JAMBA_TOKENS = (2, 64)
+#: prefill vs token-by-token steps of that layer (bf16 outputs), and the
+#: mLSTM chunked prefill vs its sequential scan at xLSTM's width
+SSM_RTOL, SSM_ATOL = 0.02, 0.02
+
+
+def lmf_check(ok, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"lm_families: {msg}")
+
+
+class RouterPin:
+    """Holds one run's MoE routing to another's.
+
+    ``record()`` keeps every ``moe.route`` call's experts and router
+    probabilities (on the host).  ``hold(want)`` then routes each call as
+    usual and compares it with ``want(i)``, the record of the i-th call's
+    rows: the probabilities must agree within ``ROUTER_RTOL`` /
+    ``ROUTER_ATOL``, so an expert can differ only where two experts'
+    probabilities are that close (a near tie); there the row takes the
+    recorded experts,
+    its gates re-normalised from this run's probabilities.  ``held``
+    counts the rows taken over, ``worst`` the largest probability
+    difference met."""
+
+    def __init__(self, moe, torch):
+        self.moe, self.torch = moe, torch
+        self.calls: list = []
+        self.held = 0
+        self.worst = 0.0
+
+    @staticmethod
+    def probs(torch, p, x):
+        n = x.shape[0] * x.shape[1]
+        return torch.softmax(x.reshape(n, -1).to(torch.float32)
+                             @ p["router"], dim=-1)
+
+    @contextlib.contextmanager
+    def _routed_by(self, route):
+        own = self.moe.route
+        self.moe.route = route(own)
+        try:
+            yield
+        finally:
+            self.moe.route = own
+
+    def record(self):
+        def route(own):
+            def recorded(p, x, top_k):
+                out = own(p, x, top_k)
+                self.calls.append((out[1].cpu(),
+                                   self.probs(self.torch, p, x).cpu()))
+                return out
+            return recorded
+        return self._routed_by(route)
+
+    def hold(self, want):
+        torch = self.torch
+        count = [0]
+
+        def route(own):
+            def held(p, x, top_k):
+                vals, idx, aux = own(p, x, top_k)
+                rec, rec_probs = (t.to(idx.device) for t in want(count[0]))
+                count[0] += 1
+                probs = self.probs(torch, p, x)
+                worst = float((probs - rec_probs).abs().max())
+                self.worst = max(self.worst, worst)
+                lmf_check(torch.allclose(probs, rec_probs, rtol=ROUTER_RTOL,
+                                         atol=ROUTER_ATOL),
+                          f"router probabilities differ by up to "
+                          f"{worst:.3g} between the runs")
+                if torch.equal(idx, rec):
+                    return vals, idx, aux
+                self.held += int((idx != rec).any(-1).sum())
+                vals = probs.gather(1, rec)
+                return vals / (vals.sum(-1, keepdim=True) + 1e-9), rec, aux
+            return held
+        return self._routed_by(route)
+
+
+def lmf_close(label, got, want, rtol, atol, torch):
+    """Logits ``got`` (card) against ``want`` (CPU) over the real vocab:
+    within the tolerance, and the argmax equal wherever the CPU's top-2
+    margin exceeds ``atol`` -> (max |dlogit|, positions below that
+    margin, unchecked)."""
+    got = got.float().cpu()
+    want = want.float().cpu()
+    lmf_check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"{label}: bad logits {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    lmf_check(torch.allclose(got, want, rtol=rtol, atol=atol),
+              f"{label}: card logits differ from the CPU's by up to {err}")
+    top2 = torch.topk(want, 2, dim=-1).values
+    checkable = (top2[..., 0] - top2[..., 1]) > atol
+    same = got.argmax(-1) == want.argmax(-1)
+    lmf_check(bool(same[checkable].all()), f"{label}: argmax differs where "
+              f"the CPU's top-2 margin exceeds {atol}")
+    return err, int((~checkable).sum())
+
+
+def lmf_ticks(engine, cfg, params, seed, torch, asyn, requests, slots,
+              prompt, new, max_seq):
+    """A drive of equal requests that records, per decode tick, the
+    tokens fed to every row and every row's logits -> (tokens by rid,
+    feeds, logits rows)."""
+    eng = engine.Engine(cfg, params, batch_slots=slots, max_seq=max_seq)
+    feeds, rows = [], []
+    decode, prefill = eng._decode, eng._prefill_one
+
+    def traced(p, state, last):
+        logits, state = decode(p, state, last)
+        feeds.append(last.cpu().ravel().tolist())
+        rows.append(logits[:, -1].float().cpu())
+        return logits, state
+
+    def untraced(prompt_):
+        eng._decode = decode
+        try:
+            return prefill(prompt_)
+        finally:
+            eng._decode = traced
+
+    eng._decode, eng._prefill_one = traced, untraced
+    rng = np.random.default_rng(seed)
+    for i in range(requests):
+        eng.submit(engine.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, prompt).astype(
+                np.int32), max_new_tokens=new))
+    done = (eng.run_until_drained_async() if asyn
+            else eng.run_until_drained())
+    return {r.rid: list(r.out_tokens) for r in done}, feeds, rows
+
+
+def lmf_same_ticks(label, got, want, vocab, atol):
+    """Card drive against CPU drive: every row's fed token equal tick by
+    tick up to the first tick where one differs, and there each differing
+    token a near tie of the CPU's logits of its row one tick before
+    (under the dropping MoE dispatch the rows share expert capacity, so
+    nothing after is compared) -> the tick of the split, or None."""
+    tokens, feeds, _ = got
+    want_tokens, want_feeds, want_rows = want
+    lmf_check(len(feeds) == len(want_feeds) and tokens.keys()
+              == want_tokens.keys(), f"{label}: the drives differ in shape")
+    split = next((i for i, (a, b) in enumerate(zip(want_feeds, feeds))
+                  if a != b), None)
+    if split is None:
+        lmf_check(tokens == want_tokens, f"{label}: tokens differ")
+        return None
+    for row, (a, b) in enumerate(zip(want_feeds[split], feeds[split])):
+        if a != b:
+            logits = want_rows[split - 1][row, :vocab]
+            margin = float(logits[a] - logits[b])
+            lmf_check(int(logits.argmax()) == a and margin <= atol,
+                      f"{label}: tick {split} row {row} token {b} != {a}, "
+                      f"the CPU's margin {margin}")
+    return split
+
+
+def lmf_engine(label, engine, cfg, params, seed, torch, rng):
+    """The whole model's engine at ``LMF_SLOTS`` slots, sync and async
+    (equal tokens), its tick and prefill p50 and a profile of sync ticks
+    -> record."""
+    drives = {}
+    with torch.no_grad():
+        for mode, asyn in (("sync", False), ("async", True)):
+            drives[mode] = lm_drive(
+                engine, cfg, params, seed, torch, asyn, tag="lm_families",
+                requests=LMF_REQUESTS, prompt=LMF_PROMPT, new=LMF_NEW,
+                max_seq=LMF_MAX_SEQ, batch_slots=LMF_SLOTS)
+    lmf_check(drives["sync"][0] == drives["async"][0],
+              f"{label}: async tokens differ from sync's")
+    eng = drives["sync"][2]
+
+    def p50_ms(e, name):
+        return e.obs.registry.histogram(name).quantile(0.5) * 1e3
+
+    tick_ms = p50_ms(eng, "serve.decode_tick_s")
+    busy_ms, kernels, by_kernel = lm_tick_profile(
+        engine, cfg, params, rng, torch, LMF_SLOTS, LMF_MAX_SEQ,
+        LMF_PROFILED)
+    return dict(
+        tick_ms_p50=tick_ms,
+        async_tick_ms_p50=p50_ms(drives["async"][2], "serve.decode_tick_s"),
+        prefill_ms_p50=p50_ms(eng, "serve.prefill_s"),
+        tokens_per_s={m: LMF_REQUESTS * LMF_NEW / d[1]
+                      for m, d in drives.items()},
+        device_busy_ms_per_tick=busy_ms, kernels_per_tick=kernels,
+        idle_share=1 - busy_ms / tick_ms if busy_ms else None,
+        device_by_kernel=by_kernel[:12], clock=int(eng.state["cache_len"]))
+
+
+def lmf_engine_line(rec) -> str:
+    idle = rec["idle_share"]
+    return (f"engine {LMF_REQUESTS} requests x {LMF_PROMPT} + {LMF_NEW} "
+            f"tokens at {LMF_SLOTS} slots, sync == async: tick p50 "
+            f"{rec['tick_ms_p50']:.3f} ms sync, {rec['async_tick_ms_p50']:.3f}"
+            f" ms async; prefill p50 {rec['prefill_ms_p50']:.3f} ms a "
+            f"request; tokens/s " + ", ".join(
+                f"{k} {v:.1f}" for k, v in rec["tokens_per_s"].items())
+            + f"; profiler over {LMF_PROFILED} sync ticks: device busy "
+            f"{rec['device_busy_ms_per_tick']:.3f} ms and "
+            f"{rec['kernels_per_tick']:.0f} kernels a tick, "
+            + (f"idle {idle:.3f} of the sync p50 tick" if idle is not None
+               else "idle not measured: no device time in the trace")
+            + "; top: " + ", ".join(f"{k[:32]} {ms:.3f}"
+                                    for k, ms, _ in
+                                    rec["device_by_kernel"][:3]))
+
+
+def lmf_deepseek(seed, dev, torch, card):
+    """DeepSeek-MoE-16B whole on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api, moe, stack
+    from repro_torch.serve import engine
+    from repro_torch.utils.tree import (
+        tree_count_params,
+        tree_map,
+        tree_size_bytes,
+    )
+
+    t0 = time.perf_counter()
+    cfg = get_arch(LMF_MOE)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    n_params, p_bytes = tree_count_params(params), tree_size_bytes(params)
+    lmf_check(n_params == api.param_count(cfg),
+              f"{cfg.name}: the params differ from param_count")
+    rng = np.random.default_rng(seed + 50)
+    toks = rng.integers(0, cfg.vocab, (LMF_PROMPTS, LMF_PROMPT_LEN)).astype(
+        np.int32)
+
+    # card vs CPU at a cut depth, the card's routing held to the CPU's
+    cut_cfg = dataclasses.replace(cfg, n_layers=LMF_CUT_LAYERS)
+    reps = stack.n_repeats(cut_cfg)
+    cut = dict(params, blocks=[tree_map(lambda t: t[:reps], b)
+                               for b in params["blocks"]])
+    prefill = api.prefill_fn(cut_cfg)
+    pin = RouterPin(moe, torch)
+    with torch.no_grad():
+        cpu_cut = tree_map(lambda t: t.cpu(), cut)
+        with pin.record():
+            want, _ = prefill(cpu_cut, {"tokens": torch.as_tensor(toks)})
+        del cpu_cut
+        with pin.hold(lambda i: pin.calls[i]):
+            got, _ = prefill(cut, {"tokens": torch.as_tensor(toks,
+                                                             device=dev)})
+    prefill_err, unchecked = lmf_close(
+        f"{cfg.name} cut prefill", got[..., :cfg.vocab],
+        want[..., :cfg.vocab], LMF_RTOL, LMF_ATOL, torch)
+    prefill_held, prefill_worst = pin.held, pin.worst
+    del cut, got, want
+
+    # decode against forward at full depth, the dense dispatch (exact,
+    # batch-independent), each step's routing held to the forward's
+    n_moe = stack.n_repeats(cfg) * sum(
+        1 for _, f in stack.block_structure(cfg) if f == "moe")
+    dtoks = torch.as_tensor(toks[:1, :LMF_DECODE], device=dev)
+    pin = RouterPin(moe, torch)
+    moe.FORCE_IMPL = "dense"
+    try:
+        with torch.no_grad():
+            with pin.record():
+                full, _ = stack.forward(cfg, params, dtoks, mode="train")
+            state = api.init_decode_state(cfg, 1, 2 * LMF_DECODE,
+                                          device=dev)
+            dec = api.decode_fn(cfg)
+            with pin.hold(lambda i: tuple(
+                    t[i // n_moe:i // n_moe + 1]
+                    for t in pin.calls[i % n_moe])):
+                for t in range(LMF_DECODE):
+                    logits, state = dec(params, state, dtoks[:, t:t + 1])
+    finally:
+        moe.FORCE_IMPL = None
+    decode_err = float((logits[0, -1] - full[0, -1]).abs().max())
+    lmf_check(torch.allclose(logits[0, -1], full[0, -1], rtol=LMF_RTOL,
+                             atol=LMF_ATOL),
+              f"{cfg.name}: decode differs from forward by up to "
+              f"{decode_err}")
+    decode_held, decode_worst = pin.held, pin.worst
+    del state, full, logits
+    checks_s = time.perf_counter() - t0
+
+    rec = lmf_engine(cfg.name, engine, cfg, params, seed, torch, rng)
+    peak = torch.cuda.max_memory_allocated()
+    phase("lm_families", f"{cfg.name}: {cfg.n_layers} layers (1 dense, "
+          f"{n_moe} MoE of {cfg.moe.n_experts} experts, top-{cfg.moe.top_k}"
+          f", {cfg.moe.n_shared} shared), d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}; {n_params} params ({api.active_param_count(cfg)} "
+          f"active), {p_bytes / 1e9:.3f} GB bf16; peak allocated "
+          f"{peak / 1e9:.3f} GB; {card}")
+    phase("lm_families", f"{cfg.name}: prefill {LMF_PROMPTS} x "
+          f"{LMF_PROMPT_LEN} tokens at {LMF_CUT_LAYERS} layers (the dense "
+          f"one and {reps} MoE, full width), card vs CPU, dropping dispatch:"
+          f" max |dlogit| {prefill_err:.4f} (rtol {LMF_RTOL}, atol "
+          f"{LMF_ATOL}), {unchecked} positions under the argmax margin, "
+          f"router probabilities within {prefill_worst:.2e}, "
+          f"{prefill_held} routing rows held at a near tie; {LMF_DECODE} "
+          f"decode steps vs forward at full depth, dense dispatch: max "
+          f"|dlogit| {decode_err:.4f}, router probabilities within "
+          f"{decode_worst:.2e}, {decode_held} rows held; checks "
+          f"{checks_s:.1f} s")
+    phase("lm_families", f"{cfg.name}: " + lmf_engine_line(rec)
+          + f"; {card}")
+    rec.update(arch=cfg.name, params=n_params, param_bytes=p_bytes,
+               peak_allocated_bytes=peak,
+               cut_prefill_max_abs_err=prefill_err,
+               cut_prefill_unchecked_positions=unchecked,
+               cut_prefill_router_rows_held=prefill_held,
+               cut_prefill_router_prob_max_abs_err=prefill_worst,
+               decode_vs_forward_max_abs_err=decode_err,
+               decode_router_rows_held=decode_held,
+               decode_router_prob_max_abs_err=decode_worst)
+    del params
+    return rec
+
+
+def lmf_layers(cfg, stack, params, cpu=None):
+    """(card params, CPU params or None, mixer, ffn) of every layer of a
+    stack, in order."""
+    for i, p in enumerate(params["head_layers"]):
+        yield p, cpu and cpu["head_layers"][i], "a", "dense"
+    for r in range(stack.n_repeats(cfg)):
+        for pos, (mixer, ffn) in enumerate(stack.block_structure(cfg)):
+            yield (stack.index_tree(params["blocks"][pos], r),
+                   cpu and stack.index_tree(cpu["blocks"][pos], r), mixer,
+                   ffn)
+
+
+def lmf_teacher_forced(name, cfg, params, cpu, toks, dev, torch):
+    """The stack on the card against the CPU layer by layer: each layer
+    on the card takes the CPU's input to it (bf16 noise is not carried
+    from layer to layer); then the head on the CPU's last hidden state
+    -> (max |dh| over the layers, max |dlogit|, unchecked positions)."""
+    from repro_torch.models import layers, stack
+
+    worst = 0.0
+    with torch.no_grad(), layers.lm_precision():
+        h = stack._embed_inputs(cfg, cpu, toks)
+        for i, (p, p_cpu, mixer, ffn) in enumerate(
+                lmf_layers(cfg, stack, params, cpu)):
+            want, _, _ = stack.apply_layer(cfg, p_cpu, h, mixer, ffn,
+                                           "train")
+            got, _, _ = stack.apply_layer(cfg, p, h.to(dev), mixer, ffn,
+                                          "train")
+            got, want = got.float().cpu(), want.float()
+            err = float((got - want).abs().max())
+            lmf_check(torch.allclose(got, want, rtol=LMF_RTOL,
+                                     atol=LMF_ATOL),
+                      f"{name}: layer {i} ({mixer}) on the card differs "
+                      f"from the CPU's by {err}")
+            worst = max(worst, err)
+            h = want.to(torch.bfloat16)
+        logit_err, unchecked = lmf_close(
+            f"{name} head", stack._logits(cfg, params, h.to(dev)),
+            stack._logits(cfg, cpu, h), LMF_RTOL, LMF_ATOL, torch)
+    return worst, logit_err, unchecked
+
+
+def lmf_layer_steps(name, cfg, params, toks, dev, torch):
+    """Decode against forward on the card, layer by layer: each layer's
+    token-by-token decode from a zero state against its full-sequence
+    forward on the same inputs (the forward's input to that layer) ->
+    max |dh| over the layers."""
+    from repro_torch.models import layers, stack
+
+    n = toks.shape[1]
+    worst = 0.0
+    with torch.no_grad(), layers.lm_precision():
+        h = stack._embed_inputs(cfg, params, toks)
+        for i, (p, _, mixer, ffn) in enumerate(lmf_layers(cfg, stack,
+                                                          params)):
+            full, _, _ = stack.apply_layer(cfg, p, h, mixer, ffn, "train")
+            state = stack._mixer_state(cfg, mixer, h.shape[0], 2 * n,
+                                       cfg.n_kv_heads, dev)
+            clock = torch.zeros((), dtype=torch.int32, device=dev)
+            steps = []
+            for t in range(n):
+                out, new, _ = stack.apply_layer(
+                    cfg, p, h[:, t:t + 1], mixer, ffn, "decode",
+                    cache=state, cache_len=clock)
+                state, clock = new, clock + 1
+                steps.append(out)
+            steps = torch.cat(steps, dim=1).float()
+            err = float((steps - full.float()).abs().max())
+            lmf_check(torch.allclose(steps, full.float(), rtol=LMF_RTOL,
+                                     atol=LMF_ATOL),
+                      f"{name}: layer {i} ({mixer}) decode differs from its "
+                      f"forward by {err}")
+            worst = max(worst, err)
+            h = full
+    return worst
+
+
+def lmf_whole(name, seed, dev, torch, card):
+    """xLSTM-350M or SeamlessM4T-medium whole on the card.  The random-
+    weight xLSTM is chaotic at full depth (mLSTM divides by its
+    normaliser, which bf16 noise moves), so its card-vs-CPU prefill and
+    its decode-vs-forward are held layer by layer, each layer on the
+    other side's inputs; the free-running differences and the logits'
+    response to noise-sized changes of the embeddings are printed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api, encdec, ssm, stack
+    from repro_torch.serve import engine
+    from repro_torch.utils.tree import tree_count_params, tree_map
+
+    cfg = get_arch(name)
+    params = api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    n_params = tree_count_params(params)
+    lmf_check(n_params == api.param_count(cfg),
+              f"{name}: the params differ from param_count")
+    rng = np.random.default_rng(seed + 60)
+    toks = rng.integers(0, cfg.vocab, (LMF_PROMPTS, LMF_PROMPT_LEN)).astype(
+        np.int32)
+    frames = torch.as_tensor(rng.standard_normal(
+        (LMF_PROMPTS, LMF_PROMPT_LEN, cfg.d_model)).astype(np.float32)).to(
+            torch.bfloat16)
+    batch = {"tokens": torch.as_tensor(toks)}
+    if cfg.family == "encdec":
+        batch["frontend"] = frames
+    prefill = api.prefill_fn(cfg)
+    cpu = tree_map(lambda t: t.cpu(), params)
+    chaotic = cfg.family == "ssm"
+    extra = {}
+    with torch.no_grad():
+        want, _ = prefill(cpu, batch)
+        got, _ = prefill(params, tree_map(lambda t: t.to(dev), batch))
+    free_err = float((got.cpu() - want).abs().max())
+    if chaotic:
+        layer_err, prefill_err, unchecked = lmf_teacher_forced(
+            name, cfg, params, cpu, torch.as_tensor(toks), dev, torch)
+        # the logits' response to the embeddings times 1 + 0.01 N(0, 1)
+        noisy = dict(params, embed=(params["embed"].float() * (
+            1 + 0.01 * torch.randn(params["embed"].shape, device=dev,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(seed)))).to(
+            torch.bfloat16))
+        with torch.no_grad():
+            moved, _ = prefill(noisy, tree_map(lambda t: t.to(dev), batch))
+        del noisy
+        extra.update(prefill_layer_max_abs_err=layer_err,
+                     prefill_free_running_max_abs_err=free_err,
+                     noise_response_max_abs_dlogit=float(
+                         (moved - got).abs().max()))
+        del moved
+    else:
+        prefill_err, unchecked = lmf_close(
+            f"{name} prefill", got[..., :cfg.vocab], want[..., :cfg.vocab],
+            LMF_RTOL, LMF_ATOL, torch)
+    del got, want, cpu
+
+    dtoks = torch.as_tensor(toks[:1, :LMF_DECODE], device=dev)
+    dec = api.decode_fn(cfg)
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            fr = frames[:1].to(dev)
+            full, _ = encdec.forward(cfg, params, dtoks, fr)
+            state = encdec.init_decode_state(cfg, 1, 2 * LMF_DECODE,
+                                             fr.shape[1], device=dev)
+            state["memory"] = encdec.encode(cfg, params, fr)
+        else:
+            full, _ = stack.forward(cfg, params, dtoks, mode="train")
+            state = api.init_decode_state(cfg, 1, 2 * LMF_DECODE,
+                                          device=dev)
+        for t in range(LMF_DECODE):
+            logits, state = dec(params, state, dtoks[:, t:t + 1])
+        if chaotic:
+            # the chunked mLSTM (chunks of 16) against its sequential scan
+            # on the first mLSTM layer, 2 x 64 tokens at full width
+            p = stack.index_tree(params["blocks"][0]["mlstm"], 0)
+            x = torch.randn(2, 64, cfg.d_model, device=dev, generator=(
+                torch.Generator(device=dev).manual_seed(seed))).to(
+                    torch.bfloat16)
+            kw = dict(n_heads=cfg.n_heads, expand=cfg.ssm_expand)
+            chunked, st_c = ssm.mlstm_prefill(p, x, chunk=16, **kw)
+            seq, st_s = ssm.mlstm_prefill_sequential(p, x, **kw)
+            err = float((chunked.float() - seq.float()).abs().max())
+            lmf_check(torch.allclose(chunked.float(), seq.float(),
+                                     rtol=SSM_RTOL, atol=SSM_ATOL),
+                      f"{name}: chunked mLSTM differs from the sequential "
+                      f"scan by up to {err}")
+            c_err = float((st_c[0] - st_s[0]).abs().max())
+            lmf_check(torch.allclose(st_c[0], st_s[0], rtol=1e-3, atol=1e-4),
+                      f"{name}: chunked mLSTM state differs by {c_err}")
+            extra.update(mlstm_chunked_vs_sequential_max_abs_err=err,
+                         mlstm_state_max_abs_err=c_err)
+    decode_err = float((logits[0, -1] - full[0, -1]).abs().max())
+    if chaotic:
+        extra.update(decode_free_running_max_abs_err=decode_err)
+        decode_err = lmf_layer_steps(name, cfg, params, dtoks, dev, torch)
+    else:
+        lmf_check(torch.allclose(logits[0, -1], full[0, -1], rtol=LMF_RTOL,
+                                 atol=LMF_ATOL),
+                  f"{name}: decode differs from forward by up to "
+                  f"{decode_err}")
+    del state, full, logits
+
+    rec = lmf_engine(name, engine, cfg, params, seed, torch, rng)
+    if chaotic:
+        held = (f"prefill card vs CPU layer by layer: max |dh| "
+                f"{extra['prefill_layer_max_abs_err']:.4f}, head max "
+                f"|dlogit| {prefill_err:.4f} ({unchecked} positions under "
+                f"the argmax margin); {LMF_DECODE} decode steps vs forward "
+                f"layer by layer: max |dh| {decode_err:.4f}; not held, "
+                f"free-running over all layers: card vs CPU max |dlogit| "
+                f"{free_err:.4f}, decode vs forward "
+                f"{extra['decode_free_running_max_abs_err']:.4f}, and the "
+                f"embeddings x (1 + 0.01 N(0,1)) move the card's logits by "
+                f"{extra['noise_response_max_abs_dlogit']:.4f}; chunked "
+                f"mLSTM (chunk 16) vs sequential over 2 x 64 tokens: max "
+                f"|dout| "
+                f"{extra['mlstm_chunked_vs_sequential_max_abs_err']:.4f}, "
+                f"|dC| {extra['mlstm_state_max_abs_err']:.2e}")
+    else:
+        held = (f"prefill {LMF_PROMPTS} x {LMF_PROMPT_LEN} card vs CPU: max "
+                f"|dlogit| {prefill_err:.4f} ({unchecked} positions under "
+                f"the argmax margin); {LMF_DECODE} decode steps vs forward "
+                f"(memory = encode(frames)): max |dlogit| {decode_err:.4f}")
+    phase("lm_families", f"{name}: {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+          + f", d_model {cfg.d_model}, vocab {cfg.vocab}; {n_params} params; "
+          f"{held}; {card}")
+    phase("lm_families", f"{name}: " + lmf_engine_line(rec) + f"; {card}")
+    rec.update(arch=name, params=n_params,
+               prefill_card_vs_cpu_max_abs_err=prefill_err,
+               prefill_unchecked_positions=unchecked,
+               decode_vs_forward_max_abs_err=decode_err, **extra)
+    del params
+    return rec
+
+
+def lmf_smoke(name, seed, dev, torch, card):
+    """A smoke config (Jamba, Llama-4-Scout): prefill, decode and the
+    engine on the card against the CPU, the card's routing held to the
+    CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api, moe
+    from repro_torch.serve import engine
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_arch(name, smoke=True)
+    cpu = api.init_params(cfg, generator=torch.Generator().manual_seed(seed),
+                          device="cpu")
+    params = tree_map(lambda t: t.to(dev), cpu)
+    rng = np.random.default_rng(seed + 70)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32))
+    prefill = api.prefill_fn(cfg)
+    pin = RouterPin(moe, torch)
+    with torch.no_grad():
+        with pin.record():
+            want, _ = prefill(cpu, {"tokens": toks})
+        with pin.hold(lambda i: pin.calls[i]):
+            got, _ = prefill(params, {"tokens": toks.to(dev)})
+    prefill_err, _ = lmf_close(f"{name} prefill", got, want, LMF_SMOKE_RTOL,
+                               LMF_SMOKE_ATOL, torch)
+    dec = api.decode_fn(cfg)
+    decode_err, decode_held, decode_worst = 0.0, 0, 0.0
+    with torch.no_grad():
+        s_cpu = api.init_decode_state(cfg, 2, 8, device="cpu")
+        s_card = api.init_decode_state(cfg, 2, 8, device=dev)
+        for t in range(10):               # past max_seq: the clamped write
+            step = RouterPin(moe, torch)
+            with step.record():
+                a, s_cpu = dec(cpu, s_cpu, toks[:, t:t + 1])
+            with step.hold(lambda i: step.calls[i]):
+                b, s_card = dec(params, s_card, toks[:, t:t + 1].to(dev))
+            decode_held += step.held
+            decode_worst = max(decode_worst, step.worst)
+            decode_err = max(decode_err, lmf_close(
+                f"{name} decode step {t}", b, a, LMF_SMOKE_RTOL,
+                LMF_SMOKE_ATOL, torch)[0])
+    splits = {}
+    with torch.no_grad():
+        for mode, asyn in (("sync", False), ("async", True)):
+            args = (seed, torch, asyn, LMF_SMOKE_REQUESTS, LMF_SMOKE_SLOTS,
+                    6, 8, 32)
+            splits[mode] = lmf_same_ticks(
+                f"{name} engine {mode}",
+                lmf_ticks(engine, cfg, params, *args),
+                lmf_ticks(engine, cfg, cpu, *args), cfg.vocab,
+                LMF_SMOKE_ATOL)
+    # the smoke model's own tick, untraced, and a profile of sync ticks
+    with torch.no_grad():
+        _, wall, eng = lm_drive(
+            engine, cfg, params, seed, torch, tag="lm_families",
+            requests=LMF_SMOKE_REQUESTS, prompt=6, new=8, max_seq=32,
+            batch_slots=LMF_SMOKE_SLOTS)
+    tick_ms = eng.obs.registry.histogram(
+        "serve.decode_tick_s").quantile(0.5) * 1e3
+    prefill_ms = eng.obs.registry.histogram(
+        "serve.prefill_s").quantile(0.5) * 1e3
+    busy_ms, kernels, _ = lm_tick_profile(
+        engine, cfg, params, rng, torch, LMF_SMOKE_SLOTS, 32, LMF_PROFILED)
+    idle = 1 - busy_ms / tick_ms if busy_ms else None
+    phase("lm_families", f"{cfg.name} (smoke): tick p50 {tick_ms:.3f} ms "
+          f"at {LMF_SMOKE_SLOTS} slots, prefill p50 {prefill_ms:.3f} ms (6 "
+          f"tokens), device busy {busy_ms:.3f} ms and {kernels:.0f} kernels "
+          f"a tick, " + (f"idle {idle:.3f}" if idle is not None
+                         else "idle not measured") + f"; {card}")
+    phase("lm_families", f"{cfg.name} (smoke): prefill 2 x 16 card vs CPU "
+          f"max |dlogit| {prefill_err:.4f}, router probabilities within "
+          f"{pin.worst:.2e}, {pin.held} routing rows held; 10 decode steps "
+          f"max |dlogit| {decode_err:.4f}, within {decode_worst:.2e}, "
+          f"{decode_held} rows held; engine {LMF_SMOKE_REQUESTS} requests at "
+          f"{LMF_SMOKE_SLOTS} slots, card vs CPU sync / async: first "
+          f"differing tick {splits['sync']} / {splits['async']} (None: "
+          f"every token equal); {card}")
+    return dict(arch=cfg.name, prefill_max_abs_err=prefill_err,
+                prefill_router_rows_held=pin.held,
+                decode_max_abs_err=decode_err,
+                decode_router_rows_held=decode_held, engine_split=splits,
+                tick_ms_p50=tick_ms, prefill_ms_p50=prefill_ms,
+                device_busy_ms_per_tick=busy_ms, kernels_per_tick=kernels,
+                idle_share=idle)
+
+
+def lmf_mamba(seed, dev, torch, card):
+    """One Mamba mixer at Jamba's full width: the chunked prefill over
+    ``JAMBA_TOKENS`` against token-by-token steps on the card, and
+    against the CPU's prefill."""
+    from repro_torch.models import ssm
+    from repro_torch.utils.tree import tree_map
+
+    d, n = JAMBA_MAMBA["d_model"], JAMBA_MAMBA["d_state"]
+    kw = dict(d_state=n, expand=JAMBA_MAMBA["expand"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = ssm.init_mamba(gen, d, device=dev, **kw)
+    x = torch.randn(*JAMBA_TOKENS, d, device=dev, generator=gen).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        out, (st, tail) = ssm.mamba_prefill(p, x, **kw)
+        state = ssm.mamba_init_state(JAMBA_TOKENS[0], d, n,
+                                     expand=kw["expand"], device=dev)
+        steps = []
+        for t in range(JAMBA_TOKENS[1]):
+            o, state = ssm.mamba_step(p, x[:, t:t + 1], state, **kw)
+            steps.append(o)
+        steps = torch.cat(steps, dim=1)
+        cpu_out, (cpu_st, _) = ssm.mamba_prefill(
+            tree_map(lambda t: t.cpu(), p), x.cpu(), **kw)
+    step_err = float((steps.float() - out.float()).abs().max())
+    lmf_check(torch.allclose(steps.float(), out.float(), rtol=SSM_RTOL,
+                             atol=SSM_ATOL),
+              f"jamba mamba: steps differ from the prefill by {step_err}")
+    st_err = float((state[0] - st).abs().max())
+    lmf_check(torch.allclose(state[0], st, rtol=1e-3, atol=1e-4)
+              and torch.equal(state[1], tail),
+              f"jamba mamba: the stepped state differs by {st_err}")
+    # the card's and the CPU's bf16 input projections round apart, so the
+    # float32 states are held at the outputs' tolerance
+    cpu_err = float((out.float().cpu() - cpu_out.float()).abs().max())
+    cpu_st_err = float((st.cpu() - cpu_st).abs().max())
+    lmf_check(torch.allclose(out.float().cpu(), cpu_out.float(),
+                             rtol=SSM_RTOL, atol=SSM_ATOL)
+              and torch.allclose(st.cpu(), cpu_st, rtol=SSM_RTOL,
+                                 atol=SSM_ATOL),
+              f"jamba mamba: card prefill differs from the CPU's by "
+              f"{cpu_err} (state {cpu_st_err})")
+    phase("lm_families", f"jamba mamba mixer at d_model {d} (d_inner "
+          f"{d * kw['expand']}, d_state {n}), {JAMBA_TOKENS[0]} x "
+          f"{JAMBA_TOKENS[1]} tokens: prefill vs token-by-token steps max "
+          f"|dout| {step_err:.4f}, ssm state {st_err:.2e}; card vs CPU "
+          f"prefill max |dout| {cpu_err:.4f}, ssm state {cpu_st_err:.2e}; "
+          f"{card}")
+    return dict(d_model=d, steps_vs_prefill_max_abs_err=step_err,
+                state_max_abs_err=st_err, card_vs_cpu_max_abs_err=cpu_err,
+                card_vs_cpu_state_max_abs_err=cpu_st_err)
+
+
+def lm_families_phase(seed, dev, torch, dispatch, card):
+    """Phase 13: DeepSeek-MoE-16B whole, xLSTM-350M and SeamlessM4T-medium
+    whole, Jamba and Llama-4-Scout at smoke size and one Mamba mixer at
+    Jamba's width; no reference kernel launched.  Returns the record."""
+    t0 = time.perf_counter()
+    split = {}
+    dispatch.reset()
+    rec = {}
+    for key, run in (
+            ("deepseek", lambda: lmf_deepseek(seed, dev, torch, card)),
+            ("xlstm", lambda: lmf_whole("xlstm-350m", seed, dev, torch,
+                                        card)),
+            ("seamless", lambda: lmf_whole("seamless-m4t-medium", seed, dev,
+                                           torch, card)),
+            ("jamba", lambda: lmf_smoke("jamba-1.5-large-398b", seed, dev,
+                                        torch, card)),
+            ("llama4", lambda: lmf_smoke("llama4-scout-17b-a16e", seed, dev,
+                                         torch, card)),
+            ("jamba_mamba", lambda: lmf_mamba(seed, dev, torch, card))):
+        t = time.perf_counter()
+        rec[key] = run()
+        torch.cuda.empty_cache()
+        split[key] = time.perf_counter() - t
+    lmf_check(not dispatch.counts(), f"the LM path launched a reference "
+              f"kernel: {dispatch.counts()}")
+    phase_s = time.perf_counter() - t0
+    phase("lm_families", "no reference kernel launched; phase took "
+          f"{phase_s:.1f} s (" + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in split.items())
+          + f"); {card}")
+    rec.update(phase_s=phase_s, phase_split_s=split, card=card)
+    return rec
 
 
 def main() -> int:
@@ -3457,6 +4237,7 @@ def main() -> int:
     merge(train_err)
     # 12. LM serving: Qwen3-0.6B through the continuous-batching engine
     lm_rec = lm_serve_phase(args.seed, dev, torch, dispatch, card)
+    lmf_rec = lm_families_phase(args.seed, dev, torch, dispatch, card)
     path_kernel = aggregate(per_launch + lib_main + twin_recs)
     new_paths = (async_launches + tenant_launches + shard_launches
                  + collections.Counter(twin_launches)
@@ -3531,7 +4312,7 @@ def main() -> int:
                                       timing[("hop", False)])),
                   async_path=async_rec, tenants=tenant_rec,
                   sharded=shard_rec, chip_twin=twin_rec, train=train_rec,
-                  lm_serve=lm_rec)
+                  lm_serve=lm_rec, lm_families=lmf_rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -5,7 +5,9 @@ retire).  Random weights from a seeded generator.
 Run:  PYTHONPATH=src python examples/serve_lm_torch.py [--arch qwen3-0.6b]
       [--device cpu] [--full]
 
-Without ``--device`` it runs on the card (and raises with none);
+``--arch`` takes every config name (``repro_torch.configs.arch_names()``:
+dense, VLM, MoE, SSM, hybrid and encoder-decoder).  Without ``--device``
+it runs on the card (and raises with none);
 ``--full`` serves the published config instead of the reduced ``SMOKE``
 one.
 """

@@ -3,7 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --requests 8 --slots 4 --max-new 16 --device cpu
 
-The port of the reference's ``repro/launch/serve.py``, with ``--device``
+``--arch`` takes every name of ``configs`` (every family: dense, vlm,
+moe, ssm, hybrid, encdec).  The port of the reference's
+``repro/launch/serve.py``, with ``--device``
 (default ``cuda``: the card; with no card it raises).  Weights are random,
 drawn from a generator seeded ``--seed`` on the device.
 """

@@ -4,44 +4,48 @@ The port of the reference's ``repro/models/api.py``; the engine and the
 launcher import only this module:
 
   init_params(cfg, generator=, device=)       parameter tree
-  prefill_fn(cfg)(params, batch)              logits + caches
+  prefill_fn(cfg)(params, batch)              logits + caches / states
   decode_fn(cfg)(params, state, tok)          one-token step
   init_decode_state(cfg, batch, seq, device=) zeroed caches + clock
 
 Every entry point runs on the card unless the caller names another
-device (``ops.resolve_device``: with no card, asking for it raises).  The
-``dense`` and ``vlm`` families are served; ``encdec`` and the MoE, SSM
-and hybrid stacks raise ``NotImplementedError`` naming ROADMAP A.13b.
-``loss_fn`` waits for LM training (A.13c).
+device (``ops.resolve_device``: with no card, asking for it raises).
+Every family is served: ``encdec`` through ``models.encdec``, the others
+(dense, vlm, moe, ssm, hybrid) through ``models.stack``.  ``loss_fn``
+waits for LM training (A.13c).
+
+:func:`params_from_numpy` and :func:`params_to_numpy` carry weights
+between the reference's tree (through numpy) and the port's.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models import stack
-from repro_torch.utils.tree import tree_count_params
-
-
-def _dense_stack(cfg: ArchConfig) -> None:
-    if cfg.family == "encdec":
-        raise stack._later(f"{cfg.name}: the encoder-decoder family")
+from repro_torch.models import encdec, stack
+from repro_torch.utils.tree import tree_count_params, tree_map
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator | None = None,
                 device=None) -> dict:
     """Random weights drawn from ``generator`` (default: one seeded 0 on
     the target device); no ``device`` means the card."""
-    _dense_stack(cfg)
     device = ops.resolve_device(None, device)
     if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
+    if cfg.family == "encdec":
+        return encdec.init_params(cfg, generator, device)
     return stack.init_params(cfg, generator, device)
 
 
 def prefill_fn(cfg: ArchConfig):
-    _dense_stack(cfg)
+    if cfg.family == "encdec":
+        def prefill(params, batch):
+            return encdec.forward(cfg, params, batch["tokens"],
+                                  batch["frontend"], mode="prefill")
+        return prefill
 
     def prefill(params, batch):
         return stack.forward(cfg, params, batch["tokens"],
@@ -50,7 +54,10 @@ def prefill_fn(cfg: ArchConfig):
 
 
 def decode_fn(cfg: ArchConfig):
-    _dense_stack(cfg)
+    if cfg.family == "encdec":
+        def step(params, state, tokens):
+            return encdec.decode_step(cfg, params, state, tokens)
+        return step
 
     def step(params, state, tokens):
         return stack.decode_step(cfg, params, state, tokens)
@@ -59,9 +66,14 @@ def decode_fn(cfg: ArchConfig):
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       kv_replication: int = 1, *, device=None) -> dict:
-    _dense_stack(cfg)
+    """The encoder-decoder family's state holds a zeroed memory of
+    ``max_seq`` frames, as the reference's does."""
+    device = ops.resolve_device(None, device)
+    if cfg.family == "encdec":
+        return encdec.init_decode_state(cfg, batch, max_seq, max_seq,
+                                        device=device)
     return stack.init_decode_state(cfg, batch, max_seq, kv_replication,
-                                   device=ops.resolve_device(None, device))
+                                   device=device)
 
 
 def param_count(cfg: ArchConfig) -> int:
@@ -71,8 +83,51 @@ def param_count(cfg: ArchConfig) -> int:
 
 
 def active_param_count(cfg: ArchConfig) -> int:
-    """Active params per token: all of them for the families served here
-    (the MoE count, top_k + shared experts only, waits for A.13b)."""
-    if cfg.moe is not None:
-        raise stack._later(f"{cfg.name}: MoE active parameters")
-    return param_count(cfg)
+    """Active params per token (MoE: the top_k routed and the shared
+    experts only)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    n_moe_layers = sum(1 for _, f in stack.block_structure(cfg)
+                       if f == "moe") * stack.n_repeats(cfg)
+    per_expert = 3 * cfg.d_model * m.d_expert
+    return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert
+
+
+# ---------------------------------------------------------------------------
+# Weights across the numpy bridge
+# ---------------------------------------------------------------------------
+
+def params_from_numpy(cfg: ArchConfig, tree, device=None) -> dict:
+    """The reference's parameter tree for ``cfg`` (numpy arrays, or JAX
+    arrays through ``np.asarray``) as the port's on ``device`` (default:
+    the card, by ``ops.resolve_device``).  Each leaf takes the dtype of
+    the port's own leaf at the same path (the tree built on the ``meta``
+    device), which is the reference's: float32 for norm gains, the MoE
+    router and the recurrent layers' gate and scan parameters, bf16
+    elsewhere.  Float32 arrays are accepted for every leaf (bf16 ->
+    float32 -> bf16 is lossless); ``ml_dtypes`` bf16 arrays are read as
+    their raw 16-bit words, so ``ml_dtypes`` need not be installed."""
+    device = ops.resolve_device(None, device)
+
+    def leaf(a, like):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"{cfg.name}: a leaf of shape {tuple(t.shape)} "
+                             f"where the port's is {tuple(like.shape)}")
+        return t.to(device=device, dtype=like.dtype)
+
+    return tree_map(leaf, tree, init_params(cfg, device="meta"))
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameter tree as float32 numpy arrays on the host
+    (numpy has no bf16; the values are the bf16 ones, exactly)."""
+    return tree_map(lambda t: t.detach().to(torch.float32).cpu().numpy(),
+                    params)

@@ -8,8 +8,8 @@ cache).  The math is the reference's, in plain torch ops: scores are
 float32 products of the bf16 operands (upcast, TF32 off under
 ``layers.lm_precision``), masked with ``-1e30``, softmaxed in float32, and
 the probabilities cast to bf16 for the value product.  One card, so none
-of the reference's sharding constraints.  ``cross_attention`` (the
-encoder-decoder family) waits for ROADMAP A.13b.
+of the reference's sharding constraints.  ``cross_attention`` serves the
+encoder-decoder family's decoder.
 """
 from __future__ import annotations
 
@@ -218,3 +218,20 @@ def attention_decode(p, x, cache_kv, cache_len, *, n_heads, n_kv_heads,
     out = apply_linear(o.reshape(b, 1, n_heads * d_head), p["wo"],
                        quant_mode)
     return out, (k_cache, v_cache)
+
+
+def cross_attention(p, x, memory, *, n_heads, n_kv_heads, d_head,
+                    quant_mode="none"):
+    """Decoder -> encoder attention: x (B,Sq,D) against memory (B,Sk,D),
+    no RoPE and no mask."""
+    b, sq, _ = x.shape
+    sk = memory.shape[1]
+    q = apply_linear(x, p["wq"], quant_mode).reshape(b, sq, n_heads, d_head)
+    k = apply_linear(memory, p["wk"], quant_mode).reshape(b, sk, n_kv_heads,
+                                                          d_head)
+    v = apply_linear(memory, p["wv"], quant_mode).reshape(b, sk, n_kv_heads,
+                                                          d_head)
+    o = _sdpa(q, k, v, torch.arange(sq, device=x.device),
+              torch.arange(sk, device=x.device), causal=False)
+    return apply_linear(o.reshape(b, sq, n_heads * d_head), p["wo"],
+                        quant_mode)

@@ -61,7 +61,7 @@ def normal(generator: torch.Generator | None, shape, std: float, device,
         return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (x * std).to(device=device, dtype=dtype)
+    return x.mul_(std).to(device=device, dtype=dtype)
 
 
 def ones(shape, device) -> torch.Tensor:

@@ -1,42 +1,27 @@
-"""The decoder stack of the dense and VLM families (PyTorch).
+"""The decoder stack of every family but encoder-decoder (PyTorch).
 
 The port of the reference's ``repro/models/stack.py``.  The model is
-``first_k_dense`` explicit layers + N repeats of a *superblock*; the
-parameter tree is the reference's: ``blocks[pos]`` holds the superblock
-position's leaves stacked ``(reps, ...)``, and the loop over repeats runs
-on views of them.  Entry points: the full-sequence ``forward`` (modes
-``train`` and ``prefill``, the latter also exporting the KV caches) and
-the single-token ``decode_step``.
+``first_k_dense`` explicit layers + N repeats of a *superblock* (a fixed
+pattern of mixers, e.g. jamba's ``m, a``); the parameter tree is the
+reference's: ``blocks[pos]`` holds the superblock position's leaves
+stacked ``(reps, ...)``, and the loop over repeats runs on views of them.
+Entry points: the full-sequence ``forward`` (modes ``train`` and
+``prefill``, the latter also exporting the caches and recurrent states)
+and the single-token ``decode_step``.
 
-Served here: attention mixers (``'a'``) with dense SwiGLU FFNs, which is
-all the ``dense`` and ``vlm`` families use.  The mamba (``'m'``), mLSTM
-(``'M'``) and sLSTM (``'s'``) mixers and the MoE FFN raise
-``NotImplementedError`` naming ROADMAP A.13b; the loss (``lm_loss``,
-``chunked_ce_loss``) waits for A.13c.
-
-:func:`params_from_numpy` and :func:`params_to_numpy` carry weights
-between the reference's tree (through numpy) and the port's.
+Mixer codes: ``'a'`` attention, ``'m'`` mamba, ``'M'`` mLSTM, ``'s'``
+sLSTM; a layer's FFN is a dense SwiGLU, the MoE (``models.moe``) or none.
+The loss (``lm_loss``, ``chunked_ce_loss``) waits for ROADMAP A.13c.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
-from repro_torch.models.layers import COMPUTE_DTYPE, PARAM_DTYPE
+from repro_torch.models import layers, moe, ssm
+from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.models.scan_utils import scan
-from repro_torch.utils.tree import tree_map
-
-#: what the families that are not served yet wait for
-LATER = ("ROADMAP A.13b: the MoE, SSM/xLSTM, hybrid and encoder-decoder "
-         "families are not ported yet")
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -58,14 +43,6 @@ def n_repeats(cfg: ArchConfig) -> int:
     return scanned // len(pattern)
 
 
-def _check_served(cfg: ArchConfig) -> None:
-    for mixer, ffn in block_structure(cfg):
-        if mixer != "a":
-            raise _later(f"{cfg.name}: mixer {mixer!r}")
-        if ffn == "moe":
-            raise _later(f"{cfg.name}: the MoE FFN")
-
-
 # ---------------------------------------------------------------------------
 # Per-layer init / apply
 # ---------------------------------------------------------------------------
@@ -73,61 +50,99 @@ def _check_served(cfg: ArchConfig) -> None:
 def _init_layer(cfg: ArchConfig, generator, mixer: str, ffn: str, *,
                 device, lead=()) -> dict:
     """One layer's params; with ``lead=(reps,)`` every leaf is stacked."""
-    if mixer != "a":
-        raise _later(f"{cfg.name}: mixer {mixer!r}")
+    kw = dict(device=device, lead=lead)
     p: dict = {"norm1": layers.ones((*lead, cfg.d_model), device)}
-    p["attn"] = attn.init_attention(
-        generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-        qk_norm=cfg.qk_norm, device=device, lead=lead)
+    if mixer == "a":
+        p["attn"] = attn.init_attention(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qk_norm=cfg.qk_norm, **kw)
+    elif mixer == "m":
+        p["mamba"] = ssm.init_mamba(generator, cfg.d_model,
+                                    d_state=cfg.d_state,
+                                    expand=cfg.ssm_expand, **kw)
+    elif mixer == "M":
+        p["mlstm"] = ssm.init_mlstm(generator, cfg.d_model, cfg.n_heads,
+                                    expand=cfg.ssm_expand, **kw)
+    elif mixer == "s":
+        p["slstm"] = ssm.init_slstm(generator, cfg.d_model, cfg.n_heads,
+                                    **kw)
+    else:
+        raise ValueError(mixer)
     if ffn == "dense":
         p["norm2"] = layers.ones((*lead, cfg.d_model), device)
-        p["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                                   device=device, lead=lead)
+        p["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff, **kw)
     elif ffn == "moe":
-        raise _later(f"{cfg.name}: the MoE FFN")
+        m = cfg.moe
+        p["norm2"] = layers.ones((*lead, cfg.d_model), device)
+        p["moe"] = moe.init_moe(generator, cfg.d_model, m.d_expert,
+                                m.n_experts, n_shared=m.n_shared,
+                                d_shared=m.d_shared or None, **kw)
     return p
 
 
 def _apply_mixer(cfg: ArchConfig, p: dict, h, mixer: str, mode: str,
                  cache=None, cache_len=None):
-    """Returns (out, new_cache).  Cache semantics per mode: train -> None;
-    prefill -> exported; decode -> updated in place."""
-    if mixer != "a":
-        raise _later(f"{cfg.name}: mixer {mixer!r}")
-    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-              d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
-              quant_mode=cfg.quant_mode)
+    """Returns (out, new cache or state).  Per mode: train -> None;
+    prefill -> exported; decode -> the attention cache updated in place,
+    a recurrent layer's new state as new tensors."""
+    if mixer == "a":
+        kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                  d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
+                  quant_mode=cfg.quant_mode)
+        if mode == "train":
+            return attn.attention_train(p["attn"], h, **kw), None
+        if mode == "prefill":
+            return attn.attention_prefill(p["attn"], h, **kw)
+        return attn.attention_decode(p["attn"], h, cache, cache_len, **kw)
+    if mixer == "m":
+        train, prefill, step = (ssm.mamba_train, ssm.mamba_prefill,
+                                ssm.mamba_step)
+        kw = dict(d_state=cfg.d_state, expand=cfg.ssm_expand)
+    elif mixer == "M":
+        train, prefill, step = (ssm.mlstm_train, ssm.mlstm_prefill,
+                                ssm.mlstm_step)
+        kw = dict(n_heads=cfg.n_heads, expand=cfg.ssm_expand)
+    elif mixer == "s":
+        train, prefill, step = (ssm.slstm_train, ssm.slstm_prefill,
+                                ssm.slstm_step)
+        kw = {}
+    else:
+        raise ValueError(mixer)
+    p = p[{"m": "mamba", "M": "mlstm", "s": "slstm"}[mixer]]
     if mode == "train":
-        return attn.attention_train(p["attn"], h, **kw), None
+        return train(p, h, **kw), None
     if mode == "prefill":
-        return attn.attention_prefill(p["attn"], h, **kw)
-    return attn.attention_decode(p["attn"], h, cache, cache_len, **kw)
+        return prefill(p, h, **kw)
+    return step(p, h, cache, **kw)
 
 
 def apply_layer(cfg: ArchConfig, p: dict, h, mixer: str, ffn: str, mode: str,
                 cache=None, cache_len=None):
     """Pre-norm residual layer.  Returns (h, new_cache, aux_loss); the aux
-    loss is the MoE router's, so 0.0 for every family served here."""
+    loss is the MoE router's (a float32 0-d tensor), else 0.0."""
     mixed, new_cache = _apply_mixer(
         cfg, p, layers.rmsnorm(h, p["norm1"]), mixer, mode, cache, cache_len)
     h = h + mixed
+    aux = 0.0
     if ffn == "dense":
         h = h + layers.apply_mlp(p["mlp"], layers.rmsnorm(h, p["norm2"]),
                                  cfg.quant_mode)
     elif ffn == "moe":
-        raise _later(f"{cfg.name}: the MoE FFN")
-    return h, new_cache, 0.0
+        out, aux = moe.apply_moe(p["moe"], layers.rmsnorm(h, p["norm2"]),
+                                 top_k=cfg.moe.top_k,
+                                 quant_mode=cfg.quant_mode)
+        h = h + out
+    return h, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
-# Whole-model init, and weights across the numpy bridge
+# Whole-model init
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None,
                 device) -> dict:
     """The reference's parameter tree, drawn from ``generator`` (the draws
     cannot equal ``jax.random``'s); on the ``meta`` device only shapes."""
-    _check_served(cfg)
     struct = block_structure(cfg)
     reps = n_repeats(cfg)
     first_k = cfg.moe.first_k_dense if cfg.moe else 0
@@ -148,45 +163,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
         for mixer, ffn in struct
     ]
     return params
-
-
-def _keyed_map(fn, tree, key=""):
-    if isinstance(tree, dict):
-        return {k: _keyed_map(fn, v, k) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_keyed_map(fn, v, key) for v in tree)
-    return fn(key, tree)
-
-
-def params_from_numpy(tree, device=None) -> dict:
-    """The reference's parameter tree (numpy arrays, or JAX arrays through
-    ``np.asarray``) as the port's on ``device`` (default: the card, by
-    ``ops.resolve_device``).  Float32 arrays are accepted for every leaf
-    (bf16 -> float32 -> bf16 is lossless); ``ml_dtypes`` bf16 arrays are
-    read as their raw 16-bit words, so ``ml_dtypes`` need not be
-    installed.  Norm gains stay float32, every other leaf becomes
-    ``PARAM_DTYPE``."""
-    device = ops.resolve_device(None, device)
-
-    def leaf(key, a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.uint16).copy()).view(
-                torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))
-        # norm1, norm2, out_norm, q_norm, k_norm: the float32 gains
-        dtype = torch.float32 if "norm" in key else PARAM_DTYPE
-        return t.to(device=device, dtype=dtype)
-
-    return _keyed_map(leaf, tree)
-
-
-def params_to_numpy(params) -> dict:
-    """The port's parameter tree as float32 numpy arrays on the host
-    (numpy has no bf16; the values are the bf16 ones, exactly)."""
-    return tree_map(lambda t: t.detach().to(torch.float32).cpu().numpy(),
-                    params)
 
 
 # ---------------------------------------------------------------------------
@@ -228,24 +204,27 @@ def forward_hidden(cfg: ArchConfig, params, tokens, frontend=None,
     """Embed + all blocks, WITHOUT the output projection.
 
     -> (h, caches, aux): caches only when mode='prefill', stacked
-    ``(reps, ...)`` per superblock position."""
-    _check_served(cfg)
+    ``(reps, ...)`` per superblock position; aux the sum of the MoE
+    routers' losses (float32, 0-d)."""
     struct = block_structure(cfg)
     h = _embed_inputs(cfg, params, tokens, frontend)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for p in params["head_layers"]:
-        h, _, _ = apply_layer(cfg, p, h, "a", "dense", "train")
+        h, _, aux = apply_layer(cfg, p, h, "a", "dense", "train")
+        aux_total = aux_total + aux
 
     def superblock(h, rep_params):
         caches = []
+        aux_sb = torch.zeros((), dtype=torch.float32, device=h.device)
         for pos, (mixer, ffn) in enumerate(struct):
-            h, cache, _ = apply_layer(cfg, rep_params[pos], h, mixer, ffn,
-                                      mode)
+            h, cache, aux = apply_layer(cfg, rep_params[pos], h, mixer, ffn,
+                                        mode)
+            aux_sb = aux_sb + aux
             caches.append(cache)
-        return h, (tuple(caches) if mode == "prefill" else None)
+        return h, ((tuple(caches) if mode == "prefill" else None), aux_sb)
 
-    h, caches = scan(superblock, h, tuple(params["blocks"]))
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h, caches, aux
+    h, (caches, auxes) = scan(superblock, h, tuple(params["blocks"]))
+    return h, caches, aux_total + torch.sum(auxes)
 
 
 def forward(cfg: ArchConfig, params, tokens, frontend=None,
@@ -261,48 +240,72 @@ def forward(cfg: ArchConfig, params, tokens, frontend=None,
 
 
 # ---------------------------------------------------------------------------
-# Decode (single token, cache update in place)
+# Decode (single token, caches and states updated in place)
 # ---------------------------------------------------------------------------
+
+def _mixer_state(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
+                 hk_eff: int, device, lead=()) -> tuple:
+    """One layer's zeroed decode state, the reference's shapes: (k, v)
+    (B, max_seq, Hk_eff, Dh) bf16 for attention; float32 recurrent states
+    independent of ``max_seq``: mamba (B, Di, N), (B, 3, Di); mLSTM
+    (B, H, dk, dk), (B, H, dk), (B, H); sLSTM four (B, D)."""
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((*lead, batch, *shape), dtype=dtype,
+                           device=device)
+
+    d_inner = cfg.ssm_expand * cfg.d_model
+    if mixer == "a":
+        return tuple(zeros(max_seq, hk_eff, cfg.head_dim,
+                           dtype=torch.bfloat16) for _ in range(2))
+    if mixer == "m":
+        return zeros(d_inner, cfg.d_state), zeros(3, d_inner)  # d_conv-1
+    if mixer == "M":
+        dk = d_inner // cfg.n_heads
+        return (zeros(cfg.n_heads, dk, dk), zeros(cfg.n_heads, dk),
+                zeros(cfg.n_heads))
+    if mixer == "s":
+        return tuple(zeros(cfg.d_model) for _ in range(4))
+    raise ValueError(mixer)
+
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       kv_replication: int = 1, *, device) -> dict:
-    """Zeroed caches, stacked (reps, ...) per superblock position, and the
-    shared position clock ``cache_len`` (0-d int32 on the device).
+    """Zeroed caches and states, stacked (reps, ...) per superblock
+    position, and the shared position clock ``cache_len`` (0-d int32 on
+    the device).
 
     kv_replication=r stores each kv head r times (see
     ``attention.attention_decode``)."""
-    _check_served(cfg)
     reps = n_repeats(cfg)
     hk_eff = cfg.n_kv_heads * kv_replication
-
-    def kv(*lead):
-        shape = (*lead, batch, max_seq, hk_eff, cfg.head_dim)
-        return (torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                torch.zeros(shape, dtype=torch.bfloat16, device=device))
-
     first_k = cfg.moe.first_k_dense if cfg.moe else 0
     return {
         "cache_len": torch.zeros((), dtype=torch.int32, device=device),
-        "layers": [kv(reps) for _ in block_structure(cfg)],
+        "layers": [_mixer_state(cfg, mixer, batch, max_seq, hk_eff, device,
+                                (reps,))
+                   for mixer, _ in block_structure(cfg)],
         # head (unscanned) layers are always attention
-        "head": [kv() for _ in range(first_k)],
+        "head": [_mixer_state(cfg, "a", batch, max_seq, hk_eff, device)
+                 for _ in range(first_k)],
     }
 
 
-def _index(tree, r: int):
+def index_tree(tree, r: int):
     """Repeat ``r``'s views of a stacked layer tree."""
     if isinstance(tree, dict):
-        return {k: _index(v, r) for k, v in tree.items()}
+        return {k: index_tree(v, r) for k, v in tree.items()}
     return tree[r]
 
 
 def decode_step(cfg: ArchConfig, params, state: dict, tokens):
     """tokens (B,1) -> (float32 logits (B,1,V), new state).
 
-    Consumes ``state``: each layer's new k/v row is written in place into
-    the stacked caches, which the new state shares (as the reference's
-    donated decode state is reused); ``cache_len`` is a new 0-d tensor,
-    one past the old.  No host synchronisation happens here."""
+    Consumes ``state``: each attention layer's new k/v row is written in
+    place into the stacked caches, and each recurrent layer's new state
+    is copied in place into its stacked rows; the new state shares those
+    tensors (as the reference's donated decode state is reused), and
+    ``cache_len`` is a new 0-d tensor, one past the old.  No host
+    synchronisation happens here."""
     struct = block_structure(cfg)
     cache_len = state["cache_len"]
     with layers.lm_precision():
@@ -312,10 +315,13 @@ def decode_step(cfg: ArchConfig, params, state: dict, tokens):
                                   cache=cache, cache_len=cache_len)
         for r in range(n_repeats(cfg)):
             for pos, (mixer, ffn) in enumerate(struct):
-                k, v = state["layers"][pos]
-                h, _, _ = apply_layer(
-                    cfg, _index(params["blocks"][pos], r), h, mixer, ffn,
-                    "decode", cache=(k[r], v[r]), cache_len=cache_len)
+                cache = tuple(leaf[r] for leaf in state["layers"][pos])
+                h, new, _ = apply_layer(
+                    cfg, index_tree(params["blocks"][pos], r), h, mixer, ffn,
+                    "decode", cache=cache, cache_len=cache_len)
+                if mixer != "a":
+                    for old, nw in zip(cache, new):
+                        old.copy_(nw)
         logits = _logits(cfg, params, h)
     new_state = {
         "cache_len": cache_len + 1,

@@ -17,6 +17,17 @@ pinned at ``batch_slots``; pass ``max_slots`` / ``min_slots`` for elastic
 capacity and ``mesh`` (``launch.mesh.make_stream_mesh``: S row blocks of
 one device) to shard the slot axis.
 
+Every family is served: the state's own keys are flattened for the pool
+(the stack's ``cache_len`` / ``head`` / ``layers``, the encoder-decoder's
+``cache_len`` / ``memory`` / ``self``; recurrent layers hold tuples of
+2-4 float32 states).  Rows without a request decode beside the live ones,
+as in the reference: an empty row is fed token 0 (async: its last
+sampled token), a freed row keeps its stale state until an install
+overwrites it.  Under the ``dropping`` MoE dispatch every row competes
+for expert capacity, so only drives with equal batch shapes can be
+token-equal (an elastic pool's tokens equal the reference's elastic
+engine's, not a fixed pool's).
+
 The engine runs where its params lie; CUDA params with no card raise.
 Every decode tick syncs with the host once, for the sampled tokens.  The
 clock ``cache_len`` is shared by all slots and merged with ``max`` at an
@@ -56,14 +67,15 @@ class Request:
 
 
 def _flat(state: dict) -> tuple:
-    """The decode state as the nested tuples the slot pool walks."""
-    return (state["cache_len"], tuple(state["layers"]), tuple(state["head"]))
+    """The decode state as the nested tuples the slot pool walks: its
+    values by sorted key (the stack's ``cache_len``, ``head``, ``layers``;
+    the encoder-decoder's ``cache_len``, ``memory``, ``self``)."""
+    return tuple(state[k] for k in sorted(state))
 
 
-def _unflat(flat: tuple) -> dict:
-    cache_len, layers, head = flat
-    return {"cache_len": cache_len, "layers": list(layers),
-            "head": list(head)}
+def _unflat(flat: tuple, like: dict) -> dict:
+    """Inverse of :func:`_flat`, with the keys of the state ``like``."""
+    return dict(zip(sorted(like), flat))
 
 
 class Engine:
@@ -138,7 +150,7 @@ class Engine:
         return (_flat(self.state), self._last_tok)
 
     def set_device_state(self, state) -> None:
-        self.state = _unflat(state[0])
+        self.state = _unflat(state[0], self.state)
         self._last_tok = state[1]
 
     def slot_axes(self):
@@ -237,7 +249,7 @@ class Engine:
             return full
 
         self.state = _unflat(tree_map(put, _flat(self.state), _flat(st1),
-                                      self._cache_axes))
+                                      self._cache_axes), self.state)
 
     def _release(self, slot: int) -> None:
         """Vacate a finished request's slot (the pool rebalances and

@@ -1326,3 +1326,159 @@ def test_cuda_full_width_prefill_matches_cpu():
     assert got.shape == (1, 16, cfg.padded_vocab) and len(caches) == 1
     torch.testing.assert_close(got.cpu(), want, rtol=LM_REF_RTOL,
                                atol=LM_REF_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# LM serving, the other families (A.13b): MoE, SSM, hybrid, encoder-decoder
+# ---------------------------------------------------------------------------
+
+LM_FAMILIES = ["deepseek-moe-16b", "llama4-scout-17b-a16e", "xlstm-350m",
+               "jamba-1.5-large-398b", "seamless-m4t-medium"]
+
+
+def _lm_smoke(name, seed=0):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+
+    cfg = get_arch(name, smoke=True)
+    return cfg, api.init_params(
+        cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+
+
+def _lm_ticks(cfg, params, asyn):
+    """4 requests of equal length through 2 slots (every row live at every
+    tick, so no empty row competes for expert capacity) -> (tokens by
+    rid, the tokens fed to each row per tick, the logits of each row per
+    tick)."""
+    from repro_torch.serve import engine
+
+    eng = engine.Engine(cfg, params, batch_slots=2, max_seq=32)
+    feeds, rows = [], []
+    decode, prefill = eng._decode, eng._prefill_one
+
+    def traced(p, state, last):
+        logits, state = decode(p, state, last)
+        feeds.append(last.cpu().ravel().tolist())
+        rows.append(logits[:, -1].float().cpu())
+        return logits, state
+
+    def untraced(prompt):
+        eng._decode = decode
+        try:
+            return prefill(prompt)
+        finally:
+            eng._decode = traced
+
+    eng._decode, eng._prefill_one = traced, untraced
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        eng.submit(engine.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, 5).astype(np.int32),
+            max_new_tokens=6))
+    done = (eng.run_until_drained_async() if asyn
+            else eng.run_until_drained())
+    return {r.rid: r.out_tokens for r in done}, feeds, rows
+
+
+@pytest.mark.parametrize("asyn", [False, True], ids=["sync", "async"])
+@pytest.mark.parametrize("name", LM_FAMILIES)
+def test_cuda_lm_families_engine_matches_cpu(name, asyn):
+    """The engine on the card against the CPU at smoke size: the tokens fed
+    to every row are equal tick by tick up to the first tick where one
+    differs; there each differing token was a near tie of the CPU's
+    logits of its row one tick before (its logit of its own token exceeds
+    that of the card's by at most LM_ATOL).  Under the dropping MoE
+    dispatch the rows share expert capacity, so nothing after that tick
+    is compared."""
+    from repro_torch.utils.tree import tree_map
+
+    dev = _cuda()
+    cfg, params = _lm_smoke(name)
+    want, want_feeds, want_rows = _lm_ticks(cfg, params, asyn)
+    got, feeds, _ = _lm_ticks(cfg, tree_map(lambda t: t.to(dev), params),
+                              asyn)
+    assert got.keys() == want.keys() and len(feeds) == len(want_feeds)
+    split = next((i for i, (a, b) in enumerate(zip(want_feeds, feeds))
+                  if a != b), None)
+    if split is None:
+        assert got == want
+        return
+    for row, (a, b) in enumerate(zip(want_feeds[split], feeds[split])):
+        if a != b:
+            logits = want_rows[split - 1][row, :cfg.vocab]
+            assert int(logits.argmax()) == a
+            assert float(logits[a] - logits[b]) <= LM_ATOL, (split, row)
+
+
+@pytest.mark.parametrize("name", LM_FAMILIES)
+def test_cuda_lm_families_decode_and_prefill_match_cpu(name):
+    """10 decode steps (past max_seq) and the prefill on the card against
+    the CPU, the same params; the encoder-decoder with frame embeddings."""
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_map
+
+    dev = _cuda()
+    cfg, params = _lm_smoke(name, 1)
+    card = tree_map(lambda t: t.to(dev), params)
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 10)).astype(
+        np.int32))
+    dec = api.decode_fn(cfg)
+    s_cpu = api.init_decode_state(cfg, 2, 8, device="cpu")
+    s_card = api.init_decode_state(cfg, 2, 8, device=dev)
+    for t in range(10):
+        a, s_cpu = dec(params, s_cpu, toks[:, t:t + 1])
+        b, s_card = dec(card, s_card, toks[:, t:t + 1].to(dev))
+        torch.testing.assert_close(b.cpu(), a, rtol=LM_RTOL, atol=LM_ATOL)
+    assert int(s_card["cache_len"]) == 10
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.as_tensor(rng.standard_normal(
+            (2, 12, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    prefill = api.prefill_fn(cfg)
+    want, _ = prefill(params, batch)
+    got, _ = prefill(card, tree_map(lambda t: t.to(dev), batch))
+    torch.testing.assert_close(got.cpu(), want, rtol=LM_RTOL, atol=LM_ATOL)
+
+
+def test_cuda_mamba_prefill_then_step_continues():
+    """A Mamba layer on the card: the chunked prefill then one step equals
+    the prefill of one more token (the reference's tests/test_ssm.py
+    contract, its bound)."""
+    from repro_torch.models import ssm
+
+    dev = _cuda()
+    p = ssm.init_mamba(torch.Generator(device=dev).manual_seed(0), 16,
+                       d_state=8, device=dev)
+    x = torch.randn(1, 41, 16, generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)
+    full, _ = ssm.mamba_prefill(p, x, d_state=8)
+    _, st = ssm.mamba_prefill(p, x[:, :40], d_state=8)
+    out, _ = ssm.mamba_step(p, x[:, 40:], st, d_state=8)
+    torch.testing.assert_close(out[:, 0].float(), full[:, -1].float(),
+                               rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", LM_FAMILIES + ["qwen3-0.6b"])
+def test_cuda_lm_decode_step_does_not_sync(name):
+    """A decode step (the router, the dispatch's scatter and gathers, the
+    recurrent states written in place) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync in it."""
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_map
+
+    dev = _cuda()
+    cfg, params = _lm_smoke(name)
+    params = tree_map(lambda t: t.to(dev), params)
+    state = api.init_decode_state(cfg, 3, 8, device=dev)
+    tok = torch.ones(3, 1, dtype=torch.int32, device=dev)
+    dec = api.decode_fn(cfg)
+    logits, state = dec(params, state, tok)           # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            logits, state = dec(params, state, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all()) and int(state["cache_len"]) == 3

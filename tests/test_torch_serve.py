@@ -31,7 +31,7 @@ from repro.serve import sampler as ref_sampler
 from repro_torch.configs.base import get_arch
 from repro_torch.launch import serve as port_launch
 from repro_torch.launch.mesh import StreamMesh, make_stream_mesh
-from repro_torch.models import api, stack
+from repro_torch.models import api
 from repro_torch.serve import engine, sampler
 
 LOGIT_ATOL = 0.08
@@ -93,19 +93,21 @@ def _events(obs) -> list:
 def models():
     ref_cfg = ref_get_arch(NAME, smoke=True)
     ref_params = ref_api.init_params(ref_cfg, jax.random.PRNGKey(0))
-    params = stack.params_from_numpy(jax.tree_util.tree_map(
+    cfg = get_arch(NAME, smoke=True)
+    params = api.params_from_numpy(cfg, jax.tree_util.tree_map(
         lambda a: np.asarray(a.astype(jnp.float32)), ref_params),
         device="cpu")
-    return ref_cfg, ref_params, get_arch(NAME, smoke=True), params
+    return ref_cfg, ref_params, cfg, params
 
 
 _REF: dict = {}
 
 
-def ref_run(models, first=FIRST_WAVE, **kw) -> Run:
-    """The reference engine's sync drive, with its logits recorded per
-    request and token (prefill's, then each decode tick's row)."""
-    key = (first, *sorted(kw.items()))
+def ref_run(models, first=FIRST_WAVE, asyn=False, **kw) -> Run:
+    """The reference engine's drive (sync unless ``asyn``), with its
+    logits recorded per request and token (prefill's, then each decode
+    tick's row, recorded at dispatch)."""
+    key = (models[0].name, first, asyn, *sorted(kw.items()))
     if key in _REF:
         return _REF[key]
     ref_cfg, ref_params, _, _ = models
@@ -129,7 +131,7 @@ def ref_run(models, first=FIRST_WAVE, **kw) -> Run:
 
     eng._decode, eng._prefill_one = rec_decode, rec_prefill
     tokens, caps = _drive(eng, _requests(ref_engine.Request, ref_cfg.vocab),
-                          False, first)
+                          asyn, first)
     events = _events(eng.obs)
     fills = [e["rid"] for e in events if e["event"] == "lm_slot_fill"]
     logits = {rid: [first] + rec.get(rid, [])
