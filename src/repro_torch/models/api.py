@@ -4,15 +4,16 @@ The port of the reference's ``repro/models/api.py``; the engine and the
 launcher import only this module:
 
   init_params(cfg, generator=, device=)       parameter tree
+  loss_fn(cfg, remat)(params, batch)          training loss (batch dict)
   prefill_fn(cfg)(params, batch)              logits + caches / states
   decode_fn(cfg)(params, state, tok)          one-token step
   init_decode_state(cfg, batch, seq, device=) zeroed caches + clock
 
 Every entry point runs on the card unless the caller names another
 device (``ops.resolve_device``: with no card, asking for it raises).
-Every family is served: ``encdec`` through ``models.encdec``, the others
-(dense, vlm, moe, ssm, hybrid) through ``models.stack``.  ``loss_fn``
-waits for LM training (A.13c).
+Every family is served and trained: ``encdec`` through
+``models.encdec``, the others (dense, vlm, moe, ssm, hybrid) through
+``models.stack``.
 
 :func:`params_from_numpy` and :func:`params_to_numpy` carry weights
 between the reference's tree (through numpy) and the port's.
@@ -38,6 +39,26 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator | None = None,
     if cfg.family == "encdec":
         return encdec.init_params(cfg, generator, device)
     return stack.init_params(cfg, generator, device)
+
+
+def loss_fn(cfg: ArchConfig, remat: str = "block"):
+    """-> loss(params, batch): the next-token cross-entropy of
+    ``batch["tokens"]`` against ``batch["labels"]`` (and the routers' aux
+    term; ``batch["frontend"]`` for the VLM and encoder-decoder families),
+    a float32 0-d tensor.  The batch's tensors lie on the params' device
+    (``data.lm_data.to_device``); ``remat`` is the blocks'
+    ``layers.RematPolicy`` mode."""
+    if cfg.family == "encdec":
+        def loss(params, batch):
+            return encdec.lm_loss(cfg, params, batch["tokens"],
+                                  batch["labels"], batch["frontend"],
+                                  remat=remat)
+        return loss
+
+    def loss(params, batch):
+        return stack.lm_loss(cfg, params, batch["tokens"], batch["labels"],
+                             frontend=batch.get("frontend"), remat=remat)
+    return loss
 
 
 def prefill_fn(cfg: ArchConfig):

@@ -13,6 +13,7 @@ encoder-decoder family's decoder.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -140,7 +141,11 @@ def _sdpa_flash(q, k, v, q_pos, k_pos, causal: bool = True,
         out = torch.movedim(out, 3, 1).reshape(b, qc, hk * g, dh)
         return None, out.to(COMPUTE_DTYPE)
 
-    _, outs = scan(q_step, None, (qs, qps))
+    # with more than one query chunk, each one's scores are recomputed in
+    # the backward instead of kept (the reference's jax.checkpoint)
+    step = (functools.partial(layers.checkpoint, q_step) if nq > 1
+            else q_step)
+    _, outs = scan(step, None, (qs, qps))
     return torch.movedim(outs, 0, 1).reshape(b, sq, h, dh)
 
 

@@ -5,10 +5,14 @@ frontend is a stub, as in the reference: the caller supplies frame
 embeddings (B, Sa, D).  Encoder: non-causal self-attention blocks over the
 frames.  Decoder: causal self-attention, cross-attention to the encoder's
 memory, and a SwiGLU MLP per block.  Both stacks hold their layers'
-leaves stacked ``(n_layers, ...)`` and loop over views of them.  The loss
-(``lm_loss``) waits for LM training (ROADMAP A.13c).
+leaves stacked ``(n_layers, ...)`` and loop over views of them.  The
+training loss (``lm_loss``) is the decoder's next-token cross-entropy
+(``stack.chunked_ce_loss``, no aux term); in mode ``train`` each decoder
+block is wrapped by ``RematPolicy(remat)``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -102,26 +106,31 @@ def _dec_block(cfg: ArchConfig, p, h, memory, mode, cache=None,
 
 
 def forward_hidden(cfg: ArchConfig, params, tokens, frontend,
-                   mode: str = "train"):
+                   mode: str = "train", remat: str = "block"):
     """Encoder + decoder blocks, no output head -> (h, caches, memory);
-    caches (k, v) stacked (n_layers, ...) in mode 'prefill'."""
+    caches (k, v) stacked (n_layers, ...) in mode 'prefill'.  In mode
+    ``train`` each decoder block runs under ``layers.RematPolicy(remat)``
+    (the encoder's blocks are not wrapped, as in the reference)."""
     memory = encode(cfg, params, frontend)
     h = params["embed"][tokens].to(COMPUTE_DTYPE)
 
     def block(h, p):
         return _dec_block(cfg, p, h, memory, mode)
 
-    h, caches = scan(block, h, params["dec_blocks"])
+    policy = layers.RematPolicy(remat)
+    blk = policy.wrap(block) if mode == "train" else block
+    h, caches = scan(blk, h, params["dec_blocks"])
     return h, caches, memory
 
 
-def forward(cfg: ArchConfig, params, tokens, frontend, mode: str = "train"):
+def forward(cfg: ArchConfig, params, tokens, frontend, mode: str = "train",
+            remat: str = "block"):
     """tokens (B,St), frontend frames (B,Sa,D) -> (float32 logits, aux 0)
     in mode 'train', (logits, {"self": caches, "memory": memory}) in mode
     'prefill'."""
     with layers.lm_precision():
         h, caches, memory = forward_hidden(cfg, params, tokens, frontend,
-                                           mode)
+                                           mode, remat)
         logits = stack._logits(cfg, params, h)
     if mode == "prefill":
         return logits, {"self": caches, "memory": memory}
@@ -161,3 +170,17 @@ def decode_step(cfg: ArchConfig, params, state: dict, tokens):
         logits = stack._logits(cfg, params, h)
     return logits, {"cache_len": cache_len + 1, "self": state["self"],
                     "memory": memory}
+
+
+def lm_loss(cfg: ArchConfig, params, tokens, labels, frontend,
+            remat: str = "block", loss_chunk: int = 512):
+    """The decoder's next-token cross-entropy over the tokens (no aux
+    term), forward and backward under ``layers.lm_precision``."""
+    with layers.lm_precision():
+        h, _, _ = forward_hidden(cfg, params, tokens, frontend, remat=remat)
+        w32 = stack._head(cfg, params)
+        loss = stack.chunked_ce_loss(
+            functools.partial(stack._project, norm=params["out_norm"],
+                              w32=w32),
+            h, labels, cfg.vocab, cfg.padded_vocab, chunk=loss_chunk)
+    return layers.backward_at_lm_precision(loss)

@@ -13,17 +13,26 @@ scale, run as masked-sign matmuls, as the reference runs them.
 Precision: :func:`lm_precision` holds the LM entry points to the
 reference's arithmetic on the card: float32 matmuls at full precision (no
 TF32) and bf16 matmuls without reduced-precision (bf16) partial sums.
-The reference's ``RematPolicy`` (activation checkpointing) waits for LM
-training (ROADMAP A.13c).
+:func:`backward_at_lm_precision` marks a loss so that its backward pass,
+and every activation recomputed in it, runs under the same settings.
+
+Activation checkpointing: :class:`RematPolicy` (``none``, ``block``,
+``dots``) wraps a block as the reference's ``jax.checkpoint`` policies do,
+and :func:`checkpoint` recomputes one step of a chunked loop in the
+backward, where the reference puts ``jax.checkpoint`` on a scan's body.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import math
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core import quant
+from repro_torch.utils.tree import tree_leaves
 
 PARAM_DTYPE = torch.bfloat16
 COMPUTE_DTYPE = torch.bfloat16
@@ -45,6 +54,89 @@ def lm_precision():
     finally:
         torch.set_float32_matmul_precision(prev)
         flags.allow_bf16_reduced_precision_reduction = prev_bf16
+
+
+class _BackwardAtLMPrecision(torch.autograd.Function):
+    """The identity on a loss.  Its backward is the first node of the
+    backward pass: it enters :func:`lm_precision` and queues the exit at
+    the end of the pass (both settings are process-wide, so they hold on
+    the autograd engine's device threads too)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        scope = lm_precision()
+        scope.__enter__()
+        torch.autograd.Variable._execution_engine.queue_callback(
+            lambda: scope.__exit__(None, None, None))
+        return grad
+
+
+def backward_at_lm_precision(loss: torch.Tensor) -> torch.Tensor:
+    """``loss``, unchanged, whose backward pass (the gradients and the
+    checkpointed recomputations) runs under :func:`lm_precision`,
+    whatever float32 matmul precision the process has set."""
+    if not loss.requires_grad:
+        return loss
+    return _BackwardAtLMPrecision.apply(loss)
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing
+# ---------------------------------------------------------------------------
+
+def _takes_grad(args) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in tree_leaves(args))
+
+
+def checkpoint(fn, *args, policy=None):
+    """``fn(*args)`` with its activations dropped and recomputed in the
+    backward (the reference's ``jax.checkpoint`` on a scan's step), or
+    with ``policy(ctx, op, ...)`` only those it does not save; a plain
+    call where no gradient is taken."""
+    if not _takes_grad(args):
+        return fn(*args)
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, policy)
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+#: the products whose outputs the ``dots`` policy keeps: the non-batched
+#: matrix products (``checkpoint_dots_with_no_batch_dims``); ``torch.matmul``
+#: of (B, S, D) by (D, F) runs as one ``mm``, a batched einsum as ``bmm``
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@dataclasses.dataclass(frozen=True)
+class RematPolicy:
+    """Activation checkpointing policy selector for the train loop:
+    ``none`` keeps every activation, ``block`` recomputes the wrapped
+    block in the backward, ``dots`` keeps only the outputs of the
+    non-batched matrix products and recomputes the rest."""
+
+    mode: str = "block"  # 'none' | 'block' | 'dots'
+
+    def wrap(self, fn):
+        if self.mode == "none":
+            return fn
+        if self.mode == "block":
+            return functools.partial(checkpoint, fn)
+        if self.mode == "dots":
+            return functools.partial(checkpoint, fn, policy=_save_dots)
+        raise ValueError(self.mode)
 
 
 # ---------------------------------------------------------------------------

@@ -8,18 +8,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def scan(f, init, xs):
     """``jax.lax.scan`` semantics: ``carry, y = f(carry, x)`` for each
     slice ``x`` of the tree ``xs`` along its leading axis (views, nothing
     copied); returns ``(carry, ys)`` with the ``y`` trees stacked along a
-    new leading axis (``None`` when ``f`` returns no ``y``)."""
-    n = tree_leaves(xs)[0].shape[0]
+    new leading axis (``None`` when ``f`` returns no ``y``).  Each leaf is
+    unbound once, so a gradient reaches a stacked leaf as one stack of
+    the slices' gradients (indexing each slice apart would add a
+    leaf-sized zero-filled tensor per slice)."""
+    leaves, structure = tree_flatten(xs)
+    slices = [a.unbind(0) for a in leaves]
     carry, ys = init, []
-    for i in range(n):
-        carry, y = f(carry, tree_map(lambda a: a[i], xs))
+    for i in range(leaves[0].shape[0]):
+        carry, y = f(carry, tree_unflatten(structure, [s[i] for s in slices]))
         ys.append(y)
     if not ys or ys[0] is None:
         return carry, None

@@ -11,11 +11,14 @@ state C = sum_t f..f i_t v_t k_t^T), held against the step-by-step scan
 (:func:`mlstm_prefill_sequential`); sLSTM is strictly sequential, a loop
 over positions; Mamba's diagonal recurrence is scanned within chunks of
 256 positions by a log-depth (Hillis-Steele) scan, and the state carried
-across chunks.  The reference's ``jax.checkpoint`` around a chunk has no
-counterpart here: serving takes no gradient.  Every state is float32.
+across chunks.  The mLSTM and Mamba chunk steps are checkpointed
+(``layers.checkpoint``, the reference's ``jax.checkpoint``): under a
+gradient each chunk's intermediates are recomputed in the backward.  Every
+state is float32.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -167,7 +170,8 @@ def _mlstm_chunk_parallel(q, k, v, i_log, f_log, chunk: int = 256):
         return (C_out, n_out, m_out), out
 
     state0 = _mlstm_zero_state(b, h, dk, dv, q.device)
-    state, outs = scan(chunk_step, state0, tuple(
+    state, outs = scan(functools.partial(layers.checkpoint, chunk_step),
+                       state0, tuple(
         resh(t) for t in (q, k, v, i_log, f_log)))
     return torch.movedim(outs, 0, 1).reshape(b, s, h, dv), state
 
@@ -347,8 +351,8 @@ def _mamba_ssm_scan(u, dt, a, b_in, c_in, d_skip, chunk: int = 256):
 
     state0 = torch.zeros((b, di, a.shape[-1]), dtype=torch.float32,
                          device=u.device)
-    state, ys = scan(chunk_step, state0, tuple(
-        resh(t) for t in (u, dt, b_in, c_in)))
+    state, ys = scan(functools.partial(layers.checkpoint, chunk_step),
+                     state0, tuple(resh(t) for t in (u, dt, b_in, c_in)))
     y = torch.movedim(ys, 0, 1).reshape(b, s, di)
     return y + u * d_skip[None, None], state
 

@@ -11,9 +11,13 @@ and the single-token ``decode_step``.
 
 Mixer codes: ``'a'`` attention, ``'m'`` mamba, ``'M'`` mLSTM, ``'s'``
 sLSTM; a layer's FFN is a dense SwiGLU, the MoE (``models.moe``) or none.
-The loss (``lm_loss``, ``chunked_ce_loss``) waits for ROADMAP A.13c.
+The training loss (``lm_loss``) is the next-token cross-entropy of
+``chunked_ce_loss`` plus ``AUX_LOSS_COEF`` x the routers' aux loss; in
+mode ``train`` each superblock repeat is wrapped by ``RematPolicy(remat)``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,6 +26,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.models.scan_utils import scan
+
+AUX_LOSS_COEF = 0.01
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +186,11 @@ def _embed_inputs(cfg: ArchConfig, params, tokens, frontend=None):
 
 def _head_f32(w: torch.Tensor) -> torch.Tensor:
     """The output projection upcast to float32, made once per weight
-    tensor and kept on it (re-made if the tensor is written in place)."""
+    tensor and kept on it (re-made if the tensor is written in place).
+    A weight that takes a gradient gets a fresh copy in every call: a
+    kept copy would carry one graph into the next."""
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.to(torch.float32)
     cached = getattr(w, "_f32_copy", None)
     if cached is None or cached[0] != w._version:
         cached = (w._version, w.to(torch.float32))
@@ -188,24 +198,31 @@ def _head_f32(w: torch.Tensor) -> torch.Tensor:
     return cached[1]
 
 
-def _logits(cfg: ArchConfig, params, h):
+def _head(cfg: ArchConfig, params) -> torch.Tensor:
+    """The (D, V) output projection in float32."""
+    if cfg.tie_embeddings:
+        return _head_f32(params["embed"]).T
+    return _head_f32(params["lm_head"])
+
+
+def _project(h, norm, w32):
     """float32 logits: the reference's bf16 product with a float32 result,
     as a float32 product of the upcast operands (exact products)."""
-    h = layers.rmsnorm(h, params["out_norm"])
-    if cfg.tie_embeddings:
-        w = _head_f32(params["embed"]).T
-    else:
-        w = _head_f32(params["lm_head"])
-    return torch.matmul(h.to(torch.float32), w)
+    return torch.matmul(layers.rmsnorm(h, norm).to(torch.float32), w32)
+
+
+def _logits(cfg: ArchConfig, params, h):
+    return _project(h, params["out_norm"], _head(cfg, params))
 
 
 def forward_hidden(cfg: ArchConfig, params, tokens, frontend=None,
-                   mode: str = "train"):
+                   mode: str = "train", remat: str = "block"):
     """Embed + all blocks, WITHOUT the output projection.
 
     -> (h, caches, aux): caches only when mode='prefill', stacked
     ``(reps, ...)`` per superblock position; aux the sum of the MoE
-    routers' losses (float32, 0-d)."""
+    routers' losses (float32, 0-d).  In mode ``train`` each superblock
+    repeat runs under ``layers.RematPolicy(remat)``."""
     struct = block_structure(cfg)
     h = _embed_inputs(cfg, params, tokens, frontend)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -223,16 +240,19 @@ def forward_hidden(cfg: ArchConfig, params, tokens, frontend=None,
             caches.append(cache)
         return h, ((tuple(caches) if mode == "prefill" else None), aux_sb)
 
-    h, (caches, auxes) = scan(superblock, h, tuple(params["blocks"]))
+    policy = layers.RematPolicy(remat)
+    sb = policy.wrap(superblock) if mode == "train" else superblock
+    h, (caches, auxes) = scan(sb, h, tuple(params["blocks"]))
     return h, caches, aux_total + torch.sum(auxes)
 
 
 def forward(cfg: ArchConfig, params, tokens, frontend=None,
-            mode: str = "train"):
+            mode: str = "train", remat: str = "block"):
     """Full-sequence forward -> (float32 logits, aux) in mode 'train',
     (logits, caches) in mode 'prefill'."""
     with layers.lm_precision():
-        h, caches, aux = forward_hidden(cfg, params, tokens, frontend, mode)
+        h, caches, aux = forward_hidden(cfg, params, tokens, frontend, mode,
+                                        remat)
         logits = _logits(cfg, params, h)
     if mode == "prefill":
         return logits, caches
@@ -329,3 +349,59 @@ def decode_step(cfg: ArchConfig, params, state: dict, tokens):
         "head": state["head"],
     }
     return logits, new_state
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def chunked_ce_loss(project_fn, h, labels, vocab: int, padded_vocab: int,
+                    chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy without materialising the full (B,S,V) float32
+    logits: the projection and log-softmax run per sequence chunk under
+    ``layers.checkpoint``, so the forward keeps no chunk's logits and the
+    backward recomputes each.  A sequence that ``chunk`` does not divide
+    runs as one chunk.  Labels outside [0, vocab) are masked; the gather
+    index is clipped to [0, padded_vocab - 1]; the softmax runs over all
+    ``padded_vocab`` columns, as the reference's does.  -> the mean over
+    the unmasked labels (float32, 0-d; 0 when every label is masked)."""
+    b, s, d = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s  # irregular tail: fall back to one chunk
+    n = s // chunk
+    hc = torch.movedim(h.reshape(b, n, chunk, d), 1, 0)
+    yc = torch.movedim(labels.reshape(b, n, chunk), 1, 0).long()
+
+    def one_chunk(carry, xs):
+        h_c, y_c = xs
+        logp = torch.log_softmax(project_fn(h_c), dim=-1)  # (B,chunk,V)
+        nll = -torch.gather(logp, -1, torch.clamp(
+            y_c, 0, padded_vocab - 1)[..., None])[..., 0]
+        mask = ((y_c >= 0) & (y_c < vocab)).to(torch.float32)
+        return (carry[0] + torch.sum(nll * mask),
+                carry[1] + torch.sum(mask)), None
+
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    (tot, cnt), _ = scan(functools.partial(layers.checkpoint, one_chunk),
+                         (zero, zero), (hc, yc))
+    return tot / torch.clamp(cnt, min=1)
+
+
+def lm_loss(cfg: ArchConfig, params, tokens, labels, frontend=None,
+            remat: str = "block", loss_chunk: int = 512):
+    """Next-token cross-entropy (labels aligned with the token positions;
+    with a frontend, over the text positions only) plus ``AUX_LOSS_COEF``
+    x the routers' aux loss.  The forward and the backward run under
+    ``layers.lm_precision``; the head is upcast once per call."""
+    with layers.lm_precision():
+        h, _, aux = forward_hidden(cfg, params, tokens, frontend,
+                                   mode="train", remat=remat)
+        if frontend is not None:
+            h = h[:, -tokens.shape[1]:]
+        w32 = _head(cfg, params)
+        loss = chunked_ce_loss(
+            functools.partial(_project, norm=params["out_norm"], w32=w32),
+            h, labels, cfg.vocab, cfg.padded_vocab, chunk=loss_chunk)
+        loss = loss + AUX_LOSS_COEF * aux
+    return layers.backward_at_lm_precision(loss)

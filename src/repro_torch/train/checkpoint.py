@@ -1,7 +1,7 @@
 """Fault-tolerant checkpointing: atomic, versioned, integrity-checked.
 
-Format (the standard library and torch only): one zlib-compressed file
-per step holding ``MAGIC``, an 8-byte little-endian header length, a JSON
+Format (the standard library and torch only): one zlib stream file
+per step (stored at ``ZLIB_LEVEL`` 0) holding ``MAGIC``, an 8-byte little-endian header length, a JSON
 header ``{step, meta, structure, leaves: [{shape, dtype, crc, nbytes}]}``
 and then every leaf's raw bytes in the tree's leaf order.  Leaves are
 tensors of any dtype, bfloat16 included (its raw 16-bit words).  Nothing
@@ -33,6 +33,10 @@ from repro_torch.utils.tree import tree_flatten, tree_unflatten
 log = get_logger("checkpoint")
 
 MAGIC = b"repro_torch-ckpt-1\n"
+#: stored, not compressed: float weights and moments barely compress, and
+#: level 6 runs at ~7 MB/s on random bf16 weights (an LM's 8 GB training
+#: state would take ~20 min); the adler32 and per-leaf crc32 still hold
+ZLIB_LEVEL = 0
 
 
 def _leaf_to_bytes(x) -> tuple[dict, bytes]:
@@ -53,7 +57,8 @@ def _leaf_from_bytes(d: dict, raw: bytes) -> torch.Tensor:
 def save(ckpt_dir: str | os.PathLike, step: int, tree,
          meta: dict | None = None, keep_last: int = 3) -> pathlib.Path:
     """Write ``tree`` (its tensors copied to the host) as step ``step``;
-    ``meta`` must be JSON-serialisable."""
+    ``meta`` must be JSON-serialisable.  The zlib stream is written leaf
+    by leaf at ``ZLIB_LEVEL``."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     leaves, structure = tree_flatten(tree)
@@ -61,18 +66,20 @@ def save(ckpt_dir: str | os.PathLike, step: int, tree,
     header = json.dumps({"step": step, "meta": meta or {},
                          "structure": repr(structure),
                          "leaves": [d for d, _ in parts]}).encode()
-    blob = zlib.compress(b"".join(
-        [MAGIC, struct.pack("<Q", len(header)), header]
-        + [raw for _, raw in parts]), level=6)
     tmp = ckpt_dir / f"tmp-{step}"
     final = ckpt_dir / f"step-{step:010d}"
+    co = zlib.compressobj(ZLIB_LEVEL)
     with open(tmp, "wb") as f:
-        f.write(blob)
+        for chunk in [MAGIC + struct.pack("<Q", len(header)) + header] + [
+                raw for _, raw in parts]:
+            f.write(co.compress(chunk))
+        f.write(co.flush())
         f.flush()
         os.fsync(f.fileno())
+        n_bytes = f.tell()
     os.rename(tmp, final)
     _gc(ckpt_dir, keep_last)
-    log.info("saved checkpoint %s (%.1f MB)", final.name, len(blob) / 1e6)
+    log.info("saved checkpoint %s (%.1f MB)", final.name, n_bytes / 1e6)
     return final
 
 

@@ -36,6 +36,7 @@ class TrainConfig:
     microbatches: int = 1
     warmup_steps: int = 100
     total_steps: int = 1000
+    remat: str = "block"
     compression: str = "none"
     ckpt_dir: str | None = None
     ckpt_every: int = 100
@@ -46,11 +47,13 @@ class TrainConfig:
 def value_and_grad(loss_fn: Callable, params, batch):
     """-> (loss, grads): ``loss_fn(params, batch)`` and its gradient with
     respect to every leaf of ``params``, as a tree of the same structure
-    (the params themselves are not marked)."""
+    (the params themselves are not marked); a leaf the loss does not use
+    gets zeros, as under ``jax.grad``."""
     leaves, structure = tree_flatten(params)
     leaves = [x.detach().requires_grad_(True) for x in leaves]
     loss = loss_fn(tree_unflatten(structure, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), tree_unflatten(structure, list(grads))
 
 

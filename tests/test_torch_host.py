@@ -245,7 +245,8 @@ def test_tracer_profiler_bridge_records_spans():
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    return files + examples + [ROOT / "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -268,7 +269,8 @@ def test_port_imports_no_jax_or_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.stream, repro_torch.kernels.ops, "
-            "repro_torch.serve.engine; "
+            "repro_torch.serve.engine, repro_torch.launch.train, "
+            "repro_torch.data.lm_data; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
