@@ -255,6 +255,23 @@ Phases (each prints one line, any failure exits non-zero):
               step ms (median, min, max; synchronised, data excluded),
               tokens/s, the peak allocation, the device's busy ms, kernels
               a step and idle share, and the checkpoint's times.
+15. dryrun  — the launch tools (``launch.dryrun``, ``launch.roofline``,
+              ``benchmarks_torch``).  ``DR_CELLS`` run as dry runs over a
+              fake 256-rank 16x16 world on fake ``cuda`` tensors (nothing
+              allocated), each ``ok`` with its peak GB a device, roofline
+              terms and dominant term printed and its JSON written to
+              ``results/dryrun_torch/``.  The anchor: the dry run of
+              ``LT_ARCH`` on a 1x1 mesh at phase ``lm_train``'s step
+              (``LT_BATCH`` x ``LT_SEQ``, remat ``block``, AdamW) against
+              that step run for real on the card: the predicted peak
+              beside the step's ``max_memory_allocated`` above what was
+              allocated before its params (``DR_ANCHOR_TOL``), the
+              predicted FLOPs beside 6 N D and over the step's time
+              between CUDA events as a share of the H100's peak.  Then
+              ``benchmarks_torch.run kernel roofline`` (B.7 and B.8
+              bit-equal to their plain versions, each time beside the
+              card's name and power limit; their launches counted on a
+              path of their own).
 
 The model is made here from ``--seed`` with numpy: random ternary weights
 and integer thresholds near the middle of each layer's accumulator range
@@ -4275,6 +4292,140 @@ def lm_train_phase(seed, dev, torch, dispatch, card, lmf_rec):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the launch tools
+# ---------------------------------------------------------------------------
+
+# the dry run's cells over the fake 16x16 world
+DR_CELLS = (("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "decode_32k"))
+# the anchor's predicted peak against the real step's, relative
+DR_ANCHOR_TOL = 0.25
+
+
+def dr_check(ok, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"dryrun: {msg}")
+
+
+def dr_anchor(seed, dev, torch, card):
+    """The dry run of ``LT_ARCH`` on a 1x1 mesh at phase ``lm_train``'s
+    step against that step on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import lm_data
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models import api
+    from repro_torch.train import loop, optimizer
+
+    t0 = time.perf_counter()
+    shape = ShapeConfig("anchor", "train", LT_SEQ, LT_BATCH)
+    cell = dryrun.run_cell(LT_ARCH, "anchor", False, device="cuda",
+                           mesh_name="1x1", shape=shape, remat="block",
+                           optimizer="adamw", microbatches=1)
+    dr_check(cell["status"] == "ok", f"anchor cell: {cell.get('error')}")
+    dry_s = time.perf_counter() - t0
+
+    cfg = get_arch(LT_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    tcfg = loop.TrainConfig(opt=optimizer.OptConfig(name="adamw"),
+                            remat="block")
+    step = loop.make_train_step(cfg, tcfg, api.loss_fn(cfg, tcfg.remat))
+    state = loop.init_train_state(tcfg, params)
+    del params
+    batch = lm_data.to_device(lm_data.batch_at(lm_data.DataConfig(
+        vocab=cfg.vocab, seq_len=LT_SEQ, global_batch=LT_BATCH, seed=seed),
+        0), dev)
+    state = step(state, batch)[0]          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    new, metrics = step(state, batch)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end)
+    measured = torch.cuda.max_memory_allocated() - base
+    dr_check(bool(np.isfinite(float(metrics["loss"]))), "the step's loss")
+    del new, state, batch, metrics
+    torch.cuda.empty_cache()
+
+    predicted = cell["mem"]["peak_gb"] * 1e9
+    rel = predicted / measured - 1
+    flops = cell["roofline"]["flops_per_dev"]
+    six_nd = rl.model_flops_train(api.active_param_count(cfg),
+                                  LT_BATCH * LT_SEQ)
+    share = flops / (step_ms / 1e3) / rl.PEAK_FLOPS
+    phase("dryrun", f"anchor {LT_ARCH} at {LT_BATCH} x {LT_SEQ} (remat "
+          f"block, AdamW), dry run on a 1x1 mesh ({dry_s:.1f} s): "
+          f"predicted peak {predicted / 1e9:.3f} GB (args "
+          f"{cell['mem']['args_gb']:.3f}, temp {cell['mem']['temp_gb']:.3f})"
+          f", measured max_memory_allocated of the real step above its "
+          f"baseline {measured / 1e9:.3f} GB: {rel:+.1%} (bound "
+          f"{DR_ANCHOR_TOL:.0%}); predicted FLOPs {flops:.4g} beside 6 N D "
+          f"{six_nd:.4g} ({flops / six_nd:.3f}x); the step {step_ms:.3f} ms "
+          f"between CUDA events around it (its device idle gaps "
+          f"included), {share:.3%} of the {rl.PEAK_FLOPS / 1e12:.0f} "
+          f"TFLOP/s peak at the predicted FLOPs; {card}")
+    dr_check(abs(rel) <= DR_ANCHOR_TOL,
+             f"the anchor's predicted peak {predicted:.4g} B is {rel:+.1%} "
+             f"of the measured {measured:.4g} B")
+    return dict(cell=cell, dry_run_s=dry_s, predicted_peak_bytes=predicted,
+                measured_peak_bytes=measured, peak_rel_err=rel,
+                predicted_flops=flops, model_flops_6nd=six_nd,
+                step_ms=step_ms, peak_share=share)
+
+
+def dryrun_phase(seed, dev, torch, dispatch, card):
+    """Phase 15: the dry run's cells, the anchor and the benches.
+    Returns (record, the benches' kernel launches)."""
+    from benchmarks_torch import kernel_bench, roofline_table
+    from repro_torch.launch import dryrun
+
+    t_start = time.perf_counter()
+    out = ROOT / "results" / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    cells = {}
+    for arch, shape in DR_CELLS:
+        t0 = time.perf_counter()
+        cell = dryrun.run_cell(arch, shape, False, device="cuda")
+        (out / f"{arch}__{shape}__16x16.json").write_text(
+            json.dumps(cell, indent=2, default=str))
+        dr_check(cell["status"] == "ok",
+                 f"{arch}/{shape}/16x16: {cell.get('error')}")
+        r, m = cell["roofline"], cell["mem"]
+        phase("dryrun", f"{arch}/{shape}/16x16 over a fake 256-rank world "
+              f"on fake cuda tensors ({time.perf_counter() - t0:.1f} s): "
+              f"peak {m['peak_gb']:.3f} GB a device (args "
+              f"{m['args_gb']:.3f}); compute {r['compute_s'] * 1e3:.3f} ms, "
+              f"memory {r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}; "
+              f"useful FLOPs {cell['useful_flops_frac']:.3f}; "
+              f"collectives {r['collectives']}")
+        cells[f"{arch}/{shape}"] = cell
+    anchor = dr_anchor(seed, dev, torch, card)
+
+    dispatch.reset()
+    t0 = time.perf_counter()
+    bench_rows = kernel_bench.run() + roofline_table.run()
+    bench_launches = dispatch.counts()
+    for row in bench_rows:
+        phase("dryrun", f"bench {row}")
+    dr_check(bench_launches, "the kernel bench launched no kernel")
+    phase_s = time.perf_counter() - t_start
+    phase("dryrun", f"benches in {time.perf_counter() - t0:.1f} s, "
+          f"launches {bench_launches}; phase took {phase_s:.1f} s; {card}")
+    return (dict(cells=cells, anchor=anchor, bench_rows=bench_rows,
+                 bench_launches=bench_launches, phase_s=phase_s, card=card),
+            bench_launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4809,10 +4960,13 @@ def main() -> int:
     lmf_rec = lm_families_phase(args.seed, dev, torch, dispatch, card)
     # 14. LM training: Qwen3-0.6B whole, DeepSeek-MoE cut, every family
     lt_rec = lm_train_phase(args.seed, dev, torch, dispatch, card, lmf_rec)
+    # 15. the launch tools: dry-run cells, the anchor, the benches
+    dr_rec, dr_launches = dryrun_phase(args.seed, dev, torch, dispatch, card)
     path_kernel = aggregate(per_launch + lib_main + twin_recs)
     new_paths = (async_launches + tenant_launches + shard_launches
                  + collections.Counter(twin_launches)
-                 + collections.Counter(train_launches))
+                 + collections.Counter(train_launches)
+                 + collections.Counter(dr_launches))
 
     ms, pms, bms, by = timing[("hop", True)]
     fms, fpms, fbms, fby = timing["fin"]
@@ -4883,7 +5037,8 @@ def main() -> int:
                                       timing[("hop", False)])),
                   async_path=async_rec, tenants=tenant_rec,
                   sharded=shard_rec, chip_twin=twin_rec, train=train_rec,
-                  lm_serve=lm_rec, lm_families=lmf_rec, lm_train=lt_rec)
+                  lm_serve=lm_rec, lm_families=lmf_rec, lm_train=lt_rec,
+                  dryrun=dr_rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

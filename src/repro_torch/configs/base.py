@@ -3,13 +3,15 @@
 The port of the reference's ``repro/configs/base.py``.  Every assigned
 architecture is a ``configs/<id>.py`` exporting ``CONFIG`` (exact
 published dims) and ``SMOKE`` (reduced same-family config for CPU tests),
-copied as data.  The reference's ``ArchConfig.input_specs`` (the dry run's
-stand-in inputs) waits for the dry run's port (ROADMAP A.14).
+copied as data.  ``ArchConfig.input_specs`` gives the dry run's stand-in
+inputs (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +106,37 @@ class ArchConfig:
         if shape.name == "long_500k" and not self.long_context_ok:
             return False
         return True
+
+    # -- dry-run inputs ------------------------------------------------------
+
+    def input_specs(self, shape: ShapeConfig,
+                    device="meta") -> dict[str, torch.Tensor]:
+        """Stand-ins for every model input of this shape, the reference's
+        shapes and dtypes: int32 ``tokens`` and ``labels`` (B, S), or
+        (B, 1) tokens for decode, and a bf16 ``frontend`` for the VLM and
+        encoder-decoder families.  Made with ``torch.empty`` on ``device``:
+        the ``meta`` device allocates nothing, and under the caller's
+        ``FakeTensorMode`` any device gives fake tensors."""
+        b, s = shape.global_batch, shape.seq_len
+
+        def empty(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device=device)
+
+        if shape.kind == "train":
+            specs = {"tokens": empty(b, s), "labels": empty(b, s)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": empty(b, s)}
+        else:  # decode: one new token against a seq_len-deep context
+            specs = {"tokens": empty(b, 1)}
+        if self.n_frontend_tokens and shape.kind != "decode":
+            specs["frontend"] = empty(b, self.n_frontend_tokens,
+                                      self.frontend_dim or self.d_model,
+                                      dtype=torch.bfloat16)
+        if self.family == "encdec" and shape.kind != "decode":
+            # audio frames replace 'frontend'; the decoder sees tokens
+            specs["frontend"] = empty(b, s, self.frontend_dim or self.d_model,
+                                      dtype=torch.bfloat16)
+        return specs
 
 
 _REGISTRY: dict[str, str] = {

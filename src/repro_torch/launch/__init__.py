@@ -1,10 +1,8 @@
-"""Launch tools of the port: ``mesh`` (the stream slot pool's shard mesh)
-and the LM launchers ``serve`` and ``train`` (``python -m
-repro_torch.launch.serve`` / ``.train``).
-
-The reference's ``repro.launch`` also holds the production and host
-meshes, the dry run, the roofline and the hill climb; they are not ported
-yet."""
+"""Launch tools of the port: ``mesh`` (the production, host and stream
+meshes, and the fake process group the dry run runs in), the LM
+launchers ``serve`` and ``train``, and the dry run's tools ``dryrun``,
+``roofline``, ``hillclimb`` and ``report`` (each ``python -m
+repro_torch.launch.<name>``)."""
 from repro_torch.launch.mesh import (
     StreamMesh,
     dp_axes,

@@ -1,7 +1,19 @@
-"""The stream slot pool's mesh: S logical shards of one device.
+"""Meshes: the production and host ``DeviceMesh``es, and the stream slot
+pool's S logical shards of one device.
 
-The port of the reference's ``make_stream_mesh``, ``dp_axes`` and
-``dp_size`` (``repro/launch/mesh.py``).  The reference's stream mesh is a
+The port of the reference's ``repro/launch/mesh.py``.
+
+Production meshes keep the reference's logical shapes, read as H100s:
+``(16, 16)`` with axes ``("data", "model")`` (256 cards) and ``(2, 16,
+16)`` with ``("pod", "data", "model")`` (512 cards).  One process builds
+them over a *fake* process group of that many ranks (``fake_world``): no
+collective moves data, which is what the dry run
+(``launch/dryrun.py``) needs to run the step on DTensors of fake tensors
+and read its per-device shapes, costs and collectives.
+``make_host_mesh`` spans the real cards of the machine.
+
+The stream mesh is the port of ``make_stream_mesh``, ``dp_axes`` and
+``dp_size``.  The reference's stream mesh is a
 flat ``("data",)`` axis of devices; its multi-shard cases run on the
 logical devices of one host.  Here a shard is a contiguous block of the
 slot pool's rows on one device: ``StreamMesh`` holds one ``torch.device``
@@ -11,12 +23,83 @@ reference's ``shard_map`` makes one per device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
 
-__all__ = ["StreamMesh", "make_stream_mesh", "dp_axes", "dp_size"]
+__all__ = ["StreamMesh", "dp_axes", "dp_size", "fake_world",
+           "make_host_mesh", "make_mesh", "make_production_mesh",
+           "make_stream_mesh"]
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A fake process group of ``n`` ranks in this process (rank 0) for
+    the block, destroyed after it.  Collectives on it move nothing.  Only
+    one default group can exist in a process: entering with one already
+    started raises."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already started")
+    # importing this module registers the "fake" backend's constructor
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_mesh(device_type: str, shape, axes):
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the
+    started process group, which must hold exactly that many ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(
+            f"a {shape} mesh needs a started process group of {n} ranks "
+            "(fake_world(n) for the dry run)")
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """One pod: (16, 16) over ("data", "model"); ``multi_pod``: (2, 16,
+    16) over ("pod", "data", "model").  Needs a started group of 256 or
+    512 ranks (``fake_world``); ``device_type`` is that of the tensors
+    the mesh will hold."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(device_type, shape, axes)
+
+
+def make_host_mesh(model_parallel: int = 1, device_type="cuda"):
+    """A (n / model_parallel, model_parallel) ("data", "model") mesh over
+    the n cards of this machine (the CPU counts as one device).  With one
+    card and no group started, starts a one-rank group (``gloo``, which
+    carries CUDA tensors too); with more, the caller runs one process per
+    card and starts the group."""
+    import torch.distributed as dist
+
+    n = torch.cuda.device_count() if device_type == "cuda" else 1
+    if n == 0:
+        raise RuntimeError("make_host_mesh(device_type='cuda') needs a "
+                           "CUDA device and none is available")
+    if n % model_parallel:
+        raise ValueError(f"{n} devices do not split into model_parallel="
+                         f"{model_parallel}")
+    if n == 1 and not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return make_mesh(device_type, (n // model_parallel, model_parallel),
+                        ("data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, stack
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.models.scan_utils import scan
+from repro_torch.sharding import act
 
 
 def _attn_kw(cfg: ArchConfig) -> dict:
@@ -73,35 +74,34 @@ def encode(cfg: ArchConfig, params, frames) -> torch.Tensor:
     kw = dict(_attn_kw(cfg), rope_theta=cfg.rope_theta)
 
     def block(h, p):
-        h = h + attn.attention_train(p["attn"], layers.rmsnorm(h, p["norm1"]),
-                                     causal=False, **kw)
-        h = h + layers.apply_mlp(p["mlp"], layers.rmsnorm(h, p["norm2"]),
-                                 cfg.quant_mode)
+        h = stack._residual(h, attn.attention_train(
+            p["attn"], stack._norm(h, p["norm1"]), causal=False, **kw))
+        h = stack._residual(h, layers.apply_mlp(
+            p["mlp"], stack._norm(h, p["norm2"]), cfg.quant_mode))
         return h, None
 
-    h, _ = scan(block, frames.to(COMPUTE_DTYPE), params["enc_blocks"])
+    h = act.constrain(frames.to(COMPUTE_DTYPE), "dp", None, None)
+    h, _ = scan(block, h, params["enc_blocks"])
     return layers.rmsnorm(h, params["enc_norm"])
 
 
 def _dec_block(cfg: ArchConfig, p, h, memory, mode, cache=None,
                cache_len=None):
     kw = dict(_attn_kw(cfg), rope_theta=cfg.rope_theta)
-    hn = layers.rmsnorm(h, p["norm1"])
+    hn = stack._norm(h, p["norm1"])
     if mode == "train":
-        h = h + attn.attention_train(p["self_attn"], hn, **kw)
-        new_cache = None
+        o, new_cache = attn.attention_train(p["self_attn"], hn, **kw), None
     elif mode == "prefill":
         o, new_cache = attn.attention_prefill(p["self_attn"], hn, **kw)
-        h = h + o
     else:
         o, new_cache = attn.attention_decode(p["self_attn"], hn, cache,
                                              cache_len, **kw)
-        h = h + o
-    h = h + attn.cross_attention(p["cross_attn"],
-                                 layers.rmsnorm(h, p["norm_x"]), memory,
-                                 **_attn_kw(cfg))
-    h = h + layers.apply_mlp(p["mlp"], layers.rmsnorm(h, p["norm2"]),
-                             cfg.quant_mode)
+    h = stack._residual(h, o)
+    h = stack._residual(h, attn.cross_attention(
+        p["cross_attn"], stack._norm(h, p["norm_x"]), memory,
+        **_attn_kw(cfg)))
+    h = stack._residual(h, layers.apply_mlp(
+        p["mlp"], stack._norm(h, p["norm2"]), cfg.quant_mode))
     return h, new_cache
 
 
@@ -112,7 +112,7 @@ def forward_hidden(cfg: ArchConfig, params, tokens, frontend,
     ``train`` each decoder block runs under ``layers.RematPolicy(remat)``
     (the encoder's blocks are not wrapped, as in the reference)."""
     memory = encode(cfg, params, frontend)
-    h = params["embed"][tokens].to(COMPUTE_DTYPE)
+    h = act.constrain(stack.embed_lookup(params, tokens), "dp", None, None)
 
     def block(h, p):
         return _dec_block(cfg, p, h, memory, mode)
@@ -162,7 +162,8 @@ def decode_step(cfg: ArchConfig, params, state: dict, tokens):
     cache_len = state["cache_len"]
     k, v = state["self"]
     with layers.lm_precision():
-        h = params["embed"][tokens].to(COMPUTE_DTYPE)
+        h = act.constrain(stack.embed_lookup(params, tokens), "dp", None,
+                          None)
         for r in range(cfg.n_layers):
             h, _ = _dec_block(cfg, stack.index_tree(params["dec_blocks"], r),
                               h, memory, "decode", cache=(k[r], v[r]),
@@ -178,6 +179,7 @@ def lm_loss(cfg: ArchConfig, params, tokens, labels, frontend,
     term), forward and backward under ``layers.lm_precision``."""
     with layers.lm_precision():
         h, _, _ = forward_hidden(cfg, params, tokens, frontend, remat=remat)
+        h = act.constrain(h, "dp", None, None)
         w32 = stack._head(cfg, params)
         loss = stack.chunked_ce_loss(
             functools.partial(stack._project, norm=params["out_norm"],

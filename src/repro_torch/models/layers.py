@@ -32,6 +32,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core import quant
+from repro_torch.sharding import act
 from repro_torch.utils.tree import tree_leaves
 
 PARAM_DTYPE = torch.bfloat16
@@ -178,8 +179,15 @@ def embed_init(generator, vocab: int, dim: int, *, device,
 # ---------------------------------------------------------------------------
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """bf16 x bf16 -> bf16 (float32 accumulation inside the matmul)."""
-    return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
+    """bf16 x bf16 -> bf16 (float32 accumulation inside the matmul); on
+    DTensors under a sharding policy, a Megatron product
+    (``sharding.act.matmul``)."""
+    return act.matmul(x, w, matmul_bf16)
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The local product of :func:`linear`: both operands in bf16."""
+    return torch.matmul(a.to(COMPUTE_DTYPE), b.to(COMPUTE_DTYPE))
 
 
 def ternary_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -187,10 +195,10 @@ def ternary_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w ternarizes (``core.quant.ternarize_weight``), a per-tensor scale
     keeps magnitudes, and the product runs as a bf16 matmul of
     integer-like values, as the reference's masked-sign matmul does."""
-    w32 = w.to(torch.float32)
+    w32 = act.gather_dp(w).to(torch.float32)
     scale = w32.abs().mean() + 1e-8
     w_t = quant.ternarize_weight(w32) * scale
-    return torch.matmul(x.to(COMPUTE_DTYPE), w_t.to(COMPUTE_DTYPE))
+    return act.matmul(x, w_t, matmul_bf16)
 
 
 def apply_linear(x: torch.Tensor, w: torch.Tensor,

@@ -16,23 +16,34 @@ reference:
     in float32.  Every expert's weights are read, whatever the routing.
   * :func:`dispatch_grouped`: the same with positions counted within
     ``groups`` contiguous groups of tokens, and the buckets gathered
-    through an int32 slot -> token table.  The reference takes its group
-    count from its sharding policy; the port has none yet (ROADMAP
-    A.14), so the caller passes it (default 1).
+    through an int32 slot -> token table.  Under a sharding policy
+    (``sharding.act``) the group count is the DP size, so that no token
+    leaves its shard; the caller may pass it (default 1).
   * :func:`dispatch_dense`: every expert on every token, masked by the
     combine weights; exact (no dropping), the tests' reference.
 
-``impl="auto"`` resolves to ``dropping``, as the reference's does with
-no sharding policy set (which is how its engine and launcher run).
-``FORCE_IMPL`` (read at call time) forces one dispatch everywhere.  The
-auxiliary load-balance loss is Switch-style: E * sum_e(f_e * p_e).
+``impl="auto"`` takes the reference's rule: ``grouped`` when a policy
+sets a DP axis and the expert bank over TP is at most
+``GROUPED_BANK_BYTES``, else ``dropping`` (with no policy, which is how
+the engine and the trainer run, always ``dropping``).  On DTensors under
+a policy each device routes and dispatches its own tokens
+(:func:`_apply_moe_sharded`).  ``FORCE_IMPL`` (read at call time) forces
+one dispatch everywhere.  The auxiliary load-balance loss is Switch-style:
+E * sum_e(f_e * p_e).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models import layers
 from repro_torch.models.layers import COMPUTE_DTYPE
+from repro_torch.sharding import act
+
+#: expert banks smaller than this (bytes, at bf16 after TP) dispatch with
+#: the grouped local-capacity scheme: no cross-shard token movement
+GROUPED_BANK_BYTES = 4e9
 
 #: test hook: force one dispatch ('dense', 'grouped' or 'dropping')
 #: everywhere; capacity dropping depends on the batch's composition by
@@ -67,10 +78,9 @@ def init_moe(generator, d_model: int, d_expert: int, n_experts: int,
     return p
 
 
-def route(p: dict, x: torch.Tensor, top_k: int):
-    """(B,S,D) -> gates (N,K) float32, experts (N,K) int64, aux loss;
-    N = B*S.  Ties in the top-k keep the lower expert first, as
-    ``jax.lax.top_k`` does (a stable descending sort)."""
+def _route_stats(p: dict, x: torch.Tensor, top_k: int):
+    """-> gates, experts, and the aux loss's two means over the tokens:
+    the routed fraction and the mean probability per expert."""
     b, s, d = x.shape
     n = b * s
     logits = x.reshape(n, d).to(torch.float32) @ p["router"]
@@ -82,7 +92,15 @@ def route(p: dict, x: torch.Tensor, top_k: int):
     onehot = torch.nn.functional.one_hot(gate_idx, e).to(torch.float32)
     frac = onehot.sum(dim=1).mean(dim=0) / top_k
     imp = probs.mean(dim=0)
-    aux = e * torch.sum(frac * imp)
+    return gate_vals, gate_idx, frac, imp
+
+
+def route(p: dict, x: torch.Tensor, top_k: int):
+    """(B,S,D) -> gates (N,K) float32, experts (N,K) int64, aux loss;
+    N = B*S.  Ties in the top-k keep the lower expert first, as
+    ``jax.lax.top_k`` does (a stable descending sort)."""
+    gate_vals, gate_idx, frac, imp = _route_stats(p, x, top_k)
+    aux = frac.shape[-1] * torch.sum(frac * imp)
     return gate_vals, gate_idx, aux
 
 
@@ -99,7 +117,9 @@ def _swiglu(xe, wi_gate, wi_up, wo, spec: str):
 def _expert_mlp(p: dict, xe: torch.Tensor, quant_mode: str = "none"):
     """xe (E, C, D) -> (E, C, D): each expert's SwiGLU on its bucket.
     Experts run in bf16 whatever ``quant_mode``, as the reference's do."""
-    return _swiglu(xe, p["wi_gate"], p["wi_up"], p["wo"], "ecd,edf->ecf")
+    xe = act.constrain(xe, "dp", None, None)
+    out = _swiglu(xe, p["wi_gate"], p["wi_up"], p["wo"], "ecd,edf->ecf")
+    return act.constrain(out, "dp", None, None)
 
 
 def _positions(idx: torch.Tensor, e: int, cap: int):
@@ -172,7 +192,7 @@ def dispatch_grouped(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
     e = p["router"].shape[-1]
     g = groups if n % groups == 0 else 1
     ng = n // g
-    xg = x.reshape(g, ng, d)
+    xg = act.constrain(x.reshape(g, ng, d), "dp", None, None)
     idx_g = gate_idx.reshape(g, ng, top_k)
     val_g = gate_vals.reshape(g, ng, top_k)
     cap = max(1, int(ng * top_k / e * capacity_factor))
@@ -196,8 +216,10 @@ def dispatch_grouped(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
     slot_keep = slot_keep.reshape(g, e, cap).bool()
     garange = torch.arange(g, device=dev)[:, None, None]
     xe = xg[garange, slot_tok].to(COMPUTE_DTYPE) * slot_keep[..., None]
+    xe = act.constrain(xe, "dp", None, None, None)
 
     he = _swiglu(xe, p["wi_gate"], p["wi_up"], p["wo"], "gecd,edf->gecf")
+    he = act.constrain(he, "dp", None, None, None)
 
     out = torch.zeros((g, ng, d), dtype=torch.float32, device=dev)
     gidx = torch.arange(g, device=dev)[:, None]
@@ -228,15 +250,95 @@ def dispatch_dense(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _apply_moe_sharded(p: dict, x, *, top_k: int, quant_mode: str,
+                       capacity_factor: float, impl: str):
+    """The MoE on DTensors under a policy: each device routes its own
+    tokens (the batch over DP) and runs its slice of every expert (F over
+    TP: a partial sum over TP).  ``grouped``: the local tokens are one
+    group, so no token moves; ``dropping`` at the local capacity, with
+    experts that a bank past ``GROUPED_BANK_BYTES`` shards over an
+    expert-parallel axis gathered (no config of the repo has such a
+    bank at TP 16).  The aux loss comes from the routing statistics
+    averaged over the shards."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    pol = act.policy()
+    mesh = pol["mesh"]
+    names = list(act.mesh_axes(mesh))
+    b = x.shape[0]
+    dp = act.axis_size("dp") or 1
+    b_ax = pol["dp"] if (pol["dp"] and b % dp == 0 and b >= dp) else None
+    x_pl = act.spec_placements(3, b_ax)
+    keys = ["router", "wi_gate", "wi_up", "wo"]
+    if "shared" in p:
+        keys += [f"shared/{k}" for k in ("wi_gate", "wi_up", "wo")]
+    ws = [p[k] if "/" not in k else p["shared"][k.split("/")[1]]
+          for k in keys]
+    # each weight as the device computes with it: F over TP stays
+    # sharded; any other sharding (FSDP storage, or experts over an
+    # expert-parallel axis) is gathered for the layer
+    keep = {"wi_gate": 2, "wi_up": 2, "wo": 1, "shared/wi_gate": 1,
+            "shared/wi_up": 1, "shared/wo": 0}
+    w_pl = [tuple(pl if k in keep and pl.is_shard(keep[k]) else Replicate()
+                  for pl in w.placements) for k, w in zip(keys, ws)]
+    # the output is a partial sum over every axis that shards F
+    out_pl = list(x_pl)
+    for i, pl in enumerate(w_pl[1]):
+        if pl.is_shard(2):
+            out_pl[i] = Partial()
+    # the routing statistics are means over all the tokens, which every
+    # device of a TP group computes alike: each device's mean over its
+    # own tokens, divided by the count of devices the layer is split
+    # over (DP and TP), is a partial sum over them, so that each
+    # device's gradient is its share (the router's gradient is a
+    # partial sum over both, as the experts' part of it is)
+    sizes = act.mesh_axes(mesh)
+    b_axes = () if not b_ax else ((b_ax,) if isinstance(b_ax, str)
+                                  else tuple(b_ax))
+    split = [i for i in range(len(names))
+             if names[i] in b_axes or out_pl[i].is_partial()]
+    n_b = math.prod(sizes[names[i]] for i in split)
+    stat_pl = tuple(Partial() if i in split else Replicate()
+                    for i in range(len(names)))
+
+    def local(xl, *wl):
+        lp = dict(zip(keys[:4], wl[:4]))
+        if len(wl) > 4:
+            lp["shared"] = dict(zip(("wi_gate", "wi_up", "wo"), wl[4:]))
+        gv, gi, frac, imp = _route_stats(lp, xl, top_k)
+        kw = dict(quant_mode=quant_mode, capacity_factor=capacity_factor)
+        if impl == "dense":
+            out = dispatch_dense(lp, xl, gv, gi, quant_mode=quant_mode)
+        elif impl == "grouped":
+            out = dispatch_grouped(lp, xl, gv, gi, **kw)
+        else:
+            out = dispatch_dropping(lp, xl, gv, gi, **kw)
+        return out, frac / n_b, imp / n_b
+
+    out, frac, imp = act.shard_map(
+        local, (x, *ws), (x_pl, *w_pl), (tuple(out_pl), stat_pl, stat_pl))
+    aux = frac.shape[-1] * torch.sum(frac * imp)
+    return out, aux
+
+
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
               quant_mode: str = "none", capacity_factor: float = 1.25,
               impl: str = "auto"):
-    """x (B,S,D) -> (out, aux_loss); ``grouped`` runs at one group (no
-    sharding policy)."""
+    """x (B,S,D) -> (out, aux_loss).  ``auto``: ``grouped`` at the DP
+    size when a policy sets a DP axis and the bank over TP is at most
+    ``GROUPED_BANK_BYTES``, else ``dropping``."""
     if FORCE_IMPL is not None:
         impl = FORCE_IMPL
+    dp = act.axis_size("dp")
     if impl == "auto":
-        impl = "dropping"      # no sharding policy (ROADMAP A.14)
+        e_, d_, f_ = p["wi_gate"].shape[-3:]
+        bank = 3 * e_ * d_ * f_ * 2 / max(act.axis_size("tp") or 1, 1)
+        impl = "grouped" if (dp and bank <= GROUPED_BANK_BYTES) \
+            else "dropping"
+    if act.sharded(x):
+        return _apply_moe_sharded(p, x, top_k=top_k, quant_mode=quant_mode,
+                                  capacity_factor=capacity_factor,
+                                  impl=impl)
     gate_vals, gate_idx, aux = route(p, x, top_k)
     if impl == "dense":
         out = dispatch_dense(p, x, gate_vals, gate_idx,
@@ -244,7 +346,8 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
     elif impl == "grouped":
         out = dispatch_grouped(p, x, gate_vals, gate_idx,
                                quant_mode=quant_mode,
-                               capacity_factor=capacity_factor)
+                               capacity_factor=capacity_factor,
+                               groups=dp or 1)
     elif impl == "dropping":
         out = dispatch_dropping(p, x, gate_vals, gate_idx,
                                 quant_mode=quant_mode,

@@ -27,11 +27,42 @@ import torch.nn.functional as F
 from repro_torch.models import layers
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.models.scan_utils import scan
+from repro_torch.sharding import act
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``F.softplus``; on DTensors under a sharding policy (the dry run)
+    the same function from pointwise ops, whose sharding rules keep the
+    layout where ``softplus_backward``'s gathers the whole tensor."""
+    if act.sharded(x):
+        return torch.where(x > 20.0, x,
+                           torch.log1p(torch.exp(torch.clamp(x, max=20.0))))
+    return F.softplus(x)
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on DTensors, ``-softplus(-x)`` as above
+    (``log_sigmoid_forward`` has no sharding rule)."""
+    if act.sharded(x):
+        return -_softplus(-x)
+    return F.logsigmoid(x)
+
+
+def _up_split(x, w, d_inner: int):
+    """The fused up-projection's two halves: ``x @ w`` split at
+    ``d_inner``; on DTensors under a policy, ``x`` times each column
+    block of ``w`` (``act.split_columns``), so that each half keeps its
+    channels over TP where slicing the product would gather it."""
+    if act.sharded(x):
+        w_a, w_b = act.split_columns(act.gather_dp(w), d_inner)
+        return _mm(x, w_a), _mm(x, w_b)
+    up = _mm(x, w)
+    return up[..., :d_inner], up[..., d_inner:]
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 x bf16 -> bf16, the reference's ``x.astype(bf16) @ w``."""
-    return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
+    return act.matmul(x, w, layers.matmul_bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -57,8 +88,8 @@ def init_mlstm(generator, d_model: int, n_heads: int, expand: int = 2, *,
 
 def _mlstm_gates(p, xi, n_heads):
     """xi (B,S,Di) -> per-head log input / forget gates (B,S,H) float32."""
-    g = xi.to(torch.float32) @ p["w_if"]
-    return g[..., :n_heads], F.logsigmoid(g[..., n_heads:])
+    g = act.matmul(xi.to(torch.float32), p["w_if"])
+    return g[..., :n_heads], _logsigmoid(g[..., n_heads:])
 
 
 def _mlstm_qkv(p, x, n_heads, expand):
@@ -66,11 +97,10 @@ def _mlstm_qkv(p, x, n_heads, expand):
     gate branch zg and d_inner."""
     b, s, d = x.shape
     d_inner = expand * d
-    up = _mm(x, p["w_up"])
-    xi, zg = up[..., :d_inner], up[..., d_inner:]
+    xi, zg = _up_split(x, p["w_up"], d_inner)
     qkv = _mm(xi, p["w_qkv"])
     dk = d_inner // n_heads
-    q, k, v = (t.reshape(b, s, n_heads, dk).to(torch.float32)
+    q, k, v = (act.reshape(t, b, s, n_heads, dk).to(torch.float32)
                for t in torch.split(qkv, d_inner, dim=-1))
     q = q / math.sqrt(dk)
     i_log, f_log = _mlstm_gates(p, xi, n_heads)
@@ -79,7 +109,7 @@ def _mlstm_qkv(p, x, n_heads, expand):
 
 def _mlstm_out(p, h, zg, d_inner):
     b, s = h.shape[:2]
-    h = h.reshape(b, s, d_inner).to(COMPUTE_DTYPE)
+    h = act.reshape(h, b, s, d_inner).to(COMPUTE_DTYPE)
     h = h * F.silu(zg.to(torch.float32)).to(COMPUTE_DTYPE)
     return _mm(h, p["w_out"])
 
@@ -122,7 +152,24 @@ def _mlstm_chunk_parallel(q, k, v, i_log, f_log, chunk: int = 256):
     """Chunkwise-parallel mLSTM (GLA-style): intra-chunk quadratic products
     and the inter-chunk matrix-state recurrence, in float32 with the
     running max lifted to chunk granularity; ``-inf`` masks the upper
-    triangle of the log-weights."""
+    triangle of the log-weights.  On DTensors under a sharding policy
+    each device scans its own sequences (and heads, where TP divides
+    them)."""
+    if act.sharded(q):
+        bx, _, hx = act.logical_spec(q.shape, "dp", None, "tp")
+        pl4 = act.spec_placements(4, bx, None, hx)
+        pl3 = act.spec_placements(3, bx, None, hx)
+        st = (act.spec_placements(4, bx, hx), act.spec_placements(3, bx, hx),
+              act.spec_placements(2, bx, hx))
+
+        def local(*a):
+            out, state = _mlstm_chunk_parallel(*a, chunk=chunk)
+            return (out, *state)
+
+        out, *state = act.shard_map(
+            local, (q, k, v, i_log, f_log), (pl4, pl4, pl4, pl3, pl3),
+            (pl4, *st))
+        return out, tuple(state)
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     c = min(chunk, s)
@@ -239,11 +286,12 @@ def slstm_init_state(batch: int, d_model: int, *, device):
 
 def _slstm_cell(p, xt, state):
     c, h, n, m = state
-    pre = xt.to(torch.float32) @ p["w_in"] + h @ p["r_in"]    # (B,4D)
+    pre = act.matmul(xt.to(torch.float32), p["w_in"]) \
+        + act.matmul(h, p["r_in"])                         # (B,4D)
     zi, ii, fi, oi = torch.chunk(pre, 4, dim=-1)
     z = torch.tanh(zi)
     o = torch.sigmoid(oi)
-    i_log, f_log = ii, F.logsigmoid(fi)
+    i_log, f_log = ii, _logsigmoid(fi)
     m_new = torch.maximum(f_log + m, i_log)
     decay = torch.exp(f_log + m - m_new)
     inp = torch.exp(i_log - m_new)
@@ -330,7 +378,19 @@ def _mamba_ssm_scan(u, dt, a, b_in, c_in, d_skip, chunk: int = 256):
     """The selective scan: u (B,S,Di), dt (B,S,Di), a (Di,N), b_in / c_in
     (B,S,N) -> y (B,S,Di), final state (B,Di,N).  Chunks bound the
     materialised (B,chunk,Di,N) decay tensor; the state crosses chunks
-    through the cumulative decay."""
+    through the cumulative decay.  On DTensors under a sharding policy
+    each device scans its own channels (the scan is channel-wise)."""
+    if act.sharded(u):
+        bx, _, dx = _bsd_axes(u)
+        pl_bsd = act.spec_placements(3, bx, None, dx)
+        pl_bsn = act.spec_placements(3, bx)
+        pl_dn = act.spec_placements(2, dx)
+        pl_d = act.spec_placements(1, dx)
+        pl_bdn = act.spec_placements(3, bx, dx)
+        return act.shard_map(
+            functools.partial(_mamba_ssm_scan, chunk=chunk),
+            (u, dt, a, b_in, c_in, d_skip),
+            (pl_bsd, pl_bsd, pl_dn, pl_bsn, pl_bsn, pl_d), (pl_bsd, pl_bdn))
     b, s, di = u.shape
     c = min(chunk, s)
     if s % c:
@@ -357,14 +417,24 @@ def _mamba_ssm_scan(u, dt, a, b_in, c_in, d_skip, chunk: int = 256):
     return y + u * d_skip[None, None], state
 
 
+def _bsd_axes(u):
+    """(batch, None, channel) mesh axes for a (B, S, Di) activation under
+    the policy: the batch over DP and the channels over TP, each where it
+    divides."""
+    return act.logical_spec(u.shape, "dp", None, "tp")
+
+
 def _mamba_proj(p, xc, d_state):
-    """xc (..., Di) float32 -> dt (softplus, float32), B, C (float32)."""
-    proj = _mm(xc, p["w_x"])
+    """xc (..., Di) float32 -> dt (softplus, float32), B, C (float32).
+    Under a sharding policy the small projection is summed over TP
+    (``w_x`` is row-parallel) and dt keeps the channels over TP."""
+    proj = act.constrain(_mm(xc, p["w_x"]), "dp", None, None)
     dt_rank = p["w_dt"].shape[0]
     dt_r = proj[..., :dt_rank].to(torch.float32)
     b_in = proj[..., dt_rank:dt_rank + d_state].to(torch.float32)
     c_in = proj[..., dt_rank + d_state:].to(torch.float32)
-    return F.softplus(dt_r @ p["w_dt"]), b_in, c_in
+    dt = _softplus(act.matmul(dt_r, p["w_dt"]))
+    return act.constrain(dt, "dp", None, "tp"), b_in, c_in
 
 
 def _mamba_gate_out(p, y, zg):
@@ -378,19 +448,31 @@ def mamba_prefill(p, x, *, d_state: int = 16, d_conv: int = 4,
     (B,d_conv-1,Di): the last d_conv-1 inputs, zero-padded)."""
     b, s, d = x.shape
     d_inner = expand * d
-    up = _mm(x, p["w_in"])
-    xi, zg = up[..., :d_inner], up[..., d_inner:]
-    xi = xi.to(torch.float32)
-    # depthwise causal conv (d_conv taps), summed tap by tap
-    xpad = F.pad(xi, (0, 0, d_conv - 1, 0))
-    conv = sum(xpad[:, t:t + s] * p["conv_w"][t][None, None]
-               for t in range(d_conv))
-    xc = F.silu(conv)
+    xi, zg = _up_split(x, p["w_in"], d_inner)
+    xc, tail = _causal_conv(xi.to(torch.float32), p["conv_w"], d_conv)
     dt, b_in, c_in = _mamba_proj(p, xc, d_state)
     a = -torch.exp(p["a_log"])
     y, ssm_state = _mamba_ssm_scan(xc, dt, a, b_in, c_in, p["d_skip"])
     out = _mamba_gate_out(p, y, zg)
-    return out, (ssm_state, xpad[:, -(d_conv - 1):])
+    return out, (ssm_state, tail)
+
+
+def _causal_conv(xi, conv_w, d_conv):
+    """silu of the depthwise causal conv (d_conv taps, summed tap by tap)
+    of xi (B,S,Di) float32, and the conv tail (the last d_conv-1 inputs,
+    zero-padded).  On DTensors under a policy each device convolves its
+    own channels."""
+    if act.sharded(xi):
+        bx, _, dx = _bsd_axes(xi)
+        pl = act.spec_placements(3, bx, None, dx)
+        return act.shard_map(
+            lambda x, w: _causal_conv(x, w, d_conv), (xi, conv_w),
+            (pl, act.spec_placements(2, None, dx)), (pl, pl))
+    s = xi.shape[1]
+    xpad = F.pad(xi, (0, 0, d_conv - 1, 0))
+    conv = sum(xpad[:, t:t + s] * conv_w[t][None, None]
+               for t in range(d_conv))
+    return F.silu(conv), xpad[:, -(d_conv - 1):]
 
 
 def mamba_train(p, x, *, d_state: int = 16, d_conv: int = 4,
@@ -414,8 +496,7 @@ def mamba_step(p, x, state, *, d_state: int = 16, d_conv: int = 4,
     """Single-token Mamba update: O(1) state, the long-context decode."""
     d_inner = expand * x.shape[-1]
     ssm_state, conv_tail = state
-    up = _mm(x, p["w_in"])
-    xi, zg = up[..., :d_inner], up[..., d_inner:]
+    xi, zg = _up_split(x, p["w_in"], d_inner)
     window = torch.cat([conv_tail, xi.to(torch.float32)], dim=1)
     conv = torch.einsum("btd,td->bd", window, p["conv_w"])
     xc = F.silu(conv)

@@ -26,6 +26,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.models.scan_utils import scan
+from repro_torch.sharding import act
 
 AUX_LOSS_COEF = 0.01
 
@@ -122,22 +123,38 @@ def _apply_mixer(cfg: ArchConfig, p: dict, h, mixer: str, mode: str,
     return step(p, h, cache, **kw)
 
 
+def _norm(h, w):
+    """A sublayer's pre-norm; under a sharding policy its output and its
+    gradient are batch-DP, so the column-parallel projections' partial
+    gradients are summed and reduced once here (Megatron's backward
+    all-reduce)."""
+    return act.constrain(layers.rmsnorm(h, w), "dp", None, None)
+
+
+def _residual(h, out):
+    """``h + out``; under a sharding policy the sublayer's row-parallel
+    output, a partial sum over TP, is reduced before the add (Megatron's
+    all-reduce), so that no DTensor planner defers it past the add."""
+    return h + act.constrain(out, "dp", None, None)
+
+
 def apply_layer(cfg: ArchConfig, p: dict, h, mixer: str, ffn: str, mode: str,
                 cache=None, cache_len=None):
     """Pre-norm residual layer.  Returns (h, new_cache, aux_loss); the aux
     loss is the MoE router's (a float32 0-d tensor), else 0.0."""
+    h = act.constrain(h, "dp", None, None)
     mixed, new_cache = _apply_mixer(
-        cfg, p, layers.rmsnorm(h, p["norm1"]), mixer, mode, cache, cache_len)
-    h = h + mixed
+        cfg, p, _norm(h, p["norm1"]), mixer, mode, cache, cache_len)
+    h = _residual(h, mixed)
     aux = 0.0
     if ffn == "dense":
-        h = h + layers.apply_mlp(p["mlp"], layers.rmsnorm(h, p["norm2"]),
-                                 cfg.quant_mode)
+        h = _residual(h, layers.apply_mlp(p["mlp"], _norm(h, p["norm2"]),
+                                          cfg.quant_mode))
     elif ffn == "moe":
-        out, aux = moe.apply_moe(p["moe"], layers.rmsnorm(h, p["norm2"]),
+        out, aux = moe.apply_moe(p["moe"], _norm(h, p["norm2"]),
                                  top_k=cfg.moe.top_k,
                                  quant_mode=cfg.quant_mode)
-        h = h + out
+        h = _residual(h, out)
     return h, new_cache, aux
 
 
@@ -175,13 +192,54 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
 # Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _embed_sharded(table, tokens):
+    """The lookup on DTensors under a policy: each device looks up the
+    tokens in its rows of the (vocab-sharded) table, zero elsewhere; the
+    result is a partial sum over the axes that shard the vocabulary."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = table.device_mesh
+    names = list(act.mesh_axes(mesh))
+    v_axes = tuple(names[i] for i, pl in enumerate(table.placements)
+                   if pl.is_shard(0))
+    t_pl = tuple(pl if pl.is_shard(0) else Replicate()
+                 for pl in table.placements)
+    tok_pl = tuple(pl if pl.is_shard(0) and names[i] not in v_axes
+                   else Replicate() for i, pl in enumerate(tokens.placements))
+    out_pl = tuple(Partial() if names[i] in v_axes else pl
+                   for i, pl in enumerate(tok_pl))
+
+    def local(tab, tok):
+        if not v_axes:
+            return tab[tok]
+        i, _ = act.shard_index(mesh, v_axes)
+        rel = tok.long() - i * tab.shape[0]
+        mine = (rel >= 0) & (rel < tab.shape[0])
+        rows = tab[torch.clamp(rel, 0, tab.shape[0] - 1)]
+        return rows * mine[..., None].to(rows.dtype)
+
+    return act.shard_map(local, (table, tokens), (t_pl, tok_pl), out_pl)
+
+
+def embed_lookup(params, tokens):
+    """The token embeddings in bf16; vocab-parallel on DTensors under a
+    sharding policy (:func:`_embed_sharded`)."""
+    if act.sharded(params["embed"]):
+        h = _embed_sharded(act.gather_dp(params["embed"]), tokens)
+    else:
+        h = params["embed"][tokens]
+    return h.to(COMPUTE_DTYPE)
+
+
 def _embed_inputs(cfg: ArchConfig, params, tokens, frontend=None):
     """Token ids are never clamped: an id outside the table raises (the
-    reference's gather clamps it instead)."""
-    h = params["embed"][tokens].to(COMPUTE_DTYPE)
+    reference's gather clamps it instead).  On DTensors under a sharding
+    policy the table stays vocab-parallel (:func:`_embed_sharded`)."""
+    h = embed_lookup(params, tokens)
     if frontend is not None:
-        h = torch.cat([frontend.to(COMPUTE_DTYPE), h], dim=1)
-    return h
+        h = torch.cat([act.constrain(frontend.to(COMPUTE_DTYPE), "dp"),
+                       act.constrain(h, "dp")], dim=1)
+    return act.constrain(h, "dp", None, None)
 
 
 def _head_f32(w: torch.Tensor) -> torch.Tensor:
@@ -201,17 +259,19 @@ def _head_f32(w: torch.Tensor) -> torch.Tensor:
 def _head(cfg: ArchConfig, params) -> torch.Tensor:
     """The (D, V) output projection in float32."""
     if cfg.tie_embeddings:
-        return _head_f32(params["embed"]).T
-    return _head_f32(params["lm_head"])
+        return _head_f32(act.gather_dp(params["embed"])).T
+    return _head_f32(act.gather_dp(params["lm_head"]))
 
 
 def _project(h, norm, w32):
     """float32 logits: the reference's bf16 product with a float32 result,
     as a float32 product of the upcast operands (exact products)."""
-    return torch.matmul(layers.rmsnorm(h, norm).to(torch.float32), w32)
+    return act.matmul(_norm(h, norm).to(torch.float32), w32,
+                      torch.matmul)
 
 
 def _logits(cfg: ArchConfig, params, h):
+    h = act.constrain(h, "dp", None, None)
     return _project(h, params["out_norm"], _head(cfg, params))
 
 
@@ -355,6 +415,66 @@ def decode_step(cfg: ArchConfig, params, state: dict, tokens):
 # Loss
 # ---------------------------------------------------------------------------
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log_softmax(logits)[y] of one device's vocabulary slice (float32
+    logits (..., V_loc) holding columns [lo, lo + V_loc)): the max, the
+    sum of exponentials and the target logit are all-reduced over
+    ``groups`` (the mesh dims that shard the vocabulary), so no device
+    holds the whole row; the backward is local (softmax - one-hot)."""
+
+    @staticmethod
+    def forward(ctx, logits, y, lo, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        v_loc = logits.shape[-1]
+        m = logits.amax(dim=-1)
+        for grp in groups:
+            m = funcol.all_reduce(m, "max", grp)
+        e = torch.exp(logits - m[..., None])
+        den = e.sum(dim=-1)
+        local = y - lo
+        mine = (local >= 0) & (local < v_loc)
+        idx = torch.clamp(local, 0, v_loc - 1)[..., None]
+        tgt = torch.gather(logits, -1, idx)[..., 0] * mine
+        for grp in groups:
+            den = funcol.all_reduce(den, "sum", grp)
+            tgt = funcol.all_reduce(tgt, "sum", grp)
+        ctx.save_for_backward(e, den, idx, mine)
+        return torch.log(den) + m - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        e, den, idx, mine = ctx.saved_tensors
+        grad = e / den[..., None]
+        grad = grad.scatter_add(-1, idx, -mine.to(grad.dtype)[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def _nll_sharded(logits, y):
+    """The chunk's NLL on DTensors under a sharding policy: each device
+    takes its vocabulary slice (``_VocabParallelNLL``), the batch over DP
+    as it lies."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = logits.device_mesh
+    lg_pl = tuple(pl if pl.is_shard(0) or pl.is_shard(2) else Replicate()
+                  for pl in logits.placements)
+    v_dims = [i for i, pl in enumerate(lg_pl) if pl.is_shard(2)]
+    groups = [(mesh, i) for i in v_dims]
+    y_pl = tuple(Replicate() if i in v_dims else pl
+                 for i, pl in enumerate(lg_pl))
+
+    def local(lg, yl):
+        lo = 0
+        if v_dims:
+            names = list(act.mesh_axes(mesh))
+            i, _ = act.shard_index(mesh, tuple(names[d] for d in v_dims))
+            lo = i * lg.shape[-1]
+        return _VocabParallelNLL.apply(lg, yl, lo, groups)
+
+    return act.shard_map(local, (logits, y), (lg_pl, y_pl), y_pl)
+
+
 def chunked_ce_loss(project_fn, h, labels, vocab: int, padded_vocab: int,
                     chunk: int = 512) -> torch.Tensor:
     """Cross-entropy without materialising the full (B,S,V) float32
@@ -370,19 +490,23 @@ def chunked_ce_loss(project_fn, h, labels, vocab: int, padded_vocab: int,
     if s % chunk:
         chunk = s  # irregular tail: fall back to one chunk
     n = s // chunk
-    hc = torch.movedim(h.reshape(b, n, chunk, d), 1, 0)
+    hc = torch.movedim(act.reshape(h, b, n, chunk, d), 1, 0)
     yc = torch.movedim(labels.reshape(b, n, chunk), 1, 0).long()
 
     def one_chunk(carry, xs):
         h_c, y_c = xs
-        logp = torch.log_softmax(project_fn(h_c), dim=-1)  # (B,chunk,V)
-        nll = -torch.gather(logp, -1, torch.clamp(
-            y_c, 0, padded_vocab - 1)[..., None])[..., 0]
+        logits = project_fn(h_c)                            # (B,chunk,V)
+        y_idx = torch.clamp(y_c, 0, padded_vocab - 1)
+        if act.sharded(logits):
+            nll = _nll_sharded(logits, y_idx)
+        else:
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1, y_idx[..., None])[..., 0]
         mask = ((y_c >= 0) & (y_c < vocab)).to(torch.float32)
         return (carry[0] + torch.sum(nll * mask),
                 carry[1] + torch.sum(mask)), None
 
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    zero = act.sum_zero(h)
     (tot, cnt), _ = scan(functools.partial(layers.checkpoint, one_chunk),
                          (zero, zero), (hc, yc))
     return tot / torch.clamp(cnt, min=1)
@@ -399,6 +523,7 @@ def lm_loss(cfg: ArchConfig, params, tokens, labels, frontend=None,
                                    mode="train", remat=remat)
         if frontend is not None:
             h = h[:, -tokens.shape[1]:]
+        h = act.constrain(h, "dp", None, None)
         w32 = _head(cfg, params)
         loss = chunked_ce_loss(
             functools.partial(_project, norm=params["out_norm"], w32=w32),

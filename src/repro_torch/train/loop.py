@@ -19,6 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.sharding import act
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import schedule as sched_lib
@@ -70,19 +71,22 @@ def make_train_step(cfg_arch, tcfg: TrainConfig, loss_fn: Callable):
     def step(state, batch):
         params = state["params"]
         if tcfg.microbatches > 1:
-            losses = []
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            losses, grads = [], None
             for i in range(tcfg.microbatches):
                 mloss, g = value_and_grad(loss_fn, params,
                                           tree_map(lambda x: x[i], batch))
                 losses.append(mloss)
-                grads = tree_map(torch.add, grads, g)
+                g = tree_map(lambda t: t.to(torch.float32), g)
+                grads = g if grads is None else tree_map(torch.add, grads, g)
             inv = 1.0 / tcfg.microbatches
             loss = sum(losses) * inv
             grads = tree_map(lambda g: g * inv, grads)
         else:
             loss, grads = value_and_grad(loss_fn, params, batch)
+        # under a sharding policy: each gradient reduced to its param's
+        # layout once, after the microbatches (DP all-reduce, or
+        # reduce-scatter for FSDP storage)
+        grads = tree_map(act.like, grads, params)
 
         lr_scale = sched_lib.warmup_cosine(
             state["opt"]["step"], warmup_steps=tcfg.warmup_steps,

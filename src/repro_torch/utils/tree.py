@@ -64,6 +64,23 @@ def tree_map(fn, tree, *rest):
         fn(*args) for args in zip(leaves, *(o for o, _ in others))])
 
 
+def tree_map_with_path_names(fn, tree):
+    """:func:`tree_map` where ``fn(name, leaf)`` receives the leaf's
+    '/'-joined key path: dict keys, then list or tuple indices, as the
+    reference's ``tree_map_with_path_names`` names them."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(t[k], (*path, str(k))) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            seq = [walk(v, (*path, str(i))) for i, v in enumerate(t)]
+            return seq if isinstance(t, list) else tuple(seq)
+        if t is None:
+            return None
+        return fn("/".join(path), t)
+
+    return walk(tree, ())
+
+
 def tree_zeros_like(tree):
     return tree_map(torch.zeros_like, tree)
 

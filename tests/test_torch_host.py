@@ -246,7 +246,8 @@ def test_tracer_profiler_bridge_records_spans():
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
-    return files + examples + [ROOT / "chip_smoke.py"]
+    benches = sorted((ROOT / "benchmarks_torch").glob("*.py"))
+    return files + examples + benches + [ROOT / "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -270,11 +271,14 @@ def test_port_imports_no_jax_or_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.stream, repro_torch.kernels.ops, "
             "repro_torch.serve.engine, repro_torch.launch.train, "
-            "repro_torch.data.lm_data; "
+            "repro_torch.data.lm_data, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hillclimb, repro_torch.launch.report, "
+            "benchmarks_torch.run, benchmarks_torch.kernel_bench, "
+            "benchmarks_torch.roofline_table; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, env=env, timeout=120)
+                          text=True, env=env, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
