@@ -4,6 +4,9 @@ hop, the kernel library, the chip twin, KWS training, LM serving and LM
 training on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --phase cards   # build, the 1-shard drive and
+                                          # phase 9b only (a multi-card
+                                          # machine's run)
 
 Phases (each prints one line, any failure exits non-zero):
 
@@ -116,7 +119,8 @@ Phases (each prints one line, any failure exits non-zero):
               just before it and read just after.
 
 9. sharded — the main path's 256 streams and chunk plan through
-              ``make_stream_mesh(S)``, with leave churn skewed onto shard
+              ``make_stream_mesh(S, device="cuda:0")``, with leave churn
+              skewed onto shard
               0 halfway (``churn_sids``): the megakernel at S = 1, 2 and
               8 sync and at S = 2 and 8 async, the per-stage backend at
               S = 2, K = 2 tenants (blocks of 8) at S = 1 and 2.  Every
@@ -124,13 +128,32 @@ Phases (each prints one line, any failure exits non-zero):
               megakernel run's (with the same tenants); the launches a
               hop are S times the per-shard figure; each sharded run
               fires a rebalance.  One sharded hop (S = 2, 8; and S = 2
-              with K = 2 tenants) is bit-equal to ``hop_megakernel_plain``
-              on the whole batch.  Printed with the card: hop, dispatch
+              with K = 2 tenants) of the scheduler's sharded model
+              (``_ShardedModel``: one launch a shard on its own rows) is
+              bit-equal to ``hop_megakernel_plain`` on the whole batch.  Printed with the card: hop, dispatch
               and device p50 at S = 1, 2 and 8, rebalances and rows
               moved, the hop kernel at B / S slots, and ``_launch``'s
               cost a hop under cProfile with the launch shape memoized
               and recomputed.  Each drive's counts are set to 0 just
               before it and read just after.
+9b. cards  — the same drive over every card ``torch.cuda.device_count()``
+              reports (``make_stream_mesh(S)``): with n >= 2 cards (the
+              largest power of two <= n) at S = n, one shard a card, and
+              S = 2n, two a card; with one card at S = 2 and 8 shards of
+              ``cuda:0``, which runs the same per-shard code, and a line
+              saying that it spanned 1 card.  Each S on the megakernel and
+              per-stage backends, sync and async (the async dispatch under
+              sync debug mode ``"error"``): every stream's hops, peeks and
+              closes equal the sharded phase's 1-shard run, the launches
+              a hop are S times the per-shard figure, a rebalance fires,
+              and after every resize and rebalance and at the end every
+              shard's state, spare set and staged operands lie on its own
+              card.  Then each card's B.1-B.5 launches at a shard's
+              shapes (B = 256 / S) are held to their plain versions on
+              that card, and with two cards a kernel given an operand on
+              the other card is refused.  Printed with the card: hop,
+              dispatch and device p50 per S and backend.  Each drive's
+              counts are set to 0 just before it and read just after.
 10. chip_twin — the chip twin (``core.compiler``, ``core.executor``):
               the full Fig. 7 spec and the same model, compiled with
               ``ROTATE_HINTS`` and ``ROWSPLIT_HINTS`` on the card and on
@@ -360,12 +383,17 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def card_line() -> str:
+def card_lines() -> list[str]:
+    """Every card's name and power limit, as ``nvidia-smi`` gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1977,20 +2005,38 @@ def full_state(plan, inp, torch):
             [next(pi) if s.phase else z(0, s.cout) for s in plan.convs])
 
 
-def check_sharded_hop(label, plan, hop_p, raw_p, inp, model_idx, S, torch,
-                      mk, ops, dispatch, make_mesh):
-    """``ops.hop_megakernel_sharded`` over S shards (S launches, each on
-    B / S rows, writing the state and logits in place) is bit-equal to
-    ``hop_megakernel_plain`` on the whole batch, emit and steady."""
+def check_sharded_hop(label, plan, models, raw_p, inp, model_idx, S,
+                      torch, mk, dispatch, make_mesh):
+    """The scheduler's sharded model (``_ShardedModel``: one
+    ``_BatchedModel`` per device, one hop launch a shard on its own rows,
+    ``ShardRows`` in and out) over S shards is bit-equal to
+    ``hop_megakernel_plain`` on the whole batch, emit and steady.
+    ``models`` holds the exported (weights, thresholds) of each tenant
+    (two with ``model_idx``, in blocks of ``TENANT_BLOCK``)."""
+    from repro_torch.stream.scheduler import (
+        _ShardedModel,
+        prepared_model_params,
+    )
+
+    mesh = make_mesh(S)
+    on = lambda w, t: lambda d: prepared_model_params(  # noqa: E731
+        plan, w, t, d)
+    model = _ShardedModel(
+        plan, "megakernel", on(*models[0]), mesh,
+        pool_size=None if model_idx is None else len(models),
+        tenant_block=TENANT_BLOCK)
+    for row, (w, t) in enumerate(models[1:], 1):
+        model.set_model_row(row, on(w, t))
     geoms = tuple(mk.stage_geom(s) for s in plan.convs)
     fc_raw = tuple(f.out_raw for f in plan.fcs)
     tails, pends = full_state(plan, inp, torch)
+    split = lambda x: None if x is None else mesh.split(x)  # noqa: E731
     for emit in (True, False):
         with dispatch.counting() as launched:
-            got = ops.hop_megakernel_sharded(
-                inp["audio"], inp["mask"], tails, pends, inp["gap"], *hop_p,
-                model_idx, mesh=make_mesh(S), stages=plan.convs, emit=emit,
-                fc_raw=fc_raw, bb=None if model_idx is None else TENANT_BLOCK)
+            got = model.step(split(inp["audio"]), split(inp["mask"]),
+                             [split(t) for t in tails],
+                             [split(p) for p in pends], split(inp["gap"]),
+                             split(model_idx), emit=emit)
         want = mk.hop_megakernel_plain(
             inp["audio"], inp["mask"], inp["tails"], inp["pendings"],
             inp["gap"], *raw_p, model_idx, geoms=geoms, emit=emit,
@@ -2000,10 +2046,12 @@ def check_sharded_hop(label, plan, hop_p, raw_p, inp, model_idx, S, torch,
             raise RuntimeError(f"{label}: {launched()} for {S} shards")
         flat_got = ([t for t, s in zip(got[0], plan.convs) if s.tail]
                     + [p for p, s in zip(got[1], plan.convs) if s.phase]
-                    + list(got[2:]))
+                    + list(got[2:4]))
         flat_want = [*want[0], *want[1], *want[2:]]
         if len(flat_got) != len(flat_want) or not all(
-                torch.equal(g, w) for g, w in zip(flat_got, flat_want)):
+                g.devices == mesh.devices
+                and torch.equal(torch.cat(g.parts), w)
+                for g, w in zip(flat_got, flat_want)):
             raise RuntimeError(f"{label}: the {S}-shard hop (emit={emit}) "
                                "differs from the plain hop on the batch")
     phase("sharded", f"{label}: {S} launches of {inp['gap'].shape[0] // S}"
@@ -2012,9 +2060,10 @@ def check_sharded_hop(label, plan, hop_p, raw_p, inp, model_idx, S, torch,
 
 
 def sharded_phase(spec, plan, seed, audio, chunk_plan, dev, torch, dispatch,
-                  mk, bk, ops, sched_cls, async_cls, make_mesh, full, hop_p,
+                  mk, bk, sched_cls, async_cls, make_mesh, full, hop_p,
                   raw_p, params, weights, thresholds, card):
-    """The main path's 256 streams over ``make_stream_mesh(S)`` with leave
+    """The main path's 256 streams over ``make_mesh(S)``, S shards of one
+    card, with leave
     churn skewed onto shard 0 halfway (``drive_churn``): the megakernel at
     S = 1, 2 and 8, sync, and at S = 2 and 8 async; the per-stage backend
     at S = 2; K = 2 tenants (blocks of 8) at S = 1 and 2.  Every stream's
@@ -2023,7 +2072,8 @@ def sharded_phase(spec, plan, seed, audio, chunk_plan, dev, torch, dispatch,
     launches are S times the per-shard figure a hop, and a rebalance
     fires in every sharded run.  Then one sharded hop against the plain
     hop on the whole batch, and the hop kernel timed at B / S slots.
-    Returns the record and the launches of the drives."""
+    Returns the record, the launches of the drives and the 1-shard
+    megakernel run's streams, peeks and closes."""
     models = [(weights, thresholds), random_model(spec, seed + 400)]
     bound = {s: (None if (s // TENANT_BLOCK) % 2 == 0 else "m1")
              for s in range(B_MAIN)}
@@ -2092,19 +2142,17 @@ def sharded_phase(spec, plan, seed, audio, chunk_plan, dev, torch, dispatch,
               f"{r['phase_ms_p50']['device']:.3f}")
     # one sharded hop against the plain hop on the whole batch
     for S in SHARDS[1:]:
-        check_sharded_hop(f"kws hf8 S={S}", plan, hop_p, raw_p, full, None,
-                          S, torch, mk, ops, dispatch, make_mesh)
+        check_sharded_hop(f"kws hf8 S={S}", plan, models[:1], raw_p, full,
+                          None, S, torch, mk, dispatch, make_mesh)
     tensors = [params, model_tensors(plan, *models[1], dev, torch)]
     pooled = {k: [torch.stack(xs) for xs in zip(*(m[k] for m in tensors))]
               for k in params}
-    pw = (mk.prepare_hop_weights(pooled["ws"], pooled["fc_ws"]),
-          pooled["thrs"], pooled["flips"], pooled["fc_ws"],
-          pooled["fc_thrs"], pooled["fc_flips"])
+    pooled_raw = tuple(pooled[k] for k in ("ws", "thrs", "flips", "fc_ws",
+                                           "fc_thrs", "fc_flips"))
     midx = torch.as_tensor((np.arange(B_MAIN) // TENANT_BLOCK % 2).astype(
         np.int32), device=dev)
-    check_sharded_hop("kws hf8 S=2 pooled K=2", plan, pw,
-                      (pooled["ws"], *pw[1:]), full, midx, 2, torch, mk,
-                      ops, dispatch, make_mesh)
+    check_sharded_hop("kws hf8 S=2 pooled K=2", plan, models, pooled_raw,
+                      full, midx, 2, torch, mk, dispatch, make_mesh)
     # the hop kernel at a shard's B / S slots beside the whole batch
     geoms = tuple(mk.stage_geom(s) for s in plan.convs)
     fc_raw = tuple(f.out_raw for f in plan.fcs)
@@ -2147,7 +2195,7 @@ def sharded_phase(spec, plan, seed, audio, chunk_plan, dev, torch, dispatch,
           + f"; {card}")
     return dict(runs=rec, launch_ms={str(k): {str(e): t for e, t in v.items()}
                                      for k, v in launch_ms.items()},
-                launch_profile=profile), launches
+                launch_profile=profile), launches, ref[False]
 
 
 def launch_profile(spec, weights, thresholds, audio, torch, dispatch, mk,
@@ -2188,6 +2236,171 @@ def launch_profile(spec, weights, thresholds, audio, torch, dispatch, mk,
               f"({v['launch_calls']:g})" for k, v in rows.items()))
     return rows
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 9b: the slot pool over every card
+# ---------------------------------------------------------------------------
+
+def state_leaves(sched) -> list:
+    """The scheduler's batched state, spare set and tenant rows."""
+    out = []
+
+    def walk(x):
+        if isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+        elif x is not None:
+            out.append(x)
+    walk((sched.device_state(), sched._spare, sched._model_idx_dev))
+    return out
+
+
+def watch_placement(label, sched, ShardRows, seen):
+    """Check, after every resize and rebalance (``set_device_state``) and
+    on every staged operand, that each shard's part lies on its own
+    device; ``seen`` counts the checks."""
+    devices = sched.mesh.devices
+    install, stage = sched.set_device_state, sched._staging.to_device
+
+    def check(x, where):
+        if not isinstance(x, ShardRows) or x.devices != devices:
+            raise RuntimeError(f"{label}: {where} not on its shards' "
+                               f"devices {[str(d) for d in devices]}: {x!r}")
+
+    def set_device_state(state):
+        install(state)
+        for x in state_leaves(sched):
+            check(x, "a state tensor after a remap")
+        seen["remaps"] += 1
+
+    def to_device(i, name, a):
+        x = stage(i, name, a)
+        check(x, f"staged {name}")
+        seen["staged"] += 1
+        return x
+
+    sched.set_device_state = set_device_state
+    sched._staging.to_device = to_device
+    return check
+
+
+def cards_phase(spec, plan, seed, audio, chunk_plan, torch, dispatch, mk,
+                bk, sched_cls, async_cls, make_mesh, ShardRows, weights,
+                thresholds, one_shard, merge, card):
+    """The sharded phase's drive over a mesh of every card: with n >= 2
+    cards (the largest power of two <= n, which 256 slots split over) at
+    S = n and 2n, else at S = 2 and 8 shards of ``cuda:0``; the megakernel
+    and per-stage backends, sync and async.  Each drive equals the 1-shard
+    run (``one_shard``) stream for stream, makes S times the per-shard
+    launches a hop, fires a rebalance and keeps every shard's tensors on
+    its card.  Then each card's B.1-B.5 launches at a shard's shapes
+    against their plain versions there (their errors go to ``merge``).
+    Returns the record and the drives' launches."""
+    n = torch.cuda.device_count()
+    cards = 1 << (n.bit_length() - 1)
+    counts = (cards, 2 * cards) if cards > 1 else (2, 8)
+    per_hop = {"megakernel": {mk.HOP_KERNEL: 1},
+               "per_stage": {bk.BITSERIAL_KERNEL: 2,
+                             bk.CONV_STEP_KERNEL: 6, bk.TAIL_KERNEL: 1}}
+    phase("cards", f"{n} card(s) visible ({'; '.join(card_lines())}); "
+          f"the pool spans {cards} card(s) "
+          f"at S = {counts[0]} and {counts[1]}"
+          + ("" if cards > 1 else " shards of cuda:0 (one card: the "
+             "per-shard code without the copies between cards)"))
+    rec, launches = [], collections.Counter()
+    for S in counts:
+        mesh = (make_mesh(S, cards=cards) if cards > 1
+                else make_mesh(S, device="cuda:0"))
+        for backend in ("megakernel", "per_stage"):
+            for cls in (sched_cls, async_cls):
+                kind = "async" if cls is async_cls else "sync"
+                label = f"{backend} S={S} {kind} over {cards} card(s)"
+                sched = cls(spec, weights, thresholds, capacity=B_MAIN,
+                            hop_frames=HOP_FRAMES, backend=backend,
+                            mesh=mesh)
+                seen = collections.Counter()
+                check = watch_placement(label, sched, ShardRows, seen)
+                if cls is async_cls:
+                    strict_dispatch(sched, torch)
+                hops, peeks, closes, launched = drive_churn(
+                    sched, audio, chunk_plan, torch, dispatch,
+                    churn_sids(B_MAIN, False))
+                for x in state_leaves(sched):
+                    check(x, "a state tensor after the drive")
+                nh = len(hops)
+                want = {k: S * v * nh for k, v in per_hop[backend].items()}
+                if launched != want:
+                    raise RuntimeError(f"{label}: launches {launched}, "
+                                       f"expected {want}")
+                launches.update(launched)
+                m = sched.metrics
+                if m.rebalances < 1 or seen["remaps"] < 2:
+                    raise RuntimeError(f"{label}: {m.rebalances} rebalances"
+                                       f", {seen['remaps']} remaps")
+                got = (per_stream(hops), peeks, closes)
+                if got[0].keys() != one_shard[0].keys() or not all(
+                        same_seq(got[0][k], one_shard[0][k])
+                        for k in got[0]):
+                    raise RuntimeError(f"{label}: a stream's hops differ "
+                                       "from the 1-shard run")
+                same_results(label, got, one_shard)
+                ph = m.phase_summary()
+                r = dict(label=label, backend=backend, shards=S, kind=kind,
+                         cards=cards, devices=[str(d) for d in mesh.devices],
+                         hops=nh, launches=dict(launched),
+                         step_ms_p50=m.summary()["step_ms_p50"],
+                         phase_ms_p50={k: v["ms_p50"]
+                                       for k, v in ph.items()},
+                         rebalances=m.rebalances,
+                         rows_migrated=m.rows_migrated,
+                         placement_checks=dict(seen))
+                rec.append(r)
+                phase("cards", f"{label}: {nh} hops == the 1-shard run "
+                      f"stream for stream; launches {dict(launched)}; "
+                      f"rebalances {m.rebalances}, rows moved "
+                      f"{m.rows_migrated}; every shard on its card at "
+                      f"{seen['remaps']} remaps and {seen['staged']} staged "
+                      f"operands; hop p50 {r['step_ms_p50']:.3f} ms, "
+                      f"dispatch p50 {r['phase_ms_p50']['dispatch']:.3f}, "
+                      f"device p50 {r['phase_ms_p50']['device']:.3f}; "
+                      f"{card}")
+    # each card's kernels at a shard's shapes, against their plain versions
+    b = B_MAIN // counts[0]
+    for i, d in enumerate(mesh.distinct):
+        params = model_tensors(plan, weights, thresholds, d, torch)
+        merge(check_case(f"{d} kws hf8 B={b}", plan, params,
+                         hop_inputs(plan, b, seed + 40 + i, d, torch), None,
+                         torch, mk, dispatch))
+        merge(check_per_stage(f"{d} per-stage kws hf8", per_stage_launches(
+            plan, [params], b, seed + 50 + i, d, torch), torch, bk,
+            dispatch))
+    if cards > 1:
+        # a pointer into one card's memory never reaches the other's kernel
+        d0, d1 = mesh.distinct[:2]
+        inp = hop_inputs(plan, b, seed + 60, d1, torch)
+        p0 = model_tensors(plan, weights, thresholds, d0, torch)
+        try:
+            mk.hop_megakernel_packed(
+                inp["audio"], inp["mask"], inp["tails"], inp["pendings"],
+                inp["gap"], *(p0[k] for k in ("ws", "thrs", "flips", "fc_ws",
+                                              "fc_thrs", "fc_flips")),
+                geoms=tuple(mk.stage_geom(s) for s in plan.convs), emit=True,
+                fc_raw=tuple(f.out_raw for f in plan.fcs))
+        except ValueError as e:
+            phase("cards", f"weights on {d0}, state on {d1}: refused ({e})")
+        else:
+            raise RuntimeError("a hop with its weights on another card ran")
+    sync = {(r["shards"], r["backend"]): r for r in rec
+            if r["kind"] == "sync"}
+    phase("cards", f"sync hop p50 / dispatch p50 / device p50 ms over "
+          f"{cards} card(s): " + "; ".join(
+              f"{be} S={S} {r['step_ms_p50']:.3f} / "
+              f"{r['phase_ms_p50']['dispatch']:.3f} / "
+              f"{r['phase_ms_p50']['device']:.3f}"
+              for (S, be), r in sync.items()) + f"; {card}")
+    return dict(runs=rec, cards=cards, visible=n, shards=list(counts)), \
+        launches
 
 
 # ---------------------------------------------------------------------------
@@ -4426,9 +4639,66 @@ def dryrun_phase(seed, dev, torch, dispatch, card):
             bench_launches)
 
 
+def main_path_audio(seed: int):
+    """The main path's 256 streams of 32,000 samples and the rounds'
+    chunk sizes (some streams skip a round)."""
+    rng = np.random.default_rng(seed + 5)
+    audio = [rng.integers(0, 256, 32000, dtype=np.uint8)
+             for _ in range(B_MAIN)]
+    chunk_plan, fed = [], np.zeros(B_MAIN, np.int64)
+    while (fed < 32000).any():
+        sizes = np.minimum(rng.integers(200, 2400, B_MAIN), 32000 - fed)
+        sizes[rng.random(B_MAIN) < 0.15] = 0   # some streams skip a round
+        fed += sizes
+        chunk_plan.append(sizes.tolist())
+    return audio, chunk_plan
+
+
+def cards_only(seed: int, card: str, torch) -> int:
+    """``--phase cards``: the 1-shard sync megakernel drive of the sharded
+    phase on ``cuda:0``, then phase 9b against it; its record goes to
+    ``chiprun_out/chip_smoke_cards.json``."""
+    from repro_torch.kernels import conv_kernels as bk
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import hop_megakernel as mk
+    from repro_torch.launch.mesh import ShardRows, make_stream_mesh
+    from repro_torch.models import kws
+    from repro_torch.stream import AsyncStreamScheduler, StreamScheduler
+    from repro_torch.stream.state import plan_stream
+
+    spec = kws.build_kws_spec()
+    plan = plan_stream(spec, hop_frames=HOP_FRAMES)
+    weights, thresholds = random_model(spec, seed)
+    audio, chunk_plan = main_path_audio(seed)
+    one = StreamScheduler(spec, weights, thresholds, capacity=B_MAIN,
+                          hop_frames=HOP_FRAMES,
+                          mesh=make_stream_mesh(1, device="cuda:0"))
+    hops, peeks, closes, _ = drive_churn(one, audio, chunk_plan, torch,
+                                         dispatch, churn_sids(B_MAIN, False))
+    err = collections.Counter()
+
+    def merge(e):
+        for k, v in e.items():
+            err[k] = max(err[k], v)
+
+    rec, launches = cards_phase(
+        spec, plan, seed, audio, chunk_plan, torch, dispatch, mk, bk,
+        StreamScheduler, AsyncStreamScheduler, make_stream_mesh, ShardRows,
+        weights, thresholds, (per_stream(hops), peeks, closes), merge, card)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_cards.json").write_text(json.dumps(
+        dict(rec, card=card, launches=dict(launches), max_abs_err=err),
+        indent=1))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=("all", "cards"), default="all",
+                    help="cards: the build, the 1-shard drive and phase "
+                    "9b only")
     args = ap.parse_args()
 
     import torch
@@ -4444,7 +4714,7 @@ def main() -> int:
         from repro_torch.kernels import hop_megakernel as mk
         from repro_torch.kernels import ops
         from repro_torch.kernels import twm_matmul as tm
-        from repro_torch.launch.mesh import make_stream_mesh
+        from repro_torch.launch.mesh import ShardRows, make_stream_mesh
         from repro_torch.models import kws
         from repro_torch.stream import (
             AsyncStreamScheduler,
@@ -4472,6 +4742,13 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         phase("build", f"{lib.name}: " + " | ".join(ptxas))
     phase("build", f"{len(libs)} sources in {time.perf_counter() - t0:.2f} s")
+    if args.phase == "cards":
+        cards_only(args.seed, card, torch)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 3. kernels vs plain
     spec = kws.build_kws_spec()
@@ -4847,15 +5124,7 @@ def main() -> int:
     phase("library", f"phase took {time.perf_counter() - t_lib:.1f} s")
 
     # 6. the main path
-    rng = np.random.default_rng(args.seed + 5)
-    audio = [rng.integers(0, 256, 32000, dtype=np.uint8)
-             for _ in range(B_MAIN)]
-    chunk_plan, fed = [], np.zeros(B_MAIN, np.int64)
-    while (fed < 32000).any():
-        sizes = np.minimum(rng.integers(200, 2400, B_MAIN), 32000 - fed)
-        sizes[rng.random(B_MAIN) < 0.15] = 0   # some streams skip a round
-        fed += sizes
-        chunk_plan.append(sizes.tolist())
+    audio, chunk_plan = main_path_audio(args.seed)
     kw = dict(capacity=B_MAIN, hop_frames=HOP_FRAMES)
     dispatch.reset()   # the megakernel runs' counts start here
     mega = StreamScheduler(spec, weights, thresholds, backend="megakernel",
@@ -4942,10 +5211,16 @@ def main() -> int:
         spec, plan, args.seed, audio, chunk_plan, dev, torch, dispatch, mk,
         bk, StreamScheduler, AsyncStreamScheduler, main_inp, p)
     # 9. the slot pool over S shards on the main path
-    shard_rec, shard_launches = sharded_phase(
+    one_card = lambda S: make_stream_mesh(S, device=dev)  # noqa: E731
+    shard_rec, shard_launches, one_shard = sharded_phase(
         spec, plan, args.seed, audio, chunk_plan, dev, torch, dispatch, mk,
-        bk, ops, StreamScheduler, AsyncStreamScheduler, make_stream_mesh,
-        full, p, raw_p, params, weights, thresholds, card)
+        bk, StreamScheduler, AsyncStreamScheduler, one_card, full, p, raw_p,
+        params, weights, thresholds, card)
+    # 9b. the slot pool over every card
+    cards_rec, cards_launches = cards_phase(
+        spec, plan, args.seed, audio, chunk_plan, torch, dispatch, mk, bk,
+        StreamScheduler, AsyncStreamScheduler, make_stream_mesh, ShardRows,
+        weights, thresholds, one_shard, merge, card)
     # 10. the chip twin: the compiled program through the executor
     twin_rec, twin_launches, twin_recs, twin_err = chip_twin_phase(
         weights, thresholds, args.seed, dev, torch, dispatch, bk, tm,
@@ -4964,7 +5239,7 @@ def main() -> int:
     dr_rec, dr_launches = dryrun_phase(args.seed, dev, torch, dispatch, card)
     path_kernel = aggregate(per_launch + lib_main + twin_recs)
     new_paths = (async_launches + tenant_launches + shard_launches
-                 + collections.Counter(twin_launches)
+                 + cards_launches + collections.Counter(twin_launches)
                  + collections.Counter(train_launches)
                  + collections.Counter(dr_launches))
 
@@ -5036,7 +5311,8 @@ def main() -> int:
                                        "bound_by"),
                                       timing[("hop", False)])),
                   async_path=async_rec, tenants=tenant_rec,
-                  sharded=shard_rec, chip_twin=twin_rec, train=train_rec,
+                  sharded=shard_rec, cards=cards_rec, chip_twin=twin_rec,
+                  train=train_rec,
                   lm_serve=lm_rec, lm_families=lmf_rec, lm_train=lt_rec,
                   dryrun=dr_rec)
     out = ROOT / "chiprun_out"

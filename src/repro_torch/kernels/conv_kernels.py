@@ -70,6 +70,7 @@ from repro_torch.kernels.hop_megakernel import (
     _sa,
     _sms,
     fragment_layout,
+    same_device,
 )
 
 SOURCE = "bnn_conv1d"
@@ -402,6 +403,7 @@ def _bitserial_cuda(x, w, model_idx, *, bits, stride, l_out):
     b, l_in, cin = x.shape
     lead = tuple(w.shape[:-3])
     k, cout = w.shape[-3], w.shape[-1]
+    same_device(x.device, w, model_idx)
     _check(x, "x", torch.int32, (b, l_in, cin))
     _check(w, "w", torch.int8, lead + (k, cin, cout))
     if (l_out - 1) * stride + k > l_in:
@@ -526,6 +528,7 @@ def _conv_step_cuda(x, wp, wn, thr, flip, model_idx, *, k, stride, l_out,
     b, l_in, cw = x.shape
     lead = tuple(wp.shape[:-3])
     cout = wp.shape[-1]
+    same_device(x.device, wp, wn, thr, flip, model_idx, wf)
     _check(x, "x", torch.int32, (b, l_in, cw))
     _check(wp, "wp", torch.int32, lead + (k, cw, cout))
     _check(wn, "wn", torch.int32, lead + (k, cw, cout))
@@ -668,6 +671,7 @@ def _tail_cuda(gap, fc_ws, fc_thrs, fc_flips, model_idx, *, out_raw,
         frag = tuple(_memo_layout((w,), lambda w=w: fragment_layout(
             w.transpose(-1, -2))) for w in ws)
     n_fc = len(ws)
+    same_device(gap.device, *ws, *frag, *fc_thrs, *fc_flips, model_idx)
     if not 1 <= n_fc <= MAX_FC:
         raise ValueError(f"kernel takes 1..{MAX_FC} fc layers, got {n_fc}")
     if any(out_raw[:-1]):
@@ -790,6 +794,7 @@ def _conv1d_cuda(x, wp, wn, thr, flip, *, k, stride, pad, l_out, pool,
                  mode, wf=None, tile=None):
     l_in, cw = x.shape
     cout = wp.shape[-1]
+    same_device(x.device, wp, wn, thr, flip, wf)
     _check(x, "x", torch.int32, (l_in, cw))
     _check(wp, "wp", torch.int32, (k, cw, cout))
     _check(wn, "wn", torch.int32, (k, cw, cout))

@@ -601,6 +601,17 @@ def _check(x: torch.Tensor, name: str, dtype, shape) -> int:
     return x.data_ptr()
 
 
+def same_device(dev: torch.device, *tensors) -> None:
+    """Refuse, before any pointer is taken, a kernel operand on another
+    device than the launch's (``dev``, under which the launch runs): a
+    pointer into one card's memory must never reach a kernel on another.
+    None entries (absent operands) are skipped."""
+    for x in tensors:
+        if x is not None and x.device != dev:
+            raise ValueError(f"a kernel operand lies on {x.device} and the "
+                             f"launch runs on {dev}")
+
+
 def check_geoms(geoms, fc_raw) -> None:
     """Refuse, with the reason, the plans the kernel does not take."""
     ns, nf = len(geoms), len(fc_raw)
@@ -633,6 +644,9 @@ def _launch(audio, mask, tails, pendings, gap, ws, thrs, flips, fc_ws,
     ns, nf = len(geoms), len(fc_raw)
     b, gap_c = gap.shape
     dev = gap.device
+    same_device(dev, audio, mask, *tails, *pendings, model_idx, *hw.conv,
+                *hw.wsum, *hw.fc, *thrs, *flips, *fc_thrs, *fc_flips,
+                *(() if out is None else (*out[0], *out[1], *out[2:])))
     pooled = model_idx is not None
     lead = (hw.ws[0].shape[0],) if pooled else ()
     p = _Params()

@@ -43,13 +43,11 @@ pending per conv stage, as the scheduler holds them, and the plan's
 / ``phase == 0``), which never enters the kernel, bring every operand to
 the kernel's dtype, and put the zero-width entries back.
 
-Sharded entry points (a slot pool over the S shards of a
-``launch.mesh.make_stream_mesh`` mesh, row blocks of one device):
-``bnn_conv1d_batched_sharded``, ``bitserial_conv1d_batched_sharded``,
-``classifier_tail_sharded``, ``hop_megakernel_sharded`` and
-``finalize_megakernel_sharded`` make one launch of their kernel per
-shard on its rows; ``remap_slot_rows`` is the device half of a
-cross-shard migration.
+A slot pool over the S shards of a ``launch.mesh.make_stream_mesh``
+mesh calls these entry points once per shard, on the shard's rows and
+the weights on its device (``stream.scheduler._ShardedModel``, the port
+of the reference's ``*_sharded`` ``shard_map`` wrappers);
+``remap_slot_rows`` is the device half of a cross-shard migration.
 
 With a tenant pool (``model_idx``, (B,) per-slot tenant ids) every
 entry point applies the reference's per-block rule: each ``bb`` slot
@@ -68,7 +66,6 @@ from repro_torch.kernels import conv_kernels as _conv
 from repro_torch.kernels import hop_megakernel as _mega
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import twm_matmul as _mm
-from repro_torch.launch.mesh import canonical_device, dp_size
 from repro_torch.runtime.remap import remap_device_rows
 
 #: the reference megakernel's slot block (``hop_megakernel.DEFAULT_BB``)
@@ -403,173 +400,14 @@ def _finalize(geoms, params, device, tails, pendings, gap, model_idx, *,
         geoms=geoms, fc_raw=tuple(fc_raw))
 
 
-# ---------------------------------------------------------------------------
-# Sharded entry points: a slot pool over the S shards of a mesh
-# ---------------------------------------------------------------------------
-#
-# The reference wraps each batched kernel in ``shard_map`` over the mesh's
-# data axis, so every device makes ONE launch on its own block of batch
-# rows with the weights replicated.  The port's shards are the S
-# contiguous row blocks of one device's tensors
-# (``launch.mesh.make_stream_mesh``): each block gets one launch of the
-# same kernel, issued in series on the current stream, and every block
-# reads the one copy of the weights.  With no mesh or one shard, each
-# entry point IS its unsharded twin: the same call and launches.
-
-def _row_blocks(mesh, x, device) -> list[slice] | None:
-    """The S contiguous row blocks of the batch ``x`` over ``mesh`` (None
-    with no mesh or one shard).  Refuses a batch that S does not divide
-    and operands that do not lie on the mesh's device."""
-    s = 1 if mesh is None else dp_size(mesh)
-    if s == 1:
-        return None
-    dev = canonical_device(resolve_device(x, device))
-    if dev != mesh.device:
-        raise ValueError(f"operands on {dev}, mesh on {mesh.device}")
-    b = x.shape[0]
-    if b % s:
-        raise ValueError(f"a batch of {b} rows does not split into {s} "
-                         "shards")
-    n = b // s
-    return [slice(i * n, (i + 1) * n) for i in range(s)]
-
-
-def _rows(x, r):
-    return None if x is None else x[r]
-
-
-def bnn_conv1d_batched_sharded(x_bits, w_t, thr=None, flip=None,
-                               model_idx=None, *, mesh=None, stride: int = 1,
-                               pad: int = 0, pool: int = 1, mode: str = "sa",
-                               bb: int | None = None, device=None
-                               ) -> torch.Tensor:
-    """:func:`bnn_conv1d_batched` over the shards of ``mesh``: one launch
-    per shard on its rows, the weights (prepared once) shared, the
-    shards' outputs joined along the batch."""
-    kw = dict(stride=stride, pad=pad, pool=pool, mode=mode, bb=bb,
-              device=device)
-    blocks = _row_blocks(mesh, x_bits, device)
-    if blocks is None:
-        return bnn_conv1d_batched(x_bits, w_t, thr, flip, model_idx, **kw)
-    cw = conv_weights(w_t, resolve_device(x_bits, device))
-    return torch.cat([bnn_conv1d_batched(x_bits[r], cw, thr, flip,
-                                         _rows(model_idx, r), **kw)
-                      for r in blocks])
-
-
-def bitserial_conv1d_batched_sharded(x_u, w_t, model_idx=None, *, mesh=None,
-                                     bits: int, offset: int = 0,
-                                     stride: int = 1, pad: int = 0,
-                                     bb: int | None = None, device=None
-                                     ) -> torch.Tensor:
-    """:func:`bitserial_conv1d_batched` over the shards of ``mesh``: one
-    launch per shard on its rows, the weights shared."""
-    kw = dict(bits=bits, offset=offset, stride=stride, pad=pad, bb=bb,
-              device=device)
-    blocks = _row_blocks(mesh, x_u, device)
-    if blocks is None:
-        return bitserial_conv1d_batched(x_u, w_t, model_idx, **kw)
-    cw = conv_weights(w_t, resolve_device(x_u, device), layout=False)
-    return torch.cat([bitserial_conv1d_batched(x_u[r], cw,
-                                               _rows(model_idx, r), **kw)
-                      for r in blocks])
-
-
-def classifier_tail_sharded(gap, fc_ws, fc_thrs, fc_flips, model_idx=None,
-                            *, mesh=None, out_raw, bb: int | None = None,
-                            device=None) -> torch.Tensor:
-    """:func:`classifier_tail` over the shards of ``mesh``: one launch
-    per shard on its rows, the fc weights shared."""
-    kw = dict(out_raw=out_raw, bb=bb, device=device)
-    blocks = _row_blocks(mesh, gap, device)
-    if blocks is None:
-        return classifier_tail(gap, fc_ws, fc_thrs, fc_flips, model_idx,
-                               **kw)
-    dev = resolve_device(gap, device)
-    ws = fc_ws if isinstance(fc_ws, _conv.TailWeights) else tuple(
-        _as(w, torch.int8, dev) for w in fc_ws)
-    return torch.cat([classifier_tail(gap[r], ws, fc_thrs, fc_flips,
-                                      _rows(model_idx, r), **kw)
-                      for r in blocks])
-
-
-def hop_megakernel_sharded(audio, mask, tails, pendings, gap, ws, thrs,
-                           flips, fc_ws=(), fc_thrs=(), fc_flips=(),
-                           model_idx=None, *, mesh=None, stages,
-                           emit: bool, fc_raw=(), bb: int | None = None,
-                           device=None, out=None):
-    """:func:`hop_megakernel` over the shards of ``mesh``: ONE launch of
-    the hop kernel per shard on its rows, emit included, the weights
-    (and a tenant pool's ``(K, ...)`` stacks) shared.  Each shard writes
-    its rows of the new state, and with ``emit`` of the logits, in place
-    through row-block views of ``out`` (made here when None; an ``out``
-    without logits gets them here), so nothing is joined or copied.
-    With a tenant pool ``bb`` is the tenant block, which placement never
-    lets cross a shard boundary."""
-    blocks = _row_blocks(mesh, gap, device)
-    if blocks is None:
-        return hop_megakernel(audio, mask, tails, pendings, gap, ws, thrs,
-                              flips, fc_ws, fc_thrs, fc_flips, model_idx,
-                              stages=stages, emit=emit, fc_raw=fc_raw,
-                              bb=bb, device=device, out=out)
-    device = resolve_device(gap, device)
-    geoms, params = _mega_prep(stages, ws, thrs, flips, fc_ws, fc_thrs,
-                               fc_flips, device)
-    b = gap.shape[0]
-    new = lambda *shape: torch.empty(  # noqa: E731
-        shape, dtype=torch.int32, device=device)
-    if out is None:
-        out = (tuple(new(b, g.tail, g.cin) for g in geoms),
-               tuple(new(b, g.phase, g.cout) for g in geoms),
-               new(*gap.shape))
-    if emit and len(out) == 3:
-        hw = params[0]
-        fcw = hw.fc_ws if isinstance(hw, _mega.HopWeights) else params[3]
-        out = (*out, new(b, fcw[-1].shape[-1]))
-    out_t, out_p, out_g, *out_l = out
-    for r in blocks:
-        _hop(geoms, params, device, audio[r], mask[r],
-             [t[r] for t in tails], [p[r] for p in pendings], gap[r],
-             _rows(model_idx, r), emit=emit, fc_raw=fc_raw, bb=bb,
-             out=(tuple(t[r] for t in out_t), tuple(p[r] for p in out_p),
-                  out_g[r], *(lg[r] for lg in out_l)))
-    state = tuple(out_t), tuple(out_p), out_g
-    return (*state, out_l[0]) if emit else state
-
-
-def finalize_megakernel_sharded(tails, pendings, gap, ws, thrs, flips, fc_ws,
-                                fc_thrs, fc_flips, model_idx=None, *,
-                                mesh=None, stages, fc_raw,
-                                bb: int | None = None, device=None
-                                ) -> torch.Tensor:
-    """:func:`finalize_megakernel` over the shards of ``mesh``: one
-    launch per shard on its rows, the logits joined along the batch."""
-    blocks = _row_blocks(mesh, gap, device)
-    if blocks is None:
-        return finalize_megakernel(tails, pendings, gap, ws, thrs, flips,
-                                   fc_ws, fc_thrs, fc_flips, model_idx,
-                                   stages=stages, fc_raw=fc_raw, bb=bb,
-                                   device=device)
-    device = resolve_device(gap, device)
-    geoms, params = _mega_prep(stages, ws, thrs, flips, fc_ws, fc_thrs,
-                               fc_flips, device)
-    return torch.cat([_finalize(geoms, params, device,
-                                [t[r] for t in tails],
-                                [p[r] for p in pendings], gap[r],
-                                _rows(model_idx, r), fc_raw=fc_raw, bb=bb)
-                      for r in blocks])
-
-
-def remap_slot_rows(x: torch.Tensor, perm, keep, *, mesh=None
-                    ) -> torch.Tensor:
-    """Permute the leading (slot) axis of one batched state tensor:
-    ``out[i] = x[perm[i]]`` where ``keep[i]``, else a zero row.  The
-    device half of a cross-shard migration (``SlotPlacement.rebalance``),
-    a name for ``runtime.remap.remap_device_rows``: the shards of
-    ``mesh`` are row blocks of the one device ``x`` lies on, so the rows
-    need no settling after the gather."""
-    if mesh is not None and canonical_device(x.device) != mesh.device:
-        raise ValueError(f"state on {x.device}, mesh on {mesh.device}")
+def remap_slot_rows(x, perm, keep):
+    """Permute the slot rows of one batched state tensor: ``out[i] =
+    x[perm[i]]`` where ``keep[i]``, else a zero row.  The device half of a
+    cross-shard migration (``SlotPlacement.rebalance``), a name for
+    ``runtime.remap.remap_device_rows``: over the shards of a mesh
+    (a :class:`~repro_torch.launch.mesh.ShardRows`) each destination
+    shard's rows are gathered from their source shards and built on the
+    destination's device."""
     return remap_device_rows(x, perm, keep)
 
 

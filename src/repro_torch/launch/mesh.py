@@ -1,5 +1,5 @@
 """Meshes: the production and host ``DeviceMesh``es, and the stream slot
-pool's S logical shards of one device.
+pool's mesh of shards over one device or several.
 
 The port of the reference's ``repro/launch/mesh.py``.
 
@@ -13,13 +13,13 @@ and read its per-device shapes, costs and collectives.
 ``make_host_mesh`` spans the real cards of the machine.
 
 The stream mesh is the port of ``make_stream_mesh``, ``dp_axes`` and
-``dp_size``.  The reference's stream mesh is a
-flat ``("data",)`` axis of devices; its multi-shard cases run on the
-logical devices of one host.  Here a shard is a contiguous block of the
-slot pool's rows on one device: ``StreamMesh`` holds one ``torch.device``
-per shard, and the sharded kernel entry points (``kernels/ops.py``) make
-one launch per shard on its rows, with the weights shared, as the
-reference's ``shard_map`` makes one per device.
+``dp_size``: a flat ``("data",)`` axis of S shards.  ``StreamMesh`` holds
+one ``torch.device`` per shard, and a slot pool over S >= 2 shards keeps
+shard ``s``'s rows of every batched tensor in a tensor of their own on
+``devices[s]`` (:class:`ShardRows`), whether the shards share one device
+or each has a card: the scheduler makes one launch of each kernel per
+shard on its rows, with a copy of the weights on each distinct device,
+as the reference's ``shard_map`` makes one per device.
 """
 from __future__ import annotations
 
@@ -27,11 +27,12 @@ import contextlib
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["StreamMesh", "dp_axes", "dp_size", "fake_world",
-           "make_host_mesh", "make_mesh", "make_production_mesh",
-           "make_stream_mesh"]
+__all__ = ["ShardRows", "StreamMesh", "canonical_device", "dp_axes",
+           "dp_size", "fake_world", "make_host_mesh", "make_mesh",
+           "make_production_mesh", "make_stream_mesh"]
 
 
 @contextlib.contextmanager
@@ -102,35 +103,6 @@ def make_host_mesh(model_parallel: int = 1, device_type="cuda"):
                         ("data", "model"))
 
 
-@dataclasses.dataclass(frozen=True)
-class StreamMesh:
-    """A 1-D data-parallel mesh: ``devices[s]`` holds shard ``s``'s rows.
-
-    Every shard of a mesh that :func:`make_stream_mesh` makes lies on one
-    device; a mesh over several distinct devices can be built, but nothing
-    runs on it yet (``device`` raises)."""
-
-    devices: tuple[torch.device, ...]
-    axis_names: tuple[str, ...] = ("data",)
-
-    @property
-    def shape(self) -> dict[str, int]:
-        """Shards per axis, as the reference's mesh reports them."""
-        return {self.axis_names[0]: len(self.devices)}
-
-    @property
-    def device(self) -> torch.device:
-        """The one device every shard lies on; ``NotImplementedError``
-        when the shards name more than one."""
-        distinct = set(self.devices)
-        if len(distinct) != 1:
-            raise NotImplementedError(
-                f"a mesh over the devices {sorted(map(str, distinct))} is "
-                "not supported yet: ROADMAP queue item A.9b, multi-card "
-                "slot pool")
-        return self.devices[0]
-
-
 def canonical_device(device) -> torch.device:
     """``device`` with the index a CUDA tensor made on it would report."""
     device = torch.device(device)
@@ -139,20 +111,168 @@ def canonical_device(device) -> torch.device:
     return device
 
 
-def make_stream_mesh(n_shards: int, device="cuda") -> StreamMesh:
-    """S logical shards of one device.  ``device="cuda"`` raises when no
-    card is present, as the scheduler does; pass ``device="cpu"`` to run
-    the kernels' plain versions."""
-    if n_shards < 1:
+@dataclasses.dataclass(frozen=True)
+class StreamMesh:
+    """A 1-D data-parallel mesh: ``devices[s]`` holds shard ``s``'s rows.
+
+    The shards may share one device (S logical shards of a card or of the
+    CPU) or lie on several cards; every device is of one type, as no JAX
+    mesh mixes platforms (``ValueError`` otherwise)."""
+
+    devices: tuple[torch.device, ...]
+    axis_names: tuple[str, ...] = ("data",)
+
+    def __post_init__(self) -> None:
+        devices = tuple(canonical_device(d) for d in self.devices)
+        if not devices:
+            raise ValueError("a mesh needs at least one shard")
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(
+                "a mesh mixes device types "
+                f"{sorted({d.type for d in devices})}: every shard must lie "
+                "on the same kind of device")
+        object.__setattr__(self, "devices", devices)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Shards per axis, as the reference's mesh reports them."""
+        return {self.axis_names[0]: len(self.devices)}
+
+    @property
+    def distinct(self) -> tuple[torch.device, ...]:
+        """The devices the shards lie on, each once, in shard order."""
+        return tuple(dict.fromkeys(self.devices))
+
+    @property
+    def device(self) -> torch.device:
+        """The one device every shard lies on; ``ValueError`` for a mesh
+        over several."""
+        if len(self.distinct) != 1:
+            raise ValueError(
+                f"a mesh over the devices {[str(d) for d in self.distinct]}"
+                " has no single device")
+        return self.devices[0]
+
+    def zeros(self, shape, dtype=torch.int32) -> ShardRows:
+        """A zero :class:`ShardRows` of ``shape`` (rows first, a multiple
+        of the shards)."""
+        rows = _shard_rows(shape[0], len(self.devices))
+        return ShardRows(torch.zeros((rows, *shape[1:]), dtype=dtype,
+                                     device=d) for d in self.devices)
+
+    def split(self, x) -> ShardRows:
+        """A host array or tensor's rows as a :class:`ShardRows`, each
+        shard's block copied to its device."""
+        x = torch.as_tensor(x)
+        rows = _shard_rows(x.shape[0], len(self.devices))
+        return ShardRows(x[s * rows:(s + 1) * rows].to(d, copy=True)
+                         for s, d in enumerate(self.devices))
+
+
+def _shard_rows(b: int, n_shards: int) -> int:
+    if b % n_shards:
+        raise ValueError(f"a batch of {b} rows does not split into "
+                         f"{n_shards} shards")
+    return b // n_shards
+
+
+class ShardRows:
+    """One batched tensor of a slot pool over S shards: ``parts[s]`` is
+    shard ``s``'s block of rows, a tensor of its own on the mesh's
+    ``devices[s]``.  Row ``r`` of the pool is row ``r % n`` of
+    ``parts[r // n]`` (``n`` rows a shard).  The slot pool, the kernels'
+    launches and the scheduler's glue act on each part on its device; only
+    :meth:`cpu` brings the rows together, in pool order."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts) -> None:
+        self.parts = tuple(parts)
+
+    @property
+    def shape(self) -> torch.Size:
+        p = self.parts[0]
+        return torch.Size((len(self.parts) * p.shape[0], *p.shape[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return tuple(p.device for p in self.parts)
+
+    def locate(self, row: int) -> tuple[int, int]:
+        """``(shard, row within the shard)`` of pool row ``row``."""
+        return divmod(int(row), self.parts[0].shape[0])
+
+    def map(self, fn) -> ShardRows:
+        """``fn`` on each shard's part, on its device."""
+        return ShardRows(fn(p) for p in self.parts)
+
+    def cpu(self) -> torch.Tensor:
+        """Every shard's rows on the host, in pool order."""
+        return torch.cat([p.cpu() for p in self.parts])
+
+    def put_rows(self, rows, values) -> None:
+        """``pool[rows] = values`` for host ``rows`` and ``values``, each
+        shard's share written on its device."""
+        rows = np.asarray(rows, np.int64)
+        values = torch.as_tensor(np.asarray(values))
+        n = self.parts[0].shape[0]
+        for s, p in enumerate(self.parts):
+            sel = np.nonzero(rows // n == s)[0]
+            if sel.size:
+                p[torch.as_tensor(rows[sel] % n, device=p.device)] = \
+                    values[torch.as_tensor(sel)].to(p.device, p.dtype)
+
+    def __repr__(self) -> str:
+        return (f"ShardRows({len(self.parts)} x {tuple(self.parts[0].shape)}"
+                f", {[str(d) for d in self.devices]})")
+
+
+def make_stream_mesh(n_shards: int | None = None, device="cuda", *,
+                     cards: int | None = None) -> StreamMesh:
+    """The slot pool's mesh.
+
+    * ``device="cpu"`` or an indexed card (``"cuda:1"``): ``n_shards``
+      (default 1) logical shards of that one device; the CPU runs the
+      kernels' plain versions.
+    * ``device="cuda"``: the first ``cards`` cards, all visible cards by
+      default, as the reference's mesh spans every visible device;
+      ``n_shards`` (default one a card) must be a multiple of them, and
+      each card holds ``n_shards / cards`` contiguous shards.  More cards
+      than are visible raise ``ValueError``.
+
+    A ``cuda`` device raises ``RuntimeError`` when no card is present, as
+    the scheduler does."""
+    if n_shards is not None and n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
     device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "make_stream_mesh(device='cuda') needs a CUDA device and none is "
             "available; pass device='cpu' to run the plain versions")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return StreamMesh((canonical_device(device),) * n_shards)
+    if device.type == "cpu" or device.index is not None:
+        if cards is not None:
+            raise ValueError(f"cards={cards} with the one device {device}: "
+                             "pass device='cuda' for a mesh over cards")
+        devices = [device]
+    else:
+        visible = torch.cuda.device_count()
+        n = visible if cards is None else cards
+        if not 1 <= n <= visible:
+            raise ValueError(f"a mesh over {n} cards, and {visible} are "
+                             "visible (CUDA_VISIBLE_DEVICES sets which)")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    n_shards = len(devices) if n_shards is None else n_shards
+    if n_shards % len(devices):
+        raise ValueError(f"{n_shards} shards do not split evenly over "
+                         f"{len(devices)} cards")
+    per = n_shards // len(devices)
+    return StreamMesh(tuple(d for d in devices for _ in range(per)))
 
 
 def dp_axes(mesh: StreamMesh) -> tuple[str, ...]:

@@ -6,7 +6,7 @@
     idle-time prewarm, pool-emitted lifecycle observability;
   * :mod:`repro_torch.runtime.placement` — :class:`SlotPlacement`:
     slot->shard mapping over contiguous per-shard blocks (the shards of a
-    ``launch.mesh.make_stream_mesh`` mesh: row blocks of one device),
+    ``launch.mesh.make_stream_mesh`` mesh, on one device or several),
     cross-shard rebalance planning, single-model tenant blocks;
   * :mod:`repro_torch.runtime.remap` — the row-remap contract (host
     ``remap_rows``, device ``remap_device_rows``/``perm_keep``);

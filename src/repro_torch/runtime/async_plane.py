@@ -4,7 +4,7 @@ The port of the reference's ``repro/runtime/async_plane.py``.  Every
 async workload on the slot pool follows one discipline:
 
   * **double-buffered dispatch** — enqueue step N+1 on the device while
-    step N still runs (one CUDA stream orders them) and run step N's
+    step N still runs (each device's CUDA stream orders them) and run step N's
     host-side fold at its *retirement*, when N+1 is already executing, so
     host work hides under device compute;
   * **deferred FIFO fold** — retirements apply results strictly in

@@ -38,6 +38,7 @@ from typing import Protocol, runtime_checkable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import ShardRows
 from repro_torch.obs import Observability
 from repro_torch.runtime.placement import SlotPlacement
 from repro_torch.runtime.remap import perm_keep, remap_device_rows
@@ -92,8 +93,9 @@ class SlotPoolClient(Protocol):
     * ``set_device_state(state)`` — install the pool-transformed tree.
     * ``slot_axes()`` — tree of ints matching ``device_state()``: the
       slot axis of each leaf, ``-1`` for leaves with no slot axis.
-    * ``shard(x, axis)`` — settle one tensor's slot ``axis`` onto the
-      workload's placement (identity on one device).
+    * ``shard(x, axis)`` — settle one leaf's slot ``axis`` onto the
+      workload's placement (identity on one device; a ``ShardRows``'
+      parts onto their shards' devices).
     * ``apply_host_remap(remap, new_capacity)`` — ride the host-side
       planes (bookkeeping vectors, arenas, caches, slot handles) through
       a ``{old_slot: new_slot}`` remap at ``new_capacity`` rows.
@@ -114,6 +116,35 @@ class SlotPoolClient(Protocol):
                          new_capacity: int) -> None: ...
 
 
+def _resize_blocks(a: torch.Tensor, ax: int, n_blocks: int, old_sc: int,
+                   new_sc: int, moves) -> torch.Tensor:
+    """Pad (``moves`` None) or slice each of the ``n_blocks`` blocks of
+    ``a``'s slot axis ``ax`` from ``old_sc`` to ``new_sc`` rows; a slice
+    first makes the ``(dst, src)`` row copies of ``moves``."""
+    m = torch.movedim(a, ax, 0) if ax else a
+    if moves is None:
+        m2 = m.reshape(n_blocks, old_sc, *m.shape[1:])
+        # F.pad lists (left, right) pairs from the LAST axis back
+        m2 = F.pad(m2, (0, 0) * (m.dim() - 1) + (0, new_sc - old_sc))
+    else:
+        m = m.clone()
+        for dst, src in moves:
+            m[dst] = m[src]
+        m2 = m.reshape(n_blocks, old_sc, *m.shape[1:])[:, :new_sc]
+    out = m2.reshape(n_blocks * new_sc, *m.shape[1:])
+    if ax:
+        out = torch.movedim(out, 0, ax)
+    return out.contiguous()
+
+
+def _local_moves(moves, shard: int, sc: int) -> list[tuple[int, int]]:
+    """The ``(dst, src)`` pool-row copies of one shard, in its own rows
+    (a shrink's copies never leave their shard)."""
+    base = shard * sc
+    return [(dst - base, src - base) for dst, src in moves
+            if dst // sc == shard]
+
+
 class SlotPool:
     """Elastic, shardable, observable pool of batch slots.
 
@@ -123,10 +154,11 @@ class SlotPool:
     below ``min_capacity`` — set ``min_capacity == capacity`` to pin a
     fixed-size pool).  All capacities are multiples of ``n_shards`` and
     every resize scales the *per-shard* capacity, so rows never cross
-    shard blocks outside the one deliberate ``rebalance`` path.  The
-    port's shards are contiguous row blocks of one device
-    (``launch.mesh.make_stream_mesh``); the kernels launch once per
-    shard on its rows.
+    shard blocks outside the one deliberate ``rebalance`` path.  A state
+    leaf is one tensor whose slot axis holds the S shard blocks in turn,
+    or a :class:`~repro_torch.launch.mesh.ShardRows` whose parts are the
+    blocks, each on its shard's device (``launch.mesh.make_stream_mesh``);
+    the pool resizes and remaps each part on its device.
     """
 
     def __init__(
@@ -271,21 +303,16 @@ class SlotPool:
         def adjust(a, ax):
             if ax < 0:
                 return a  # not slot-indexed (shared clocks, replicated)
-            m = torch.movedim(a, ax, 0) if ax else a
-            if moves is None:
-                m2 = m.reshape(S, old_sc, *m.shape[1:])
-                # F.pad lists (left, right) pairs from the LAST axis back
-                m2 = F.pad(m2, (0, 0) * (m.dim() - 1)
-                           + (0, new_sc - old_sc))
+            if isinstance(a, ShardRows):
+                # each shard's own tensor is one block, on its device
+                out = ShardRows(
+                    _resize_blocks(part, ax, 1, old_sc, new_sc, None
+                                   if moves is None else _local_moves(
+                                       moves, sh, old_sc))
+                    for sh, part in enumerate(a.parts))
             else:
-                m = m.clone()
-                for dst, src in moves:
-                    m[dst] = m[src]
-                m2 = m.reshape(S, old_sc, *m.shape[1:])[:, :new_sc]
-            out = m2.reshape(S * new_sc, *m.shape[1:])
-            if ax:
-                out = torch.movedim(out, 0, ax)
-            return self.client.shard(out.contiguous(), ax)
+                out = _resize_blocks(a, ax, S, old_sc, new_sc, moves)
+            return self.client.shard(out, ax)
 
         self.client.set_device_state(tree_map(
             adjust, self.client.device_state(), self.client.slot_axes()

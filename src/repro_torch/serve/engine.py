@@ -14,8 +14,9 @@ that drains in-flight decode ticks before any slot remap) comes from
 the KWS stream scheduler, and the pool emits the ``lm_resize`` /
 ``lm_rebalance`` events.  By default (``max_slots=None``) the pool is
 pinned at ``batch_slots``; pass ``max_slots`` / ``min_slots`` for elastic
-capacity and ``mesh`` (``launch.mesh.make_stream_mesh``: S row blocks of
-one device) to shard the slot axis.
+capacity and ``mesh`` (``launch.mesh.make_stream_mesh(S, device)``: S
+row blocks of the params' device) to shard the slot axis.  A mesh over
+several devices raises ``NotImplementedError`` (queue item A.9d).
 
 Every family is served: the state's own keys are flattened for the pool
 (the stack's ``cache_len`` / ``head`` / ``layers``, the encoder-decoder's
@@ -93,6 +94,12 @@ class Engine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("the engine's params lie on a CUDA device and "
                                "none is available")
+        if mesh is not None and len(mesh.distinct) > 1:
+            raise NotImplementedError(
+                f"an engine over the devices {[str(d) for d in mesh.distinct]}"
+                " is not supported yet: ROADMAP queue item A.9d, the LM "
+                "engine over several devices (the MoE's dropping dispatch "
+                "ranks every row of a tick in one global order)")
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"mesh on {mesh.device}, params on "
                              f"{self.device}")

@@ -22,9 +22,11 @@ Modules:
              double-buffered hop dispatch with a deferred FIFO fold and
              epoch barriers
 
-A slot pool over S shards of one device: pass
-``mesh=make_stream_mesh(S)`` (from ``repro_torch.launch.mesh``, exported
-here too); every kernel launch of a hop is then issued once per shard.
+A slot pool over S shards: pass ``mesh=make_stream_mesh(S)`` (from
+``repro_torch.launch.mesh``, exported here too; every visible card by
+default, ``device="cuda:0"`` or ``"cpu"`` for S shards of one device);
+each shard's rows then lie on its own device and every kernel launch of
+a hop is issued once per shard.
 
 Quickstart (on the H100; pass ``device="cpu"`` to run the plain version):
 

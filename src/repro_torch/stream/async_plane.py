@@ -18,11 +18,12 @@ machinery identical and changes only *when* the host-side stages run:
   * **Double-buffered hop dispatch** — pack hop N+1 and enqueue it while
     hop N still runs: the scheduler stages every operand and result
     through pinned host buffers with ``non_blocking`` copies on the
-    kernels' one CUDA stream, so a dispatch never waits on the device,
-    and the stream orders hop N+1 after hop N.  With ``donate_buffers``
+    kernels' CUDA stream of each device, so a dispatch never waits on
+    the device, and each device's stream orders hop N+1 after hop N.  With ``donate_buffers``
     (default on) the megakernel writes each hop's state into the second
     resident state set, the two swapping every hop.  The fence (the hop's
-    CUDA event) and fold for hop N run at its *retirement*, when hop N+1
+    CUDA events, one per device of a mesh) and fold for hop N run at its
+    *retirement*, when hop N+1
     is already executing — the pack, detector and metrics work hide under
     device compute.
   * **Deferred FIFO fold** — retirements apply detector/metrics/event

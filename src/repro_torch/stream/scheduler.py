@@ -1,6 +1,6 @@
 """Continuous-batching multi-stream scheduler for always-on KWS (PyTorch).
 
-The port of the reference's ``repro/stream/scheduler.py``, on one device.
+The port of the reference's ``repro/stream/scheduler.py``.
 Thousands of concurrent audio streams each produce frames continuously;
 the model weights are shared across all of them.  The scheduler packs
 the active streams onto an *elastic* batch axis and advances them with ONE
@@ -45,9 +45,9 @@ stays the exact fallback for peeks over leftover sub-hop samples.
 
 **Staging.**  A hop's operands (audio, mask, tenant rows) go to the card
 from pinned host buffers and its logits and posteriors come back into
-pinned ones, every copy ``non_blocking`` on the one CUDA stream the
-kernels run on, and an event recorded after the last copy is the hop's
-fence.  So dispatching a hop never waits on the device, which lets the
+pinned ones, every copy ``non_blocking`` on the CUDA stream the kernels
+run on, and the events recorded after the last copies, one per device,
+are the hop's fence.  So dispatching a hop never waits on the device, which lets the
 async plane (``stream/async_plane.py``) enqueue hop N+1 while hop N runs.
 With ``donate_buffers`` the megakernel writes each hop's state into a
 second resident state set, and the two swap every hop (the paper's
@@ -62,21 +62,27 @@ makes the same launches for any K.
 
 **Mesh sharding (one pool, S shards).**  Pass ``mesh`` (see
 ``launch.mesh.make_stream_mesh``) and the slot pool splits into S
-contiguous per-shard row blocks of one device: ``SlotPlacement`` puts a
-joining stream on the least-loaded shard and resizes per shard, and every
-kernel launch of a hop is issued once per shard on that shard's rows with
-the weights shared (the ``*_sharded`` entry points of ``kernels/ops.py``,
-the port of the reference's ``shard_map`` launches).  At hop barriers a
+contiguous per-shard row blocks: shard ``s``'s rows of every batched
+state tensor (tails, pendings, GAP, model rows, the emit logits, the
+donated spare set) are a tensor of their own on ``mesh.devices[s]`` (a
+``launch.mesh.ShardRows``), whether the shards share one device or each
+has a card.  ``SlotPlacement`` puts a joining stream on the least-loaded
+shard and resizes per shard; the weights and every layout of them lie
+once on each distinct device (``_ShardedModel``); every kernel launch of
+a hop is issued once per shard on that shard's rows, under its device
+(the port of the reference's ``shard_map`` launches); the host stages
+each shard's operands to its device and gathers each shard's logits back
+in slot order, with one event per device.  At hop barriers a
 cross-shard rebalance migrates rows when leave churn skews the shards
-(``SlotPool.hop_barrier``).  A sharded run is bit-exact with the
-single-device scheduler, stream for stream.  With no mesh or one shard
-every path collapses to the single-device one.  A mesh over several
-distinct devices is refused with ``NotImplementedError`` (queue item
-A.9b).
+(``SlotPool.hop_barrier``), each row read from its source shard's
+device.  A sharded run is bit-exact with the single-device scheduler,
+stream for stream.  With no mesh or one shard every path is the
+single-device one.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 
@@ -86,9 +92,9 @@ import torch
 from repro_torch.core.cnn_spec import CNN1DSpec
 from repro_torch.kernels import conv_kernels, dispatch, ops
 from repro_torch.kernels.hop_megakernel import prepare_hop_weights
-from repro_torch.launch.mesh import canonical_device, dp_size
+from repro_torch.launch.mesh import ShardRows, canonical_device, dp_size
 from repro_torch.obs import Observability
-from repro_torch.runtime.pool import SlotPool
+from repro_torch.runtime.pool import SlotPool, tree_map
 from repro_torch.stream.detector import (
     BatchedDetector,
     Detection,
@@ -191,7 +197,8 @@ def param_cache_stats() -> dict[str, int]:
 
 
 class WeightPool:
-    """K complete model variants sharing one plan geometry, one device.
+    """K complete model variants sharing one plan geometry (the host
+    side: the device stacks lie once on each device of the pool).
 
     The pool owns the *host* side of multi-tenancy: which model ids are
     resident, which pool row (0..max_models-1) each occupies, how many
@@ -339,12 +346,13 @@ class _Stream:
 class _Dispatched:
     """One dispatched hop's results on their way to the host: the host
     tensors its logits and posteriors land in (None with emit off), the
-    event recorded after their copies (None on the CPU, where nothing is
-    in flight) and the kernel launches the hop made."""
+    events recorded after their copies, one per device the hop ran on
+    (none on the CPU, where nothing is in flight), and the kernel
+    launches the hop made."""
 
     logits: torch.Tensor | None
     post: torch.Tensor | None
-    event: torch.cuda.Event | None
+    events: tuple[torch.cuda.Event, ...]
     dispatches: int
 
 
@@ -352,25 +360,33 @@ class _HostStaging:
     """The host side of a hop's copies: a ring of ``n`` slots of pinned
     buffers, one per operand or result name, made at the shape asked for
     (so a resize reallocates them).  Every copy is ``non_blocking`` on the
-    current CUDA stream, and the event recorded after a hop's copies
-    guards its slot: before the host rewrites a slot's buffers it waits on
-    that event, which has always passed by then when ``n`` exceeds the
-    hops in flight.  On the CPU there is nothing to stage: operands are
-    plain tensors and results are read in place."""
+    current CUDA stream of its device, and the events recorded after a
+    hop's copies, one per device, guard its slot: before the host
+    rewrites a slot's buffers it waits on them, which have always passed
+    by then when ``n`` exceeds the hops in flight.
 
-    def __init__(self, device: torch.device, n: int) -> None:
+    With ``mesh`` (S >= 2 shards) an operand leaves as a ``ShardRows``:
+    shard ``s``'s rows are copied from their slice of the one pinned
+    buffer to ``mesh.devices[s]``; a result comes back shard by shard
+    into its rows of one pinned buffer, so the host reads the pool's rows
+    in slot order.  On the CPU there is nothing to stage: operands are
+    plain tensors (split into shards) and results are read in place."""
+
+    def __init__(self, device: torch.device, n: int, mesh=None) -> None:
         self.device = device
+        self.mesh = mesh
+        self._devices = (device,) if mesh is None else mesh.distinct
         self._bufs: list[dict[str, torch.Tensor]] = [{} for _ in range(n)]
-        self._events: list[torch.cuda.Event | None] = [None] * n
+        self._events: list[tuple] = [()] * n
         self._i = n - 1
 
     def next(self) -> int:
         """Claim the next slot of the ring, once its last copies are done."""
         self._i = (self._i + 1) % len(self._bufs)
-        ev = self._events[self._i]
-        if ev is not None and not ev.query():
-            ev.synchronize()
-        self._events[self._i] = None
+        for ev in self._events[self._i]:
+            if not ev.query():
+                ev.synchronize()
+        self._events[self._i] = ()
         return self._i
 
     def _buffer(self, i: int, name: str, shape, dtype) -> torch.Tensor:
@@ -380,32 +396,55 @@ class _HostStaging:
             self._bufs[i][name] = buf
         return buf
 
-    def to_device(self, i: int, name: str, a: np.ndarray) -> torch.Tensor:
-        """Slot ``i``'s copy of the host array ``a`` on the device."""
+    def to_device(self, i: int, name: str, a: np.ndarray):
+        """Slot ``i``'s copy of the host array ``a`` on the device (a
+        ``ShardRows`` over the mesh's shards)."""
         if self.device.type == "cpu":
-            return torch.tensor(a)
+            return torch.tensor(a) if self.mesh is None else \
+                self.mesh.split(a)
         src = torch.from_numpy(np.ascontiguousarray(a))
         buf = self._buffer(i, name, src.shape, src.dtype)
         buf.copy_(src)
-        return buf.to(self.device, non_blocking=True)
+        if self.mesh is None:
+            return buf.to(self.device, non_blocking=True)
+        n = buf.shape[0] // len(self.mesh.devices)
+        return ShardRows(buf[s * n:(s + 1) * n].to(d, non_blocking=True)
+                         for s, d in enumerate(self.mesh.devices))
 
-    def to_host(self, i: int, name: str, t: torch.Tensor) -> torch.Tensor:
-        """Slot ``i``'s host tensor that ``t`` lands in (``t`` itself on
-        the CPU); readable once the slot's event has passed."""
+    def to_host(self, i: int, name: str, t) -> torch.Tensor:
+        """Slot ``i``'s host tensor that ``t`` (a ``ShardRows`` over the
+        mesh's shards) lands in, rows in slot order (``t`` itself on the
+        CPU); readable once the slot's events have passed."""
         if self.device.type == "cpu":
-            return t
+            return t if self.mesh is None else t.cpu()
         buf = self._buffer(i, name, t.shape, t.dtype)
-        buf.copy_(t, non_blocking=True)
+        if self.mesh is None:
+            buf.copy_(t, non_blocking=True)
+            return buf
+        n = t.parts[0].shape[0]
+        for s, part in enumerate(t.parts):
+            buf[s * n:(s + 1) * n].copy_(part, non_blocking=True)
         return buf
 
-    def record(self, i: int) -> torch.cuda.Event | None:
-        """The event after slot ``i``'s copies (None on the CPU)."""
+    def record(self, i: int) -> tuple[torch.cuda.Event, ...]:
+        """The events after slot ``i``'s copies, one per device (none on
+        the CPU)."""
         if self.device.type == "cpu":
-            return None
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        self._events[i] = ev
-        return ev
+            return ()
+        evs = []
+        for d in self._devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            evs.append(ev)
+        self._events[i] = tuple(evs)
+        return self._events[i]
+
+
+def _empty_like(x):
+    """An uninitialised tensor (or ``ShardRows``) shaped like ``x``."""
+    if isinstance(x, ShardRows):
+        return x.map(torch.empty_like)
+    return torch.empty_like(x)
 
 
 def _require_device(device) -> torch.device:
@@ -424,11 +463,9 @@ class _BatchedModel:
     """Device-resident model + batched hop/finalize for one plan.
 
     Batch-size polymorphic: every entry point derives B from its operands,
-    so the elastic slot pool needs nothing per capacity.
-
-    With ``mesh`` every kernel launch goes through the sharded entry
-    points of ``kernels/ops.py``: one launch per shard on its row block,
-    the weights (and every layout of them) shared by the shards.
+    so the elastic slot pool needs nothing per capacity.  Over a mesh,
+    :class:`_ShardedModel` runs one of these per device on each shard's
+    rows.
 
     With ``pool_size`` (a tenant pool) axis 0 of every weight operand
     stacks K complete variants — raw and in every kernel's layout — and
@@ -438,12 +475,10 @@ class _BatchedModel:
     """
 
     def __init__(self, plan: StreamPlan, backend: str, params: dict,
-                 pool_size: int | None = None, tenant_block: int = 8,
-                 mesh=None) -> None:
+                 pool_size: int | None = None,
+                 tenant_block: int = 8) -> None:
         self.plan = plan
         self.backend = backend
-        self.mesh = mesh
-        self._n_shards = 1 if mesh is None else dp_size(mesh)
         self.pool_size = pool_size
         self._tenant_block = tenant_block
         if pool_size is None:
@@ -517,13 +552,13 @@ class _BatchedModel:
             put(self._kfc_w.frag, one.frag)
 
     def _bb(self, b: int) -> int | None:
-        """Tenant-aligned slot block: placement keeps each
-        ``min(tenant_block, shard_capacity)`` block single-model, so each
-        of the kernels' blocks gathers one weight row.  None when
-        un-pooled."""
+        """Tenant-aligned slot block of a batch of ``b`` rows (one shard's
+        over a mesh): placement keeps each ``min(tenant_block,
+        shard_capacity)`` block single-model, so each of the kernels'
+        blocks gathers one weight row.  None when un-pooled."""
         if self.pool_size is None:
             return None
-        return min(self._tenant_block, max(1, b // self._n_shards))
+        return min(self._tenant_block, max(1, b))
 
     def _block_gather(self, stack: torch.Tensor, model_idx: torch.Tensor
                       ) -> tuple[torch.Tensor, int]:
@@ -552,12 +587,11 @@ class _BatchedModel:
         if self.backend == "per_stage":
             bb = self._bb(window.shape[0])
             if st.in_bits > 1:
-                return ops.bitserial_conv1d_batched_sharded(
-                    window, self._cw[i], model_idx, mesh=self.mesh,
-                    bits=st.in_bits, offset=st.in_offset, stride=st.stride,
-                    bb=bb)
-            return ops.bnn_conv1d_batched_sharded(
-                window, self._cw[i], None, None, model_idx, mesh=self.mesh,
+                return ops.bitserial_conv1d_batched(
+                    window, self._cw[i], model_idx, bits=st.in_bits,
+                    offset=st.in_offset, stride=st.stride, bb=bb)
+            return ops.bnn_conv1d_batched(
+                window, self._cw[i], None, None, model_idx,
                 stride=st.stride, mode="raw", bb=bb)
         x = window - st.in_offset if st.in_bits > 1 else window
         taps = [
@@ -596,12 +630,12 @@ class _BatchedModel:
         stages = plan.convs
         cur = audio.reshape(audio.shape[0], plan.hop_samples, stages[0].cin)
         if self.backend == "megakernel":
-            out = ops.hop_megakernel_sharded(
+            out = ops.hop_megakernel(
                 cur, mask.to(torch.int32), tuple(tails), tuple(pendings),
                 gap, self._kw, self._thr, self._kflip, self._kfc_w,
-                self._fc_thr, self._fc_flip, model_idx, mesh=self.mesh,
-                stages=stages, emit=emit, fc_raw=self._fc_raw,
-                bb=self._bb(gap.shape[0]), out=out,
+                self._fc_thr, self._fc_flip, model_idx, stages=stages,
+                emit=emit, fc_raw=self._fc_raw, bb=self._bb(gap.shape[0]),
+                out=out,
             )
             state = out[0], out[1], out[2]
             if not emit:
@@ -653,11 +687,11 @@ class _BatchedModel:
         a ghost end-of-stream flush sized by the plan's ``flush_*``
         geometry, then the fc classifier on the saturated GAP counts."""
         if self.backend == "megakernel":
-            logits = ops.finalize_megakernel_sharded(
+            logits = ops.finalize_megakernel(
                 tuple(tails), tuple(pendings), gap, self._kw, self._thr,
                 self._kflip, self._kfc_w, self._fc_thr, self._fc_flip,
-                model_idx, mesh=self.mesh, stages=self.plan.convs,
-                fc_raw=self._fc_raw, bb=self._bb(gap.shape[0]),
+                model_idx, stages=self.plan.convs, fc_raw=self._fc_raw,
+                bb=self._bb(gap.shape[0]),
             )
             return logits, torch.softmax(logits.float(), -1)
         stages = self.plan.convs
@@ -692,10 +726,9 @@ class _BatchedModel:
                     model_idx: torch.Tensor | None = None) -> torch.Tensor:
         """Saturated GAP counts (B, C) -> raw logits (B, n_classes)."""
         if self.backend == "per_stage":
-            return ops.classifier_tail_sharded(
+            return ops.classifier_tail(
                 gap_f, self._kfc_w, self._fc_thr, self._fc_flip, model_idx,
-                mesh=self.mesh, out_raw=self._fc_raw,
-                bb=self._bb(gap_f.shape[0]))
+                out_raw=self._fc_raw, bb=self._bb(gap_f.shape[0]))
         h = gap_f
         for j, st in enumerate(self.plan.fcs):
             thr, flip = self._fc_thr[j], self._fc_flip[j]
@@ -721,7 +754,8 @@ class _BatchedModel:
         the per-stage backend one per conv stage plus, on emit, a
         finalization's launches.  The scheduler counts the real launches
         of every hop through ``kernels.dispatch``, S times this over S
-        shards, and the tests hold the two to that."""
+        shards (:class:`_ShardedModel`), and the tests hold the two to
+        that."""
         if self.backend == "per_stage":
             n = len(self.plan.convs)
             return n + (self.dispatches_per_finalize() if emit else 0)
@@ -737,6 +771,90 @@ class _BatchedModel:
         return 1 if self.backend == "megakernel" else 0
 
 
+def _part(tree, s: int):
+    """Shard ``s``'s part of every ``ShardRows`` in a nested tuple or
+    list (None stays None)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_part(t, s) for t in tree)
+    return None if tree is None else tree.parts[s]
+
+
+def _current(device: torch.device):
+    """A context with ``device`` current (nothing to set for the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _join(results):
+    """Per-shard results (nested tuples of tensors, alike) -> one nested
+    tuple of ``ShardRows``."""
+    first = results[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_join(xs) for xs in zip(*results))
+    return ShardRows(results)
+
+
+class _ShardedModel:
+    """The hop over the S >= 2 shards of a mesh.
+
+    Shard ``s``'s rows, the parts of ``ShardRows`` on ``mesh.devices[s]``,
+    run the :class:`_BatchedModel` of that device: the weights, thresholds
+    and every layout of them (``HopWeights``, ``ConvWeights``,
+    ``TailWeights``, a tenant pool's stacks) are made once per distinct
+    device and shared by the shards on it.  Each shard's step runs with
+    its device current, so each kernel launch of a hop is made once per
+    shard, on its device's current stream, as the reference's
+    ``shard_map`` makes one per device, and the dense and per-stage
+    backends' glue (window concat, SA, pool, GAP, mask merge) runs on
+    each shard's tensors without a device switch around every op.  Placement keeps every tenant
+    block inside one shard.  Same surface as :class:`_BatchedModel`, but
+    ``set_model_row`` takes a function from a device to the prepared
+    params on it."""
+
+    def __init__(self, plan: StreamPlan, backend: str, params_on, mesh,
+                 pool_size: int | None = None,
+                 tenant_block: int = 8) -> None:
+        self.plan = plan
+        self.backend = backend
+        self.pool_size = pool_size
+        self.models = {d: _BatchedModel(plan, backend, params_on(d),
+                                        pool_size, tenant_block)
+                       for d in mesh.distinct}
+        self._devices = mesh.devices
+        self._shards = [self.models[d] for d in mesh.devices]
+
+    def set_model_row(self, idx: int, params_on) -> None:
+        """Write one tenant into pool row ``idx`` on every device."""
+        for d, m in self.models.items():
+            m.set_model_row(idx, params_on(d))
+
+    def step(self, *args, emit: bool, out=None):
+        """:meth:`_BatchedModel.step` on every shard's rows; the state
+        (and logits and posteriors) come back as ``ShardRows``, written
+        into ``out``'s parts when given."""
+        results = []
+        for s, (d, m) in enumerate(zip(self._devices, self._shards)):
+            with _current(d):
+                results.append(m.step(*_part(args, s), emit=emit,
+                                      out=_part(out, s)))
+        return _join(results)
+
+    def finalize(self, *args):
+        """:meth:`_BatchedModel.finalize` on every shard's rows."""
+        results = []
+        for s, (d, m) in enumerate(zip(self._devices, self._shards)):
+            with _current(d):
+                results.append(m.finalize(*_part(args, s)))
+        return _join(results)
+
+    def dispatches_per_hop(self, emit: bool) -> int:
+        return self._shards[0].dispatches_per_hop(emit)
+
+    def dispatches_per_finalize(self) -> int:
+        return self._shards[0].dispatches_per_finalize()
+
+
 class StreamScheduler:
     """Continuous batching over an elastic pool of stream slots.
 
@@ -749,8 +867,8 @@ class StreamScheduler:
     logits to one fed at a fixed capacity.
 
     Takes the reference's constructor arguments plus ``device`` (default:
-    the mesh's device, else ``"cuda"``; raises when CUDA is absent, never
-    continues on the CPU).
+    the device of the mesh's shard 0, else ``"cuda"``; raises when CUDA
+    is absent, never continues on the CPU).
     ``interpret`` has no meaning here (there is no interpret mode) and is
     accepted for signature parity.  ``max_models > 1`` turns on the tenant
     weight pool (``register_model``, ``add_stream(model=...)``), whose
@@ -760,14 +878,14 @@ class StreamScheduler:
     ``torch`` and ``per_stage`` backends it is accepted and changes
     nothing.
 
-    ``mesh`` (``launch.mesh.make_stream_mesh(S)``) spreads the pool over
-    S shards of its device: every capacity must be a multiple of S
-    (``ValueError``), a joining stream lands on the least-loaded shard,
+    ``mesh`` (``launch.mesh.make_stream_mesh``) spreads the pool over
+    its S shards, on one device or on several cards: every capacity must
+    be a multiple of S (``ValueError``), shard ``s``'s rows lie on
+    ``mesh.devices[s]``, a joining stream lands on the least-loaded shard,
     resizes scale the per-shard capacity, leave churn that skews the
     shards is levelled by a migration at the next hop barrier, and each
-    hop makes its kernel launches once per shard on the shard's rows.  A
-    mesh over several distinct devices raises ``NotImplementedError``
-    (queue item A.9b).
+    hop makes its kernel launches once per shard on the shard's rows,
+    under its device.
     """
 
     #: hops the scheduler keeps in flight (the async plane raises it); the
@@ -807,7 +925,7 @@ class StreamScheduler:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         n_shards = 1
         if mesh is not None:
-            mesh_device = mesh.device  # refuses a mesh over several devices
+            mesh_device = mesh.devices[0]
             n_shards = dp_size(mesh)
             if device is None:
                 device = mesh_device
@@ -832,6 +950,11 @@ class StreamScheduler:
                              f"device {mesh_device}")
         self.mesh = mesh
         self.n_shards = n_shards
+        # S >= 2: every batched state tensor is a ShardRows over the mesh
+        self._mesh = mesh if n_shards > 1 else None
+        #: the devices the pool's rows lie on, each once
+        self.devices = ((self.device,) if self._mesh is None
+                        else self._mesh.distinct)
         self._clock = clock
         self.plan = plan_stream(spec, hop_frames=hop_frames)
         self.weights = {k: np.asarray(v) for k, v in weights.items()}
@@ -850,12 +973,17 @@ class StreamScheduler:
         self._tenant_block = tenant_block
         if self._pool is not None:
             self._pool.admit(DEFAULT_MODEL, self.weights, self.thresholds)
-        self._params = prepared_model_params(self.plan, weights, thresholds,
-                                             self.device)
-        self._model = _BatchedModel(
-            self.plan, backend, self._params,
-            pool_size=max_models if self._pool is not None else None,
-            tenant_block=tenant_block, mesh=mesh)
+        pool_size = max_models if self._pool is not None else None
+        if self._mesh is None:
+            self._model = _BatchedModel(
+                self.plan, backend, prepared_model_params(
+                    self.plan, weights, thresholds, self.device),
+                pool_size=pool_size, tenant_block=tenant_block)
+        else:
+            self._model = _ShardedModel(
+                self.plan, backend, lambda d: prepared_model_params(
+                    self.plan, weights, thresholds, d), self._mesh,
+                pool_size=pool_size, tenant_block=tenant_block)
         # the generic slot-pool plane: slot<->sid binding, pow-2 elastic
         # resize, idle-time prewarm, resize observability.  This scheduler
         # is its client through device_state/slot_axes/shard/
@@ -885,7 +1013,8 @@ class StreamScheduler:
         # current capacity on first use, dropped on every remap)
         self._donate = donate_buffers and backend == "megakernel"
         self._spare = None
-        self._staging = _HostStaging(self.device, self._pipeline_depth + 1)
+        self._staging = _HostStaging(self.device, self._pipeline_depth + 1,
+                                     self._mesh)
         base_inbox = (
             inbox_samples if inbox_samples is not None
             else FrontendConfig().capacity_samples
@@ -919,13 +1048,18 @@ class StreamScheduler:
         self._emit_cache_step = -1
         self._warmed: set[tuple[int, bool]] = set()
 
-    def _zeros(self, shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+    def _zeros(self, shape, dtype=torch.int32):
+        """Zero rows of the pool: a ``ShardRows`` over the mesh's shards."""
+        if self._mesh is not None:
+            return self._mesh.zeros(shape, dtype)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def _sync(self) -> None:
-        """Fence: wait for the device work queued so far."""
+        """Fence: wait for the device work queued so far, on every
+        device."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for d in self.devices:
+                torch.cuda.synchronize(d)
 
     # -- elastic slot pool (delegated to runtime.SlotPool) -------------------
 
@@ -963,7 +1097,12 @@ class StreamScheduler:
         return ((0,) * n, (0,) * n, 0)
 
     def shard(self, x, axis: int = 0):
-        return x  # the shards are row blocks of one device: nothing to move
+        """Settle a resized or remapped leaf onto the mesh: each shard's
+        part on its device (they are made there: nothing moves)."""
+        if isinstance(x, ShardRows):
+            return ShardRows(p.to(d) for p, d in zip(x.parts,
+                                                     self._mesh.devices))
+        return x
 
     def apply_host_remap(self, remap: dict[int, int], new_cap: int) -> None:
         """Ride the host-side ingest plane through a slot remap, so a
@@ -1012,8 +1151,12 @@ class StreamScheduler:
             return row
         row, evicted = self._pool.admit(model_id, weights, thresholds)
         w, t = self._pool.params_for(model_id)
-        self._model.set_model_row(
-            row, prepared_model_params(self.plan, w, t, self.device))
+        if self._mesh is None:
+            self._model.set_model_row(
+                row, prepared_model_params(self.plan, w, t, self.device))
+        else:
+            self._model.set_model_row(row, lambda d: prepared_model_params(
+                self.plan, w, t, d))
         if evicted is not None:
             self.metrics.on_model_evict(evicted)
             self.obs.events.emit("model_evict", model=evicted, row=row)
@@ -1200,17 +1343,15 @@ class StreamScheduler:
                  np.asarray(pos, np.int64))
                 for pos in by_model.values()
             ]
-        put = lambda a: torch.as_tensor(  # noqa: E731
-            np.ascontiguousarray(a, np.int32), device=self.device)
         for w, t, pos in groups:
             steady = prime_batch(self.plan, w, t, samples[pos])
             gslots = slots[pos]
-            idx = torch.as_tensor(gslots, device=self.device)
             for i in range(len(self.plan.convs)):
-                self._tails[i][idx] = put(steady["tails"][i])
+                self._put_rows(self._tails[i], gslots, steady["tails"][i])
                 if self._pendings[i].shape[1]:
-                    self._pendings[i][idx] = put(steady["pendings"][i])
-            self._gap[idx] = put(steady["gap"])
+                    self._put_rows(self._pendings[i], gslots,
+                                   steady["pendings"][i])
+            self._put_rows(self._gap, gslots, steady["gap"])
             self._frames_v[gslots] = steady["frames"]
         self._primed_mask[slots] = True
         for sid in sids:
@@ -1224,12 +1365,29 @@ class StreamScheduler:
                            n=len(sids))
         self.obs.events.emit("mass_join", n=len(sids))
 
+    def _put_rows(self, x, slots: np.ndarray, values: np.ndarray) -> None:
+        """``x[slots] = values`` (int32 host rows) on the device(s) ``x``
+        lies on."""
+        if isinstance(x, ShardRows):
+            x.put_rows(slots, np.ascontiguousarray(values, np.int32))
+            return
+        x[torch.as_tensor(slots, device=self.device)] = torch.as_tensor(
+            np.ascontiguousarray(values, np.int32), device=self.device)
+
+    @staticmethod
+    def _row(x, slot: int) -> torch.Tensor:
+        """Slot ``slot``'s row of ``x``, a view on the device it lies on."""
+        if isinstance(x, ShardRows):
+            s, r = x.locate(slot)
+            return x.parts[s][r]
+        return x[slot]
+
     def _clear_slot(self, slot: int) -> None:
         for i in range(len(self.plan.convs)):
-            self._tails[i][slot] = 0
+            self._row(self._tails[i], slot).zero_()
             if self._pendings[i].shape[1]:
-                self._pendings[i][slot] = 0
-        self._gap[slot] = 0
+                self._row(self._pendings[i], slot).zero_()
+        self._row(self._gap, slot).zero_()
 
     def _host_state(self):
         """One bulk device->host copy of the batched state; per-slot rows
@@ -1280,20 +1438,17 @@ class StreamScheduler:
         """The donated state set the next hop writes: the set the last
         hop read, or a new one when a remap dropped it."""
         if self._spare is None:
-            self._spare = tuple(
-                tuple(torch.empty_like(t) for t in part)
-                if isinstance(part, tuple) else torch.empty_like(part)
-                for part in self.device_state())
+            self._spare = tree_map(_empty_like, self.device_state())
         return self._spare
 
     def _dispatch_hop(self, ready_mask, audio) -> _Dispatched:
         """Dispatch stage: stage the operands through the host staging
         ring, enqueue the batched hop, the copies of its logits and
-        posteriors to the host and an event after them, and reassign the
-        resident state.  Nothing here waits on the device: every copy is
-        ``non_blocking`` from or into pinned memory on the kernels' one
-        CUDA stream.  The launches the hop made are counted through
-        ``kernels.dispatch``."""
+        posteriors to the host and an event after them on each device, and
+        reassign the resident state.  Nothing here waits on the device:
+        every copy is ``non_blocking`` from or into pinned memory on the
+        kernels' CUDA stream of its device.  The launches the hop made
+        are counted through ``kernels.dispatch``."""
         stg = self._staging
         i = stg.next()
         args = (
@@ -1326,10 +1481,10 @@ class StreamScheduler:
 
     @staticmethod
     def _fence(hop: _Dispatched):
-        """Wait for one dispatched hop's copies; its logits and
-        posteriors as numpy (None, None with emit off)."""
-        if hop.event is not None:
-            hop.event.synchronize()
+        """Wait for one dispatched hop's copies, on every device; its
+        logits and posteriors as numpy (None, None with emit off)."""
+        for ev in hop.events:
+            ev.synchronize()
         if hop.logits is None:
             return None, None
         # copied out of the staging ring, which a later hop reuses
@@ -1455,7 +1610,7 @@ class StreamScheduler:
         z = self._zeros
         args = (
             z((cap, plan.hop_samples)),
-            torch.zeros(cap, dtype=torch.bool, device=self.device),
+            z((cap,), torch.bool),
             tuple(z((cap, st.tail, st.cin)) for st in plan.convs),
             tuple(z((cap, st.phase, st.cout)) for st in plan.convs),
             z((cap, plan.gap_channels)),
@@ -1531,10 +1686,12 @@ class StreamScheduler:
             fargs = (tuple(self._tails), tuple(self._pendings), self._gap)
             if self._pool is not None:
                 self._sync_model_rows()
-                fargs = fargs + (torch.as_tensor(self._model_idx_v,
-                                                 device=self.device),)
+                rows = (torch.as_tensor(self._model_idx_v, device=self.device)
+                        if self._mesh is None
+                        else self._mesh.split(self._model_idx_v))
+                fargs = fargs + (rows,)
             logits, _ = self._model.finalize(*fargs)
-            return logits[s.slot].cpu().numpy()
+            return self._row(logits, s.slot).cpu().numpy()
         return self._peek_fallback(s)
 
     def _peek_fallback(self, s: _Stream) -> np.ndarray:

@@ -13,7 +13,13 @@ Guarantees:
     — a crash mid-save never corrupts the latest checkpoint.
   * versioned: keep_last N checkpoints, GC older ones.
   * placement on restore: each leaf goes to the device of the template's
-    leaf, so a job can restart on another device than it saved from.
+    leaf, so a job can restart on another device than it saved from; with
+    ``shardings`` it comes back as a DTensor laid out on a new mesh
+    (elastic re-sharding, the port of the reference's ``device_put`` of
+    each leaf with a ``NamedSharding``).
+  * sharded saves: a DTensor leaf is written as its full tensor, by rank
+    0 of the started process group, once every rank has agreed on the
+    step.
   * integrity: per-leaf crc32 verified on load (``IOError``), and the
     template's leaf count checked (``ValueError``).
 """
@@ -54,14 +60,45 @@ def _leaf_from_bytes(d: dict, raw: bytes) -> torch.Tensor:
     return flat.view(getattr(torch, d["dtype"])).reshape(d["shape"])
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def save(ckpt_dir: str | os.PathLike, step: int, tree,
          meta: dict | None = None, keep_last: int = 3) -> pathlib.Path:
     """Write ``tree`` (its tensors copied to the host) as step ``step``;
     ``meta`` must be JSON-serialisable.  The zlib stream is written leaf
-    by leaf at ``ZLIB_LEVEL``."""
+    by leaf at ``ZLIB_LEVEL``.
+
+    A tree with DTensor leaves is saved by every rank of the process
+    group together: each DTensor is gathered to its full tensor (a
+    collective), the ranks check that they save the same step
+    (``ValueError`` otherwise), rank 0 writes, and the others wait for
+    the file before they return its path."""
     ckpt_dir = pathlib.Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     leaves, structure = tree_flatten(tree)
+    final = ckpt_dir / f"step-{step:010d}"
+    if any(_is_dtensor(x) for x in leaves):
+        import torch.distributed as dist
+
+        leaves = [x.full_tensor() if _is_dtensor(x) else x for x in leaves]
+        steps = [None] * dist.get_world_size()
+        dist.all_gather_object(steps, step)
+        if len(set(steps)) != 1:
+            raise ValueError(f"the ranks save different steps: {steps}")
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, leaves, structure, meta, keep_last)
+        dist.barrier()
+        return final
+    _write(ckpt_dir, step, leaves, structure, meta, keep_last)
+    return final
+
+
+def _write(ckpt_dir: pathlib.Path, step: int, leaves, structure,
+           meta: dict | None, keep_last: int) -> None:
+    """:func:`save`'s file: header and leaves, atomically renamed."""
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
     parts = [_leaf_to_bytes(x) for x in leaves]
     header = json.dumps({"step": step, "meta": meta or {},
                          "structure": repr(structure),
@@ -80,7 +117,6 @@ def save(ckpt_dir: str | os.PathLike, step: int, tree,
     os.rename(tmp, final)
     _gc(ckpt_dir, keep_last)
     log.info("saved checkpoint %s (%.1f MB)", final.name, n_bytes / 1e6)
-    return final
 
 
 def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
@@ -92,11 +128,39 @@ def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
     return steps[-1] if steps else None
 
 
+def _sharding_entries(template, shardings) -> list:
+    """The entry of ``shardings`` at each leaf of ``template``, in leaf
+    order: ``shardings`` follows the template's dicts, lists and tuples
+    down to the leaves, where each entry is a ``(DeviceMesh, placements)``
+    pair or None (the leaf keeps the template leaf's device)."""
+    out = []
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], None if s is None else s[k])
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, None if s is None else s[i])
+        elif t is not None:
+            out.append(s)
+
+    walk(template, shardings)
+    return out
+
+
 def restore(ckpt_dir: str | os.PathLike, tree_template,
-            step: int | None = None) -> tuple[int, object, dict]:
+            step: int | None = None,
+            shardings=None) -> tuple[int, object, dict]:
     """Load a checkpoint (the latest when ``step`` is None) into the
     structure of ``tree_template``, each leaf on the device of the
-    template's leaf.  -> (step, tree, meta)."""
+    template's leaf.  -> (step, tree, meta).
+
+    ``shardings``: a tree like the template whose entry at each leaf is a
+    ``(DeviceMesh, placements)`` pair, or None for a leaf that keeps the
+    template's device.  A leaf with a pair comes back as a DTensor laid
+    out so on that mesh, which may differ from the mesh it was saved
+    from (every rank of the mesh calls ``restore``)."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
@@ -121,10 +185,27 @@ def restore(ckpt_dir: str | os.PathLike, tree_template,
         raise ValueError(
             f"checkpoint has {len(leaves_raw)} leaves, template expects "
             f"{len(flat_t)} — architecture mismatch")
-    leaves = [x.to(t.device) if isinstance(t, torch.Tensor) else x
-              for x, t in zip(leaves_raw, flat_t)]
+    if shardings is None:
+        places = [None] * len(flat_t)
+    else:
+        places = _sharding_entries(tree_template, shardings)
+    leaves = [_place(x, t, p) for x, t, p in zip(leaves_raw, flat_t,
+                                                 places)]
     log.info("restored checkpoint step %d from %s", step, path.name)
     return step, tree_unflatten(structure, leaves), header["meta"]
+
+
+def _place(x: torch.Tensor, template, placement):
+    """One restored leaf on the template leaf's device, or laid out as a
+    DTensor by its ``(DeviceMesh, placements)``."""
+    if placement is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        mesh, placements = placement
+        return distribute_tensor(x.to(mesh.device_type), mesh,
+                                 list(placements))
+    return x.to(template.device) if isinstance(template, torch.Tensor) \
+        else x
 
 
 def _gc(ckpt_dir: pathlib.Path, keep_last: int) -> None:

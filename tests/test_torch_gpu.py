@@ -834,7 +834,7 @@ def test_cuda_sharded_scheduler_matches_one_shard(backend, S, cls):
     want = _sharded_run(StreamScheduler(spec, weights, thresholds,
                                         device=dev, **kw), clips)
     sched = cls(spec, weights, thresholds, backend=backend,
-                mesh=make_stream_mesh(S), **kw)
+                mesh=make_stream_mesh(S, device=dev), **kw)
     got = _sharded_run(sched, clips)
     if cls is AsyncStreamScheduler:
         sched.shutdown(timeout=60.0)
@@ -850,6 +850,40 @@ def test_cuda_sharded_scheduler_matches_one_shard(backend, S, cls):
     for hops, launched in got[3]:
         assert sum(launched.values()) == S * per * hops
     assert sched.metrics.rebalances >= 1
+
+
+@pytest.mark.parametrize("per_card", (1, 2))
+def test_cuda_pool_over_every_card(per_card):
+    """The slot pool over every visible card, ``per_card`` shards each:
+    every shard's state lies on its own card, and every stream's hops,
+    the peek and the closes equal the 1-shard scheduler's through the
+    skewed leaves and the rebalance between cards."""
+    dev = _cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 cards")
+    from repro_torch.launch.mesh import ShardRows, make_stream_mesh
+    spec = kws.build_kws_spec()
+    weights, thresholds = _model(spec, 6)
+    rng = np.random.default_rng(7)
+    clips = [rng.integers(0, 256, 9000, dtype=np.uint8) for _ in range(16)]
+    kw = dict(capacity=16, hop_frames=8)
+    want = _sharded_run(StreamScheduler(spec, weights, thresholds,
+                                        device=dev, **kw), clips)
+    cards = 1 << (n.bit_length() - 1)
+    mesh = make_stream_mesh(per_card * cards, cards=cards)
+    sched = StreamScheduler(spec, weights, thresholds, mesh=mesh, **kw)
+    got = _sharded_run(sched, clips)
+    for x in (*sched._tails, *sched._pendings, sched._gap):
+        assert isinstance(x, ShardRows) and x.devices == mesh.devices
+    assert sched.metrics.rebalances >= 1
+    for sid, seq in got[0].items():
+        assert [f for f, _ in seq] == [f for f, _ in want[0][sid]]
+        for (_, a), (_, b) in zip(seq, want[0][sid]):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[1], want[1])
+    for sid, lg in got[2].items():
+        np.testing.assert_array_equal(lg, want[2][sid])
 
 
 # ---------------------------------------------------------------------------

@@ -316,6 +316,16 @@ def test_engine_rejects_a_mesh_on_another_device(models):
         engine.Engine(cfg, params, mesh=mesh)
 
 
+def test_engine_refuses_a_mesh_over_several_devices(models):
+    """The LM engine over several devices is queue item A.9d: its MoE
+    dispatch ranks every row of a tick in one order, so its shards could
+    not decode on their own cards."""
+    _, _, cfg, params = models
+    mesh = StreamMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
+    with pytest.raises(NotImplementedError, match="A.9d"):
+        engine.Engine(cfg, params, mesh=mesh)
+
+
 def test_engine_and_launcher_raise_without_a_card(models, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry points would run")

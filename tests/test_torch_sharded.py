@@ -4,11 +4,13 @@ the smoke spec, against the reference's single-device
 ``StreamScheduler(backend="jnp")``.
 
   * the mesh: ``make_stream_mesh``, ``dp_axes``, ``dp_size``, and the
-    refusals (no card, several devices, capacities S does not divide);
-  * the sharded kernel entry points of ``kernels/ops.py``: S launches of
-    the unsharded kernel, one per row block, bit-equal to the unsharded
-    call (which ``tests/test_torch_per_stage.py`` and
-    ``tests/test_torch_megakernel.py`` hold against the reference);
+    refusals (no card, a mesh over several cards has no one device, a
+    mesh mixing cards and the CPU, capacities S does not divide);
+  * the sharded model (``stream.scheduler._ShardedModel``): S launches
+    of each kernel a hop, one per shard on its own rows, bit-equal to the
+    unsharded model (which ``tests/test_torch_per_stage.py`` and
+    ``tests/test_torch_megakernel.py`` hold against the reference), and
+    ``ops.remap_slot_rows`` over shards;
   * one seeded trace (joins that grow the pool, ragged pushes, peeks off
     and on a hop boundary, closes that leave the survivors crowded on
     shard 0, so the next hop barrier migrates them and shrinks the pool)
@@ -39,6 +41,7 @@ from repro.models import kws as ref_kws
 from repro.stream import StreamScheduler as RefScheduler
 from repro_torch.kernels import dispatch, ops
 from repro_torch.launch.mesh import (
+    ShardRows,
     StreamMesh,
     dp_axes,
     dp_size,
@@ -105,9 +108,13 @@ def test_make_stream_mesh_refusals():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_stream_mesh(2)
     two = StreamMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
-    assert dp_size(two) == 2
-    with pytest.raises(NotImplementedError, match="A.9b"):
+    assert dp_size(two) == 2 and two.distinct == two.devices
+    with pytest.raises(ValueError, match="no single device"):
         two.device
+    with pytest.raises(ValueError, match="mixes device types"):
+        StreamMesh((torch.device("cuda", 0), torch.device("cpu")))
+    with pytest.raises(ValueError, match="cards"):
+        make_stream_mesh(2, device="cpu", cards=2)
 
 
 def test_scheduler_takes_the_mesh_device(smoke):
@@ -157,116 +164,113 @@ def _hop_operands(plan, b, seed, pooled=False):
 @pytest.mark.parametrize("S", (2, 4))
 @pytest.mark.parametrize("pooled", (False, True))
 def test_sharded_entry_points_equal_unsharded(smoke, S, pooled):
-    """Each ``*_sharded`` entry point over S shards makes S launches of
-    its kernel and equals the unsharded call bit for bit; the hop writes
-    the state and logits into ``out`` in place.  With no mesh it is the
-    unsharded call itself."""
+    """The sharded model over S shards (``_ShardedModel``, one
+    ``_BatchedModel`` per device run on each shard's own rows) makes S
+    launches of each kernel of a hop and of a finalize, S times the
+    per-shard figure, and equals the unsharded model bit for bit, on every
+    backend, emit and steady; the hop writes each shard's state into its
+    part of ``out`` in place."""
     _, pspec, weights, thresholds = smoke
     plan = plan_stream(pspec, hop_frames=1)
     other = cases.exported(ref_kws.build_kws_smoke_spec(), 7)
     models = [(weights, thresholds)] + ([other] if pooled else [])
-    mk = _model(plan, models, "megakernel")
-    ps = _model(plan, models, "per_stage")
     b = 16
     audio, mask, tails, pendings, gap, midx = _hop_operands(
         plan, b, 3 + S, pooled)
     mesh = _mesh(S)
-    bb = 2 if pooled else None
-    hop_kw = dict(stages=plan.convs, emit=True, fc_raw=mk._fc_raw, bb=bb)
-    hop_args = (audio, mask.to(torch.int32), tails, pendings, gap, mk._kw,
-                mk._thr, mk._kflip, mk._kfc_w, mk._fc_thr, mk._fc_flip,
-                midx)
-    want = ops.hop_megakernel(*hop_args, **hop_kw)
-    for m, n in ((None, 1), (_mesh(1), 1), (mesh, S)):
+    split = lambda x: None if x is None else mesh.split(x)  # noqa: E731
+    args = (audio, mask, tails, pendings, gap, midx)
+    sharded = (split(audio), split(mask), [split(t) for t in tails],
+               [split(p) for p in pendings], split(gap), split(midx))
+    for backend in BACKENDS:
+        one = _model(plan, models, backend)
+        many = _model(plan, models, backend, mesh)
+        for emit in (True, False):
+            want = one.step(*args, emit=emit)
+            with dispatch.counting() as launched:
+                got = many.step(*sharded, emit=emit)
+            assert sum(launched().values()) == \
+                S * one.dispatches_per_hop(emit)
+            _same_state(got, want)
         with dispatch.counting() as launched:
-            got = ops.hop_megakernel_sharded(*hop_args, mesh=m, **hop_kw)
-        assert launched() == {"hop_megakernel": n}
-        _same_state(got, want)
-    out = (tuple(torch.full_like(x, -1) for x in tails),
-           tuple(torch.full_like(x, -1) for x in pendings),
-           torch.full_like(gap, -1))
-    got = ops.hop_megakernel_sharded(*hop_args, mesh=mesh, out=out, **hop_kw)
-    assert all(g is o for g, o in zip(got[0] + got[1] + (got[2],),
-                                      out[0] + out[1] + (out[2],)))
-    _same_state(got, want)
-    fin_args = (tails, pendings, gap, mk._kw, mk._thr, mk._kflip, mk._kfc_w,
-                mk._fc_thr, mk._fc_flip, midx)
-    fin_kw = dict(stages=plan.convs, fc_raw=mk._fc_raw, bb=bb)
+            got = many.finalize(*sharded[2:])
+        assert sum(launched().values()) == S * one.dispatches_per_finalize()
+        _same_state(got, one.finalize(*args[2:]))
+    out = ([t.map(lambda x: torch.full_like(x, -1)) for t in sharded[2]],
+           [p.map(lambda x: torch.full_like(x, -1)) for p in sharded[3]],
+           sharded[4].map(lambda x: torch.full_like(x, -1)))
+    many = _model(plan, models, "megakernel", mesh)
     with dispatch.counting() as launched:
-        got = ops.finalize_megakernel_sharded(*fin_args, mesh=mesh, **fin_kw)
-    assert launched() == {"finalize_megakernel": S}
-    assert torch.equal(got, ops.finalize_megakernel(*fin_args, **fin_kw))
-    # the per-stage kernels at a hop's windows
-    for i, st in enumerate(plan.convs):
-        window = torch.cat([tails[i], torch.as_tensor(np.random.default_rng(
-            i).integers(0, 2 if st.in_bits == 1 else 256,
-                        (b, st.n_in, st.cin), dtype=np.int32))], 1)
-        if st.in_bits > 1:
-            fn, kw = ops.bitserial_conv1d_batched_sharded, dict(
-                bits=st.in_bits, offset=st.in_offset, stride=st.stride)
-            args = (window, ps._cw[i], midx)
-            plain = ops.bitserial_conv1d_batched
-        else:
-            fn, kw = ops.bnn_conv1d_batched_sharded, dict(
-                stride=st.stride, mode="raw")
-            args = (window, ps._cw[i], None, None, midx)
-            plain = ops.bnn_conv1d_batched
-        with dispatch.counting() as launched:
-            got = fn(*args, mesh=mesh, bb=bb, **kw)
-        assert sum(launched().values()) == S
-        assert torch.equal(got, plain(*args, bb=bb, **kw))
-    tail_args = (gap, ps._kfc_w, ps._fc_thr, ps._fc_flip, midx)
-    with dispatch.counting() as launched:
-        got = ops.classifier_tail_sharded(*tail_args, mesh=mesh,
-                                          out_raw=ps._fc_raw, bb=bb)
-    assert launched() == {"classifier_tail": S}
-    assert torch.equal(got, ops.classifier_tail(*tail_args,
-                                                out_raw=ps._fc_raw, bb=bb))
+        got = many.step(*sharded, emit=True, out=out)
+    assert launched() == {"hop_megakernel": S}
+    for g, o in zip([*got[0], *got[1], got[2]], [*out[0], *out[1], out[2]]):
+        if o.shape[1]:   # zero-width state never enters the kernel
+            assert all(x is y for x, y in zip(g.parts, o.parts))
+    _same_state(got, _model(plan, models, "megakernel").step(*args,
+                                                              emit=True))
 
 
 def test_sharded_entry_points_refuse_ragged_batches(smoke):
-    _, pspec, weights, thresholds = smoke
+    """A batch S does not divide is refused where it is split into the
+    shards' rows."""
+    _, pspec, _, _ = smoke
     plan = plan_stream(pspec, hop_frames=1)
-    ps = _model(plan, [(weights, thresholds)], "per_stage")
-    gap = torch.zeros((6, plan.gap_channels), dtype=torch.int32)
     with pytest.raises(ValueError, match="4 shards"):
-        ops.classifier_tail_sharded(gap, ps._kfc_w, ps._fc_thr, ps._fc_flip,
-                                    mesh=_mesh(4), out_raw=ps._fc_raw)
+        _mesh(4).split(torch.zeros((6, plan.gap_channels)))
+    with pytest.raises(ValueError, match="4 shards"):
+        _mesh(4).zeros((6, plan.gap_channels))
 
 
 def test_remap_slot_rows(smoke):
     """``remap_slot_rows`` is the reference's device half of a migration:
-    ``out[i] = x[perm[i]]`` where ``keep[i]``, else zero rows."""
+    ``out[i] = x[perm[i]]`` where ``keep[i]``, else zero rows; over shards
+    each destination shard's rows are built as its own tensor, the rows
+    that cross shards included."""
     x = torch.arange(24, dtype=torch.int32).reshape(6, 2, 2)
     perm = np.array([3, 1, 2, 0, 4, 5])
     keep = np.array([True, True, False, True, False, True])
-    got = ops.remap_slot_rows(x, perm, keep, mesh=_mesh(2))
     want = x[torch.as_tensor(perm)] * torch.as_tensor(keep)[:, None, None]
-    assert torch.equal(got, want)
+    assert torch.equal(ops.remap_slot_rows(x, perm, keep), want)
+    xs = _mesh(2).split(x)
+    got = ops.remap_slot_rows(xs, perm, keep)
+    assert isinstance(got, ShardRows) and len(got.parts) == 2
+    assert torch.equal(got.cpu(), want)
+    assert all(g.data_ptr() != p.data_ptr()
+               for g in got.parts for p in xs.parts)
 
 
-def _model(plan, models, backend):
-    """A ``_BatchedModel`` of one model, or of a pool of the given ones."""
+def _model(plan, models, backend, mesh=None):
+    """A ``_BatchedModel`` of one model, or of a pool of the given ones
+    (tenant blocks of 2); over ``mesh``'s shards a ``_ShardedModel``."""
     from repro_torch.stream.scheduler import (
         _BatchedModel,
+        _ShardedModel,
         prepared_model_params,
     )
     params = [prepared_model_params(plan, w, t, "cpu") for w, t in models]
-    if len(models) == 1:
-        return _BatchedModel(plan, backend, params[0])
-    m = _BatchedModel(plan, backend, params[0], pool_size=len(models),
-                      tenant_block=2)
+    pool = dict(pool_size=len(models), tenant_block=2) \
+        if len(models) > 1 else {}
+    if mesh is None:
+        m = _BatchedModel(plan, backend, params[0], **pool)
+    else:
+        m = _ShardedModel(plan, backend, lambda d: params[0], mesh, **pool)
     for row, p in enumerate(params[1:], 1):
-        m.set_model_row(row, p)
+        m.set_model_row(row, p if mesh is None else lambda d, p=p: p)
     return m
 
 
 def _same_state(got, want):
-    for g, w in zip(got[0] + got[1], want[0] + want[1]):
-        assert torch.equal(g, w)
-    assert torch.equal(got[2], want[2])
-    if len(want) > 3:
-        assert torch.equal(got[3], want[3])
+    """Equal hop (or finalize) results, leaf by leaf; a sharded result's
+    ``ShardRows`` are read in pool order."""
+    def flat(r):
+        if isinstance(r, (tuple, list)):
+            return [x for part in r for x in flat(part)]
+        return [r]
+
+    got, want = flat(got), flat(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 # ---------------------------------------------------------------------------
@@ -367,8 +371,21 @@ def _sorted_hops(hops):
     return out
 
 
+def record(trace: Trace):
+    """What ``same_trace`` compares of a run, as numpy and plain python:
+    the hops sorted by sid, the peeks and the closes."""
+    return _sorted_hops(trace.hops), trace.peeks, trace.closes
+
+
 def same_trace(got: Trace, want: Trace, exact_post: bool) -> None:
-    a, b = _sorted_hops(got.hops), _sorted_hops(want.hops)
+    same_record(record(got), record(want), exact_post)
+
+
+def same_record(got, want, exact_post: bool) -> None:
+    """Two runs' :func:`record` equal: sids, frames, logits and detections
+    bit-equal, posteriors too with ``exact_post``, else within
+    ``atol=1e-6, rtol=1e-5``; peeks and closes bit-equal."""
+    (a, got_peeks, got_closes), (b, want_peeks, want_closes) = got, want
     assert len(a) == len(b), "hop counts differ"
     for (s1, f1, l1, p1, d1), (s2, f2, l2, p2, d2) in zip(a, b):
         np.testing.assert_array_equal(s1, s2)
@@ -382,11 +399,11 @@ def same_trace(got: Trace, want: Trace, exact_post: bool) -> None:
             else:
                 np.testing.assert_allclose(p1, p2, atol=1e-6, rtol=1e-5)
         assert d1 == d2
-    assert [s for s, _ in got.peeks] == [s for s, _ in want.peeks]
-    for (_, x), (_, y) in zip(got.peeks, want.peeks):
+    assert [s for s, _ in got_peeks] == [s for s, _ in want_peeks]
+    for (_, x), (_, y) in zip(got_peeks, want_peeks):
         np.testing.assert_array_equal(x, y)
-    assert len(got.closes) == len(want.closes)
-    for (s1, l1, *r1), (s2, l2, *r2) in zip(got.closes, want.closes):
+    assert len(got_closes) == len(want_closes)
+    for (s1, l1, *r1), (s2, l2, *r2) in zip(got_closes, want_closes):
         assert s1 == s2 and r1 == r2
         np.testing.assert_array_equal(l1, l2)
 
@@ -405,10 +422,15 @@ def reference(smoke):
     return runs
 
 
-def _port_trace(smoke, S, backend, cls=StreamScheduler, emit=True, **kw):
+def _port_trace(smoke, S, backend, cls=StreamScheduler, emit=True,
+                watch=None, **kw):
+    """The trace through the port over S shards; ``watch(sched)`` is
+    called on the scheduler before the trace runs."""
     sched = _port(smoke, S, backend, cls=cls, capacity=CAP,
                   initial_capacity=2 * S, min_capacity=S, emit_logits=emit,
                   **kw)
+    if watch is not None:
+        watch(sched)
     trace = Trace(sched).run()
     _check_launches(trace, S, emit)
     if S > 1:

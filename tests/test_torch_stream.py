@@ -46,17 +46,20 @@ def test_default_device_is_cuda(smoke):
             PortScheduler(cases.port_spec(spec), weights, thresholds)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    # a slot pool over two cards: the shards of a mesh are row blocks of
-    # one device (tests/test_torch_sharded.py)
-    ({"mesh": StreamMesh((torch.device("cuda", 0),
-                          torch.device("cuda", 1)))}, "A.9b"),
-])
-def test_unported_features_raise(smoke, kwargs, item):
+def test_mesh_over_cards_takes_shard0_device(smoke):
+    """A mesh whose shards lie on two cards is taken, no longer refused
+    (``tests/test_torch_multi_device.py`` runs the per-shard pool): the
+    scheduler's device is shard 0's, so the CPU asked for beside it is a
+    mismatch, and without a card the mesh raises the card error."""
     spec, weights, thresholds = smoke
-    with pytest.raises(NotImplementedError, match=item):
+    two = StreamMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
+    with pytest.raises(ValueError, match="mesh's device"):
         PortScheduler(cases.port_spec(spec), weights, thresholds,
-                      device="cpu", **kwargs)
+                      device="cpu", mesh=two)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PortScheduler(cases.port_spec(spec), weights, thresholds,
+                          mesh=two)
 
 
 def test_pallas_backend_name_points_to_per_stage(smoke):
