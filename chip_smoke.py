@@ -7,6 +7,7 @@ training on one CUDA card.
     python3 chip_smoke.py --phase cards   # build, the 1-shard drive and
                                           # phase 9b only (a multi-card
                                           # machine's run)
+    python3 chip_smoke.py --phase lm_cards  # phase 13b only
 
 Phases (each prints one line, any failure exits non-zero):
 
@@ -249,6 +250,36 @@ Phases (each prints one line, any failure exits non-zero):
               Jamba's width (d_model 8192), the prefill against
               token-by-token steps and the CPU.  No reference kernel is
               launched.
+13b. lm_cards — the LM engine over several devices
+              (``serve.engine.Engine(mesh=make_stream_mesh(S))``):
+              Qwen3-0.6B and DeepSeek-MoE-16B whole (``api.init_params``
+              on ``cuda:0`` from a generator seeded ``--seed``; the
+              engine copies the params once to each other card), with n
+              >= 2 cards (the largest power of two <= n) at S = n, one
+              shard a card, and for Qwen3 also S = 2n; with one card at
+              S = 2 and 4 shards of ``cuda:0`` and a line saying that it
+              spanned 1 card.  ``lc_slots(S)`` slots, ``LC_REQUESTS``
+              requests (one a slot past that) of ``LC_PROMPT`` tokens,
+              ``max_new`` alternating ``LC_NEW``, ``max_seq``
+              ``LC_MAX_SEQ``, sync and async (the async dispatch and
+              sampling under sync debug mode ``"error"``).  Each tick is
+              held to one ``decode_step`` over every row concatenated in
+              pool order on ``cuda:0`` (logits within ``LM_RTOL`` /
+              ``LM_ATOL``, tokens equal but at a near tie, the routing
+              held to the tick's own at near ties by ``RouterPin``);
+              Qwen3's tokens, sync and async, also equal its unsharded
+              sync engine's at the same slots request by request
+              (``lc_same_requests``); a rebalance moves a live
+              request (between cards at S = n over several); after every
+              resize and rebalance and at the end each shard's cache
+              parts and feedback token lie on its device in storage of
+              their own, the clock has a copy a device and each device
+              one params copy.  Printed with the card: the tick p50 and
+              tokens/s of a drive of one request a slot, sync and async,
+              the MoE gathers between devices a tick and the profiler's
+              copies, the devices' busy ms, kernels and idle share of
+              ``LC_PROFILED`` profiled sync ticks, each card's peak
+              allocation.  The kernel counts stay 0 over the phase.
 14. lm_train — LM training (``api.loss_fn``, ``train.loop.Trainer``,
               ``data.lm_data``).  Qwen3-0.6B at its published width and
               depth (``api.init_params`` on the card from a generator
@@ -326,6 +357,7 @@ import collections
 import contextlib
 import cProfile
 import dataclasses
+import gc
 import json
 import pstats
 import subprocess
@@ -3303,12 +3335,17 @@ class RouterPin:
         finally:
             self.moe.route = own
 
-    def record(self):
+    def record(self, on_device: bool = False):
+        """``on_device``: keep the record on the device (no host sync,
+        as under sync debug mode ``"error"``)."""
+        def keep(t):
+            return t.detach().clone() if on_device else t.detach().cpu()
+
         def route(own):
             def recorded(p, x, top_k):
                 out = own(p, x, top_k)
-                self.calls.append((out[1].cpu(), self.probs(
-                    self.torch, p, x).detach().cpu()))
+                self.calls.append((keep(out[1]),
+                                   keep(self.probs(self.torch, p, x))))
                 return out
             return recorded
         return self._routed_by(route)
@@ -3365,22 +3402,15 @@ def lmf_ticks(engine, cfg, params, seed, torch, asyn, requests, slots,
     feeds, logits rows)."""
     eng = engine.Engine(cfg, params, batch_slots=slots, max_seq=max_seq)
     feeds, rows = [], []
-    decode, prefill = eng._decode, eng._prefill_one
+    decode = eng._decode
 
-    def traced(p, state, last):
+    def traced(p, state, last):    # the ticks only: a prefill has its own
         logits, state = decode(p, state, last)
         feeds.append(last.cpu().ravel().tolist())
         rows.append(logits[:, -1].float().cpu())
         return logits, state
 
-    def untraced(prompt_):
-        eng._decode = decode
-        try:
-            return prefill(prompt_)
-        finally:
-            eng._decode = traced
-
-    eng._decode, eng._prefill_one = traced, untraced
+    eng._decode = traced
     rng = np.random.default_rng(seed)
     for i in range(requests):
         eng.submit(engine.Request(
@@ -3962,6 +3992,413 @@ def lm_families_phase(seed, dev, torch, dispatch, card):
                                           for k, v in split.items())
           + f"); {card}")
     rec.update(phase_s=phase_s, phase_split_s=split, card=card)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 13b: the LM engine over several devices
+# ---------------------------------------------------------------------------
+
+#: the checked drives: at least ``LC_REQUESTS`` requests (one a slot past
+#: that) of ``LC_PROMPT`` tokens, ``max_new`` alternating ``LC_NEW`` (the
+#: short requests leave their shards empty, so the pool rebalances)
+LC_REQUESTS, LC_PROMPT, LC_NEW, LC_MAX_SEQ = 8, 16, (2, 8), 64
+#: the timed drives: one request a slot, prompt and new tokens
+LC_TIMED_PROMPT, LC_TIMED_NEW = 2, 12
+#: sync ticks traced by ``torch.profiler`` a mesh
+LC_PROFILED = 3
+
+
+def lc_check(ok, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"lm_cards: {msg}")
+
+
+def lc_slots(S: int) -> int:
+    """Slots of an S-shard pool: 4, and 2 a shard past 2 shards (only a
+    shard of 2 slots can be left 2 below another, which a rebalance
+    needs)."""
+    return max(4, 2 * S)
+
+
+def lc_meshes(torch) -> tuple[int, dict]:
+    """-> (cards spanned, the shard counts of each model): S = n and 2n
+    over the n >= 2 cards (the largest power of two present; 2n for
+    Qwen3 only), else 2 and 4 shards of ``cuda:0``."""
+    n = torch.cuda.device_count()
+    cards = 1 << (n.bit_length() - 1)
+    if cards > 1:
+        return cards, {LM_ARCH: (cards, 2 * cards), LMF_MOE: (cards,)}
+    return 1, {LM_ARCH: (2, 4), LMF_MOE: (2, 4)}
+
+
+@contextlib.contextmanager
+def lc_strict(torch, on: bool):
+    """Sync debug mode ``"error"`` for the block when ``on``: a host sync
+    in it raises."""
+    if on:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if on:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def lc_placement(label, eng, ShardRows, Replicated, tree_map) -> None:
+    """Each slot leaf of the cache and the feedback token a ``ShardRows``
+    whose part ``s`` lies on ``mesh.devices[s]`` in storage of its own;
+    the clock a copy on each distinct device; one params copy a distinct
+    device, each shard stepping with its device's."""
+    mesh = eng.mesh
+    leaves = []
+    tree_map(leaves.append, eng.device_state())
+    seen = set()
+    for leaf in leaves:
+        if leaf is None or isinstance(leaf, Replicated):
+            continue
+        lc_check(isinstance(leaf, ShardRows) and leaf.devices == mesh.devices,
+                 f"{label}: a state leaf off its shards' devices: {leaf!r}")
+        for p in leaf.parts:
+            ptr = p.untyped_storage().data_ptr()
+            lc_check(ptr not in seen, f"{label}: two parts share storage")
+            seen.add(ptr)
+    clock = eng.state["cache_len"]
+    lc_check(isinstance(clock, Replicated) and list(clock.copies)
+             == list(mesh.distinct) and all(
+                 t.device == d for d, t in clock.copies.items()),
+             f"{label}: the clock is not one copy a device: {clock!r}")
+    lc_check(list(eng._params_on) == list(mesh.distinct) and all(
+        p["embed"].device == d for d, p in eng._params_on.items()) and all(
+        p is eng._params_on[d] for p, d in zip(eng._tick_params,
+                                                mesh.devices)),
+        f"{label}: not one params copy a distinct device")
+
+
+def lc_engine(engine, cfg, params, slots, mesh=None):
+    """A new engine, the ones before it collected first: an engine holds
+    reference cycles (its pool, its in-flight queue), so only the
+    collector frees the params copies it made on the other cards."""
+    gc.collect()
+    return engine.Engine(cfg, params, batch_slots=slots, max_seq=LC_MAX_SEQ,
+                         mesh=mesh)
+
+
+def lc_requests(engine, eng, cfg, rng, n, prompt, new) -> None:
+    for i in range(n):
+        eng.submit(engine.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, prompt).astype(
+                np.int32), max_new_tokens=new[i % len(new)]))
+
+
+def lc_baseline(engine, cfg, params, seed, torch, slots):
+    """The unsharded engine's checked drive, sync -> (tokens by rid,
+    logits by rid: the prefill's, then each tick's row while the request
+    is live, as ``tests/test_torch_serve.py`` records the
+    reference's)."""
+    eng = lc_engine(engine, cfg, params, slots)
+    rows: dict = collections.defaultdict(list)
+    prefills: list = []
+    decode, prefill = eng._decode, eng._prefill_one
+
+    def traced(p, state, toks):
+        out, state = decode(p, state, toks)
+        host = out[:, -1, :cfg.vocab].float().cpu()
+        for slot, req in enumerate(eng.slot_req):
+            if req is not None:
+                rows[req.rid].append(host[slot])
+        return out, state
+
+    def traced_prefill(*args):
+        st1, lg = prefill(*args)
+        prefills.append(lg[:cfg.vocab].float().cpu())
+        return st1, lg
+
+    eng._decode, eng._prefill_one = traced, traced_prefill
+    lc_requests(engine, eng, cfg, np.random.default_rng(seed),
+                max(LC_REQUESTS, slots), LC_PROMPT, LC_NEW)
+    with torch.no_grad():
+        done = eng.run_until_drained()
+    fills = [e["rid"] for e in eng.obs.events.tail()
+             if e["event"] == "lm_slot_fill"]
+    return ({r.rid: list(r.out_tokens) for r in done},
+            {rid: [first] + rows[rid] for rid, first in zip(fills, prefills)})
+
+
+def lc_same_requests(label, tokens, base) -> int:
+    """Each request's tokens equal the unsharded drive's, or at the first
+    that differs the unsharded logits' near tie (``LM_ATOL``); a dense
+    model's rows never meet, so the requests are compared one by one ->
+    the near ties met."""
+    want, logits = base
+    lc_check(tokens.keys() == want.keys(), f"{label}: other requests")
+    ties = 0
+    for rid, w in want.items():
+        for j, (a, b) in enumerate(zip(w, tokens[rid])):
+            if a != b:
+                row = logits[rid][j]
+                margin = float(row[a] - row[b])
+                lc_check(int(row.argmax()) == a and margin <= LM_ATOL,
+                         f"{label}: request {rid} token {j} is {b}, the "
+                         f"unsharded engine's {a} by {margin}")
+                ties += 1
+                break
+    return ties
+
+
+def lc_checked(label, engine, cfg, params, mesh, seed, torch, asyn, mods):
+    """The S-shard engine's checked drive: each tick (its dispatch, async,
+    under sync debug mode ``"error"``) held to one ``decode_step`` over
+    every row concatenated in pool order on ``cuda:0``, the routing held
+    to the tick's own at near ties (``RouterPin``); the placement checked
+    after every resize and rebalance and at the end; the rebalances'
+    moves recorded -> record, (tokens, feeds, rows)."""
+    api, moe, ShardRows, Replicated, tree_map = mods
+    slots = lc_slots(len(mesh.devices))
+    eng = lc_engine(engine, cfg, params, slots, mesh)
+    dev0, k = mesh.devices[0], len(mesh.distinct)
+    params0, oracle = eng._params_on[dev0], api.decode_fn(cfg)
+    decode, sample = eng._decode, eng._sample
+    feeds, rows, moves = [], [], []
+    st = collections.Counter(worst=0.0, err=0.0)
+
+    def checked(p, state, tokens):
+        # the oracle's inputs, before the tick writes the state in place
+        whole = engine._unflat(tree_map(
+            lambda a, ax: a.on(dev0).clone() if ax < 0
+            else torch.cat([x.to(dev0) for x in a.parts], ax),
+            engine._flat(state), eng._cache_axes), state)
+        toks0 = torch.cat([t.to(dev0) for t in tokens.parts])
+        pin = RouterPin(moe, torch)
+        with lc_strict(torch, asyn), pin.record(on_device=True):
+            logits, state = decode(p, state, tokens)
+        with pin.hold(lambda i: pin.calls[i * k]):
+            want, _ = oracle(params0, whole, toks0)
+        got = torch.cat([lg.to(dev0) for lg in logits.parts])
+        got = got[:, -1, :cfg.vocab].float().cpu()
+        want = want[:, -1, :cfg.vocab].float().cpu()
+        err = float((got - want).abs().max())
+        lc_check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, rtol=LM_RTOL, atol=LM_ATOL),
+            f"{label}: tick {len(rows)} differs from one decode_step over "
+            f"the rows by up to {err}")
+        top2 = torch.topk(want, 2, dim=-1).values
+        for row in torch.nonzero(got.argmax(-1) != want.argmax(-1))[:, 0]:
+            margin = float(top2[row, 0] - top2[row, 1])
+            lc_check(margin <= LM_ATOL, f"{label}: tick {len(rows)} row "
+                     f"{int(row)} token differs, the margin {margin}")
+            st["ties"] += 1
+        st["held"] += pin.held
+        st["worst"] = max(st["worst"], pin.worst)
+        st["err"] = max(st["err"], err)
+        feeds.append(toks0.cpu().ravel().tolist())
+        rows.append(got)
+        return logits, state
+
+    def strict_sample(logits):
+        with lc_strict(torch, asyn):
+            return sample(logits)
+
+    install = eng.set_device_state
+
+    def set_device_state(state):
+        install(state)
+        lc_placement(f"{label} remap", eng, ShardRows, Replicated, tree_map)
+        st["remaps"] += 1
+
+    plan = eng._slots.placement.rebalance
+
+    def rebalance():
+        out = plan()
+        sc = eng._slots.placement.shard_capacity
+        moves.extend((src // sc, dst // sc) for dst, src in out[0])
+        return out
+
+    eng._decode, eng._sample = checked, strict_sample
+    eng.set_device_state = set_device_state
+    eng._slots.placement.rebalance = rebalance
+    lc_requests(engine, eng, cfg, np.random.default_rng(seed),
+                max(LC_REQUESTS, slots), LC_PROMPT, LC_NEW)
+    with torch.no_grad():
+        done = (eng.run_until_drained_async() if asyn
+                else eng.run_until_drained())
+    lc_placement(f"{label} end", eng, ShardRows, Replicated, tree_map)
+    tokens = {r.rid: list(r.out_tokens) for r in done}
+    lc_check(sorted(tokens) == list(range(max(LC_REQUESTS, slots))) and all(
+        0 <= t < cfg.vocab for v in tokens.values() for t in v),
+        f"{label}: a request went unserved or got a token outside the "
+        "vocab")
+    across = sum(mesh.devices[a] != mesh.devices[b] for a, b in moves)
+    lc_check(moves, f"{label}: no rebalance moved a live request")
+    return dict(label=label, ticks=len(rows), slots=slots,
+                near_ties=st["ties"], router_rows_held=st["held"],
+                router_prob_max_abs_err=st["worst"],
+                oracle_max_abs_err=st["err"], remaps=st["remaps"],
+                moves=moves, moves_across_cards=across,
+                clock=int(eng.state["cache_len"])), (tokens, feeds, rows)
+
+
+def lc_timed(engine, cfg, params, mesh, seed, torch, asyn):
+    """One request a slot (``LC_TIMED_PROMPT`` + ``LC_TIMED_NEW`` tokens)
+    -> (tick p50 ms, tokens/s)."""
+    slots = lc_slots(len(mesh.devices))
+    eng = lc_engine(engine, cfg, params, slots, mesh)
+    lc_requests(engine, eng, cfg, np.random.default_rng(seed + 1), slots,
+                LC_TIMED_PROMPT, (LC_TIMED_NEW,))
+    with torch.no_grad():
+        for d in mesh.distinct:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        (eng.run_until_drained_async() if asyn else eng.run_until_drained())
+        wall = time.perf_counter() - t0
+    tick = eng.obs.registry.histogram("serve.decode_tick_s").quantile(0.5)
+    return tick * 1e3, slots * LC_TIMED_NEW / wall
+
+
+def lc_profile(engine, cfg, params, mesh, seed, torch):
+    """``LC_PROFILED`` sync ticks at every slot live under
+    ``torch.profiler`` (the devices' activity) -> (busy ms a tick summed
+    over the devices, kernels a tick, the copies a tick by kind)."""
+    slots = lc_slots(len(mesh.devices))
+    eng = lc_engine(engine, cfg, params, slots, mesh)
+    lc_requests(engine, eng, cfg, np.random.default_rng(seed + 2), slots, 2,
+                (LC_PROFILED + 3,))
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        eng.step()
+        eng.step()
+        for d in mesh.distinct:
+            torch.cuda.synchronize(d)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(LC_PROFILED):
+                eng.step()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 / LC_PROFILED
+    kernels = sum(e.count for e in evs) / LC_PROFILED
+    copies = {e.key: e.count / LC_PROFILED for e in evs
+              if "memcpy" in e.key.lower()}
+    return busy, kernels, copies
+
+
+def lm_cards_phase(seed, torch, dispatch, card):
+    """Phase 13b: ``Engine(mesh=)`` over every card (``lc_meshes``), or
+    over shards of ``cuda:0`` with one: Qwen3-0.6B and DeepSeek-MoE-16B
+    whole, from generators seeded ``seed``.  Each S's checked drives
+    (``lc_checked``), sync and async, held tick by tick to one
+    ``decode_step`` over the rows on ``cuda:0``; Qwen3's also to its
+    unsharded sync drive at the same slots (``lc_same_requests``).
+    Printed with the card: the tick p50 sync and async, tokens/s, the
+    copies between devices a tick, the devices' busy ms and idle share
+    of profiled ticks and each card's peak allocation.  Returns the
+    record."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import Replicated, ShardRows, make_stream_mesh
+    from repro_torch.models import api, moe, stack
+    from repro_torch.runtime.pool import tree_map
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    cards, shards = lc_meshes(torch)
+    phase("lm_cards", f"{n} card(s) visible ({'; '.join(card_lines())}); "
+          f"the engine spans {cards} card(s): " + "; ".join(
+              f"{a} at S = {', '.join(map(str, s))}"
+              for a, s in shards.items())
+          + ("" if cards > 1 else " shards of cuda:0 (one card: the "
+             "per-shard code without the copies between cards)"))
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats(i)
+    dispatch.reset()
+    dev = torch.device("cuda", 0)
+    mods = (api, moe, ShardRows, Replicated, tree_map)
+    rec = {"cards": cards, "visible": n, "runs": []}
+    for arch, counts in shards.items():
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch)
+        params = api.init_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
+        n_moe = stack.n_repeats(cfg) * sum(
+            1 for _, f in stack.block_structure(cfg) if f == "moe")
+        base = {}
+        for S in counts:
+            mesh = (make_stream_mesh(S, cards=cards) if cards > 1
+                    else make_stream_mesh(S, device="cuda:0"))
+            slots = lc_slots(S)
+            r = dict(arch=arch, shards=S, cards=cards, slots=slots,
+                     devices=[str(d) for d in mesh.devices])
+            for mode, asyn in (("sync", False), ("async", True)):
+                label = f"{arch} S={S} {mode} over {cards} card(s)"
+                r[mode], got = lc_checked(label, engine, cfg, params, mesh,
+                                          seed, torch, asyn, mods)
+                if arch == LM_ARCH:
+                    # a dense model's rows never meet: either mode's
+                    # tokens are the unsharded sync drive's
+                    if slots not in base:
+                        base[slots] = lc_baseline(engine, cfg, params, seed,
+                                                  torch, slots)
+                    r[mode]["ties_vs_one_shard"] = lc_same_requests(
+                        label, got[0], base[slots])
+                if cards > 1 and S == cards:
+                    lc_check(r[mode]["moves_across_cards"] > 0,
+                             f"{label}: no rebalance moved rows between "
+                             "cards")
+                tick, tok_s = lc_timed(engine, cfg, params, mesh, seed,
+                                       torch, asyn)
+                r[mode].update(tick_ms_p50=tick, tokens_per_s=tok_s)
+            busy, kernels, copies = lc_profile(engine, cfg, params, mesh,
+                                               seed, torch)
+            per_dev = collections.Counter(mesh.devices)
+            r.update(device_busy_ms_per_tick=busy, kernels_per_tick=kernels,
+                     idle_share=1 - busy / (r["sync"]["tick_ms_p50"]
+                                            * len(mesh.distinct))
+                     if busy else None,
+                     profiled_copies_per_tick=copies,
+                     gathers_per_tick=n_moe * sum(
+                         S - per_dev[d] for d in mesh.distinct))
+            rec["runs"].append(r)
+            idle = r["idle_share"]
+            phase("lm_cards", f"{arch} S={S} over {cards} card(s), {slots} "
+                  f"slots: every tick == one decode_step over the rows on "
+                  f"cuda:0 (max |dlogit| sync "
+                  f"{r['sync']['oracle_max_abs_err']:.4f}, async "
+                  f"{r['async']['oracle_max_abs_err']:.4f}; near ties "
+                  f"{r['sync']['near_ties']} / {r['async']['near_ties']}; "
+                  f"router rows held {r['sync']['router_rows_held']} / "
+                  f"{r['async']['router_rows_held']})"
+                  + (f"; tokens == the unsharded engine's ("
+                     f"{r['sync'].get('ties_vs_one_shard')} / "
+                     f"{r['async'].get('ties_vs_one_shard')} near ties)"
+                     if arch == LM_ARCH else "")
+                  + f"; rebalance moves {r['sync']['moves']} "
+                  f"({r['sync']['moves_across_cards']} across cards), "
+                  f"placement held at {r['sync']['remaps']} remaps; tick "
+                  f"p50 {r['sync']['tick_ms_p50']:.3f} ms sync, "
+                  f"{r['async']['tick_ms_p50']:.3f} ms async; tokens/s "
+                  f"{r['sync']['tokens_per_s']:.1f} sync, "
+                  f"{r['async']['tokens_per_s']:.1f} async; "
+                  f"{r['gathers_per_tick']} copies between devices a tick "
+                  f"(MoE gathers; profiler: {copies}); profiler over "
+                  f"{LC_PROFILED} sync ticks: devices busy {busy:.3f} ms "
+                  f"and {kernels:.0f} kernels a tick, "
+                  + (f"idle {idle:.3f} of the sync p50 tick x "
+                     f"{len(mesh.distinct)} device(s)" if idle is not None
+                     else "idle not measured: no device time in the trace")
+                  + f"; {card}")
+        del params, base
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec[f"{arch}_s"] = time.perf_counter() - t_arch
+    lc_check(not dispatch.counts(), f"the LM path launched a reference "
+             f"kernel: {dispatch.counts()}")
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
+    rec.update(peak_allocated_bytes=peaks, card=card,
+               phase_s=time.perf_counter() - t_phase)
+    phase("lm_cards", "no reference kernel launched; peak allocated "
+          + ", ".join(f"cuda:{i} {b / 1e9:.3f} GB" for i, b in
+                      enumerate(peaks))
+          + f"; phase took {rec['phase_s']:.1f} s; {card}")
     return rec
 
 
@@ -4696,9 +5133,11 @@ def cards_only(seed: int, card: str, torch) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=("all", "cards"), default="all",
+    ap.add_argument("--phase", choices=("all", "cards", "lm_cards"),
+                    default="all",
                     help="cards: the build, the 1-shard drive and phase "
-                    "9b only")
+                    "9b only; lm_cards: phase 13b only (it builds no "
+                    "kernel: the LM path launches none)")
     args = ap.parse_args()
 
     import torch
@@ -4731,6 +5170,18 @@ def main() -> int:
     phase("device", f"{torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}; nvidia-smi: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
+
+    if args.phase == "lm_cards":
+        rec = lm_cards_phase(args.seed, torch, dispatch, card)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_lm_cards.json").write_text(json.dumps(
+            rec, indent=1))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -5233,6 +5684,8 @@ def main() -> int:
     # 12. LM serving: Qwen3-0.6B through the continuous-batching engine
     lm_rec = lm_serve_phase(args.seed, dev, torch, dispatch, card)
     lmf_rec = lm_families_phase(args.seed, dev, torch, dispatch, card)
+    # 13b. the LM engine over every card (or shards of one)
+    lc_rec = lm_cards_phase(args.seed, torch, dispatch, card)
     # 14. LM training: Qwen3-0.6B whole, DeepSeek-MoE cut, every family
     lt_rec = lm_train_phase(args.seed, dev, torch, dispatch, card, lmf_rec)
     # 15. the launch tools: dry-run cells, the anchor, the benches
@@ -5313,7 +5766,8 @@ def main() -> int:
                   async_path=async_rec, tenants=tenant_rec,
                   sharded=shard_rec, cards=cards_rec, chip_twin=twin_rec,
                   train=train_rec,
-                  lm_serve=lm_rec, lm_families=lmf_rec, lm_train=lt_rec,
+                  lm_serve=lm_rec, lm_families=lmf_rec, lm_cards=lc_rec,
+                  lm_train=lt_rec,
                   dryrun=dr_rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

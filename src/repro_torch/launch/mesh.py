@@ -19,7 +19,9 @@ shard ``s``'s rows of every batched tensor in a tensor of their own on
 ``devices[s]`` (:class:`ShardRows`), whether the shards share one device
 or each has a card: the scheduler makes one launch of each kernel per
 shard on its rows, with a copy of the weights on each distinct device,
-as the reference's ``shard_map`` makes one per device.
+as the reference's ``shard_map`` makes one per device.  A value every
+shard reads alike (the LM engine's shared position clock) is a
+:class:`Replicated`: one copy on each distinct device.
 """
 from __future__ import annotations
 
@@ -30,9 +32,9 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["ShardRows", "StreamMesh", "canonical_device", "dp_axes",
-           "dp_size", "fake_world", "make_host_mesh", "make_mesh",
-           "make_production_mesh", "make_stream_mesh"]
+__all__ = ["Replicated", "ShardRows", "StreamMesh", "canonical_device",
+           "current", "dp_axes", "dp_size", "fake_world", "make_host_mesh",
+           "make_mesh", "make_production_mesh", "make_stream_mesh"]
 
 
 @contextlib.contextmanager
@@ -109,6 +111,15 @@ def canonical_device(device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def current(device: torch.device):
+    """A context with ``device`` current (nothing to set for the CPU):
+    a shard's ops on a card other than the current one then switch no
+    device each."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,8 +222,20 @@ class ShardRows:
         return ShardRows(fn(p) for p in self.parts)
 
     def cpu(self) -> torch.Tensor:
-        """Every shard's rows on the host, in pool order."""
-        return torch.cat([p.cpu() for p in self.parts])
+        """Every shard's rows on the host, in pool order: one copy per
+        distinct device (the parts of the shards it holds, joined there
+        first)."""
+        by_device: dict = {}
+        for s, p in enumerate(self.parts):
+            by_device.setdefault(p.device, []).append(s)
+        host = list(self.parts)
+        for shards in by_device.values():
+            parts = [self.parts[s] for s in shards]
+            joined = (torch.cat(parts) if len(parts) > 1 else parts[0]).cpu()
+            for s, h in zip(shards, joined.split(
+                    [p.shape[0] for p in parts])):
+                host[s] = h
+        return torch.cat(host)
 
     def put_rows(self, rows, values) -> None:
         """``pool[rows] = values`` for host ``rows`` and ``values``, each
@@ -229,6 +252,30 @@ class ShardRows:
     def __repr__(self) -> str:
         return (f"ShardRows({len(self.parts)} x {tuple(self.parts[0].shape)}"
                 f", {[str(d) for d in self.devices]})")
+
+
+class Replicated:
+    """One value of a pool over S shards that every shard reads alike:
+    ``copies[d]`` holds it on each distinct device ``d`` of the mesh, in
+    the mesh's order.  ``int()`` reads the first copy."""
+
+    __slots__ = ("copies",)
+
+    def __init__(self, copies: dict) -> None:
+        self.copies = dict(copies)
+
+    def on(self, device) -> torch.Tensor:
+        return self.copies[canonical_device(device)]
+
+    def map(self, fn) -> Replicated:
+        """``fn`` on each device's copy, on its device."""
+        return Replicated({d: fn(t) for d, t in self.copies.items()})
+
+    def __int__(self) -> int:
+        return int(next(iter(self.copies.values())))
+
+    def __repr__(self) -> str:
+        return f"Replicated({[str(d) for d in self.copies]})"
 
 
 def make_stream_mesh(n_shards: int | None = None, device="cuda", *,

@@ -7,6 +7,7 @@ launcher import only this module:
   loss_fn(cfg, remat)(params, batch)          training loss (batch dict)
   prefill_fn(cfg)(params, batch)              logits + caches / states
   decode_fn(cfg)(params, state, tok)          one-token step
+  decode_shards_fn(cfg)(params, states, toks) the step over S shards
   init_decode_state(cfg, batch, seq, device=) zeroed caches + clock
 
 Every entry point runs on the card unless the caller names another
@@ -82,6 +83,17 @@ def decode_fn(cfg: ArchConfig):
 
     def step(params, state, tokens):
         return stack.decode_step(cfg, params, state, tokens)
+    return step
+
+
+def decode_shards_fn(cfg: ArchConfig):
+    """-> step(params, states, tokens): the one-token step of S shards of
+    one batch (lists, shard ``s`` on its own device with its params
+    copy ``params[s]``) -> (logits, states), lists in shard order."""
+    mod = encdec if cfg.family == "encdec" else stack
+
+    def step(params, states, tokens):
+        return mod.decode_shards(cfg, params, states, tokens)
     return step
 
 

@@ -173,6 +173,17 @@ def decode_step(cfg: ArchConfig, params, state: dict, tokens):
                     "memory": memory}
 
 
+def decode_shards(cfg: ArchConfig, params: list, states: list,
+                  tokens: list):
+    """:func:`decode_step` of S shards of one batch, each on its own
+    device with its params copy ``params[s]``; no layer mixes rows, so
+    the shards need no exchange and step one after the other.  -> (each
+    shard's logits, each shard's new state)."""
+    out = [decode_step(cfg, p, st, t)
+           for p, st, t in zip(params, states, tokens)]
+    return [lg for lg, _ in out], [st for _, st in out]
+
+
 def lm_loss(cfg: ArchConfig, params, tokens, labels, frontend,
             remat: str = "block", loss_chunk: int = 512):
     """The decoder's next-token cross-entropy over the tokens (no aux

@@ -22,6 +22,12 @@ reference:
   * :func:`dispatch_dense`: every expert on every token, masked by the
     combine weights; exact (no dropping), the tests' reference.
 
+Over the shards of a slot pool (the LM engine on a mesh) the dropping
+dispatch ranks every row of a decode tick in one global order, so
+:func:`apply_moe_gathered` copies each shard's rows to every device and
+runs :func:`apply_moe` there on all of them in pool order: each device
+keeps its shards' block, at the reference's global capacity.
+
 ``impl="auto"`` takes the reference's rule: ``grouped`` when a policy
 sets a DP axis and the expert bank over TP is at most
 ``GROUPED_BANK_BYTES``, else ``dropping`` (with no policy, which is how
@@ -33,10 +39,12 @@ E * sum_e(f_e * p_e).
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
 
+from repro_torch.launch.mesh import current
 from repro_torch.models import layers
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.sharding import act
@@ -355,3 +363,31 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
     else:
         raise ValueError(f"unknown MoE dispatch {impl!r}")
     return out, aux
+
+
+def apply_moe_gathered(ps: list, xs: list, *, top_k: int,
+                       quant_mode: str = "none",
+                       capacity_factor: float = 1.25) -> list:
+    """The MoE over the rows of S shards, as one batch in shard order.
+
+    ``xs[s]`` is shard ``s``'s rows (n_s, 1, D) on its device and
+    ``ps[s]`` the layer's params there.  Each distinct device gathers
+    every shard's rows (a copy from each other device, ordered after the
+    work queued there), runs :func:`apply_moe` on all N of them and keeps
+    the blocks of its own shards, so that the routing, the positions and
+    the capacity ``max(1, int(N*K/E*cf))`` are the whole batch's.  ->
+    each shard's output, on its device."""
+    if len(xs) == 1:
+        return [apply_moe(ps[0], xs[0], top_k=top_k, quant_mode=quant_mode,
+                          capacity_factor=capacity_factor)[0]]
+    ends = list(itertools.accumulate(x.shape[0] for x in xs))
+    outs: dict = {}
+    for s, x in enumerate(xs):
+        if x.device not in outs:
+            with current(x.device):
+                rows = torch.cat([t.to(x.device) for t in xs])
+                outs[x.device] = apply_moe(
+                    ps[s], rows, top_k=top_k, quant_mode=quant_mode,
+                    capacity_factor=capacity_factor)[0]
+    return [outs[x.device][end - x.shape[0]:end]
+            for x, end in zip(xs, ends)]

@@ -17,11 +17,13 @@ mode ``train`` each superblock repeat is wrapped by ``RematPolicy(remat)``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import current
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import COMPUTE_DTYPE
@@ -138,14 +140,18 @@ def _residual(h, out):
     return h + act.constrain(out, "dp", None, None)
 
 
-def apply_layer(cfg: ArchConfig, p: dict, h, mixer: str, ffn: str, mode: str,
-                cache=None, cache_len=None):
-    """Pre-norm residual layer.  Returns (h, new_cache, aux_loss); the aux
-    loss is the MoE router's (a float32 0-d tensor), else 0.0."""
+def _mix_sublayer(cfg: ArchConfig, p: dict, h, mixer: str, mode: str,
+                  cache=None, cache_len=None):
+    """A layer's first half: the mixer's pre-norm residual -> (h,
+    new_cache)."""
     h = act.constrain(h, "dp", None, None)
     mixed, new_cache = _apply_mixer(
         cfg, p, _norm(h, p["norm1"]), mixer, mode, cache, cache_len)
-    h = _residual(h, mixed)
+    return _residual(h, mixed), new_cache
+
+
+def _ffn_sublayer(cfg: ArchConfig, p: dict, h, ffn: str):
+    """A layer's second half: the FFN's pre-norm residual -> (h, aux)."""
     aux = 0.0
     if ffn == "dense":
         h = _residual(h, layers.apply_mlp(p["mlp"], _norm(h, p["norm2"]),
@@ -155,6 +161,15 @@ def apply_layer(cfg: ArchConfig, p: dict, h, mixer: str, ffn: str, mode: str,
                                  top_k=cfg.moe.top_k,
                                  quant_mode=cfg.quant_mode)
         h = _residual(h, out)
+    return h, aux
+
+
+def apply_layer(cfg: ArchConfig, p: dict, h, mixer: str, ffn: str, mode: str,
+                cache=None, cache_len=None):
+    """Pre-norm residual layer.  Returns (h, new_cache, aux_loss); the aux
+    loss is the MoE router's (a float32 0-d tensor), else 0.0."""
+    h, new_cache = _mix_sublayer(cfg, p, h, mixer, mode, cache, cache_len)
+    h, aux = _ffn_sublayer(cfg, p, h, ffn)
     return h, new_cache, aux
 
 
@@ -386,29 +401,79 @@ def decode_step(cfg: ArchConfig, params, state: dict, tokens):
     tensors (as the reference's donated decode state is reused), and
     ``cache_len`` is a new 0-d tensor, one past the old.  No host
     synchronisation happens here."""
+    (logits,), (new_state,) = decode_shards(cfg, [params], [state],
+                                            [tokens])
+    return logits, new_state
+
+
+def decode_shards(cfg: ArchConfig, params: list, states: list,
+                  tokens: list):
+    """The decode step of S shards of one batch, in lockstep: shard
+    ``s``'s ``tokens[s]`` (n_s,1) and ``states[s]`` lie on one device,
+    with ``params[s]``, the params copy on that device.  Every layer runs
+    on each shard's rows on its device (made current), then the next
+    layer; at an MoE layer the shards' normed rows meet
+    (``moe.apply_moe_gathered``), so that the dropping dispatch ranks all
+    N rows of the tick in pool order, as one batch's decode step does.
+    -> (each shard's logits (n_s,1,V), each shard's new state), as
+    :func:`decode_step` gives them; with one shard it is that step, op
+    for op."""
     struct = block_structure(cfg)
-    cache_len = state["cache_len"]
+    shards = range(len(states))
+    # each shard's device made current while its ops issue (with one
+    # shard nothing is set: the op-for-op step, DTensors of the dry run)
+    on = ([current(t.device) for t in tokens] if len(tokens) > 1
+          else [contextlib.nullcontext()])
+    hs = list(tokens)
     with layers.lm_precision():
-        h = _embed_inputs(cfg, params, tokens)
-        for p, cache in zip(params["head_layers"], state["head"]):
-            h, _, _ = apply_layer(cfg, p, h, "a", "dense", "decode",
-                                  cache=cache, cache_len=cache_len)
+        for s in shards:
+            with on[s]:
+                hs[s] = _embed_inputs(cfg, params[s], tokens[s])
+                for p, cache in zip(params[s]["head_layers"],
+                                    states[s]["head"]):
+                    hs[s], _, _ = apply_layer(
+                        cfg, p, hs[s], "a", "dense", "decode", cache=cache,
+                        cache_len=states[s]["cache_len"])
         for r in range(n_repeats(cfg)):
             for pos, (mixer, ffn) in enumerate(struct):
-                cache = tuple(leaf[r] for leaf in state["layers"][pos])
-                h, new, _ = apply_layer(
-                    cfg, index_tree(params["blocks"][pos], r), h, mixer, ffn,
-                    "decode", cache=cache, cache_len=cache_len)
+                views: dict = {}   # one view per params copy
+                for p in params:
+                    if id(p) not in views:
+                        views[id(p)] = index_tree(p["blocks"][pos], r)
+                ps = [views[id(p)] for p in params]
+                caches, news, xs = [], [], []
+                for s in shards:
+                    caches.append(tuple(leaf[r]
+                                        for leaf in states[s]["layers"][pos]))
+                    with on[s]:
+                        hs[s], new = _mix_sublayer(
+                            cfg, ps[s], hs[s], mixer, "decode",
+                            cache=caches[s],
+                            cache_len=states[s]["cache_len"])
+                        if ffn == "moe":
+                            xs.append(_norm(hs[s], ps[s]["norm2"]))
+                        else:
+                            hs[s] = _ffn_sublayer(cfg, ps[s], hs[s], ffn)[0]
+                    news.append(new)
+                if ffn == "moe":
+                    outs = moe.apply_moe_gathered(
+                        [p["moe"] for p in ps], xs, top_k=cfg.moe.top_k,
+                        quant_mode=cfg.quant_mode)
+                    for s in shards:
+                        with on[s]:
+                            hs[s] = _residual(hs[s], outs[s])
                 if mixer != "a":
-                    for old, nw in zip(cache, new):
-                        old.copy_(nw)
-        logits = _logits(cfg, params, h)
-    new_state = {
-        "cache_len": cache_len + 1,
-        "layers": state["layers"],
-        "head": state["head"],
-    }
-    return logits, new_state
+                    for s in shards:
+                        with on[s]:
+                            for old, nw in zip(caches[s], news[s]):
+                                old.copy_(nw)
+        logits = []
+        for s in shards:
+            with on[s]:
+                logits.append(_logits(cfg, params[s], hs[s]))
+    new_states = [{"cache_len": st["cache_len"] + 1, "layers": st["layers"],
+                   "head": st["head"]} for st in states]
+    return logits, new_states
 
 
 # ---------------------------------------------------------------------------

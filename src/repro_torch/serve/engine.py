@@ -14,9 +14,21 @@ that drains in-flight decode ticks before any slot remap) comes from
 the KWS stream scheduler, and the pool emits the ``lm_resize`` /
 ``lm_rebalance`` events.  By default (``max_slots=None``) the pool is
 pinned at ``batch_slots``; pass ``max_slots`` / ``min_slots`` for elastic
-capacity and ``mesh`` (``launch.mesh.make_stream_mesh(S, device)``: S
-row blocks of the params' device) to shard the slot axis.  A mesh over
-several devices raises ``NotImplementedError`` (queue item A.9d).
+capacity and ``mesh`` (``launch.mesh.make_stream_mesh``) to shard the
+slot axis, as the reference's ``Engine(mesh=)`` does.
+
+Over a mesh of S >= 2 shards every cache leaf with a slot axis and the
+async feedback token are ``launch.mesh.ShardRows``: shard ``s``'s rows
+are a tensor of their own on ``mesh.devices[s]``, whether the shards
+share a device or each has a card (one code path).  The clock is a
+``launch.mesh.Replicated`` (a copy on each distinct device) and the
+params are copied once to each distinct device.  A tick decodes each
+shard's rows on its device, layer by layer in lockstep
+(``models.stack.decode_shards``); at an MoE layer every device gathers
+the tick's normed rows in pool order and runs the dispatch on all of
+them (``models.moe.apply_moe_gathered``), so that the dropping dispatch
+ranks the rows in the reference's one global order.  A prefill runs on
+the device of the shard its slot lies in.
 
 Every family is served: the state's own keys are flattened for the pool
 (the stack's ``cache_len`` / ``head`` / ``layers``, the encoder-decoder's
@@ -29,8 +41,10 @@ for expert capacity, so only drives with equal batch shapes can be
 token-equal (an elastic pool's tokens equal the reference's elastic
 engine's, not a fixed pool's).
 
-The engine runs where its params lie; CUDA params with no card raise.
-Every decode tick syncs with the host once, for the sampled tokens.  The
+The engine runs where its params lie (over a mesh, on its devices; the
+params must lie on one of them); CUDA params with no card raise.  Every
+decode tick syncs with the host once per device, for the sampled
+tokens.  The
 clock ``cache_len`` is shared by all slots and merged with ``max`` at an
 install, as in the reference (ROADMAP C.6, reproduced: a request
 installed while the clock is ahead attends to the zero rows between its
@@ -46,12 +60,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.mesh import canonical_device, dp_size
+from repro_torch.launch.mesh import (
+    Replicated,
+    ShardRows,
+    canonical_device,
+    current,
+    dp_size,
+)
 from repro_torch.models import api
 from repro_torch.obs import Observability
 from repro_torch.runtime import InFlightQueue, SlotPool, infer_slot_axes
 from repro_torch.runtime.pool import tree_map
 from repro_torch.serve import sampler
+from repro_torch.utils import tree
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("serve")
@@ -79,6 +100,41 @@ def _unflat(flat: tuple, like: dict) -> dict:
     return dict(zip(sorted(like), flat))
 
 
+def _shard_part(state, s: int, device):
+    """Shard ``s``'s own decode state (on ``device``) of a state over a
+    mesh: each ``ShardRows`` leaf's part ``s``, the clock's copy there."""
+    if isinstance(state, ShardRows):
+        return state.parts[s]
+    if isinstance(state, Replicated):
+        return state.on(device)
+    if isinstance(state, dict):
+        return {k: _shard_part(v, s, device) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_shard_part(v, s, device) for v in state)
+    return state
+
+
+def _sharded_decode(cfg: ArchConfig, mesh):
+    """The tick over a mesh's shards, with ``decode_fn``'s signature:
+    ``(params, state, tokens)`` with ``params[s]`` the copy on shard
+    ``s``'s device, the state's slot leaves and the (n, 1) tokens
+    ``ShardRows`` -> (logits, state): the logits a ``ShardRows``, each
+    leaf's parts written in place, the clock one past the old on every
+    device."""
+    step = api.decode_shards_fn(cfg)
+    first = {d: mesh.devices.index(d) for d in mesh.distinct}
+
+    def decode(params, state, tokens):
+        states = [_shard_part(state, s, d)
+                  for s, d in enumerate(mesh.devices)]
+        logits, new = step(params, states, list(tokens.parts))
+        clock = Replicated({d: new[s]["cache_len"]
+                            for d, s in first.items()})
+        return ShardRows(logits), dict(state, cache_len=clock)
+
+    return decode
+
+
 class Engine:
     def __init__(self, cfg: ArchConfig, params, batch_slots: int = 4,
                  max_seq: int = 128, obs: Observability | None = None,
@@ -94,15 +150,11 @@ class Engine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("the engine's params lie on a CUDA device and "
                                "none is available")
-        if mesh is not None and len(mesh.distinct) > 1:
-            raise NotImplementedError(
-                f"an engine over the devices {[str(d) for d in mesh.distinct]}"
-                " is not supported yet: ROADMAP queue item A.9d, the LM "
-                "engine over several devices (the MoE's dropping dispatch "
-                "ranks every row of a tick in one global order)")
-        if mesh is not None and mesh.device != self.device:
-            raise ValueError(f"mesh on {mesh.device}, params on "
-                             f"{self.device}")
+        if mesh is not None and self.device not in mesh.distinct:
+            raise ValueError(f"mesh on {[str(d) for d in mesh.distinct]}, "
+                             f"params on {self.device}")
+        # S >= 2 shards: the ShardRows path, one params copy a device
+        self.mesh = mesh if mesh is not None and dp_size(mesh) > 1 else None
 
         # prefill and decode-tick latencies land in bounded histograms,
         # spans cover both paths (fenced: the tick's token copy syncs),
@@ -110,7 +162,20 @@ class Engine:
         self.obs = obs if obs is not None else Observability.create()
         self._prefill_hist = self.obs.registry.histogram("serve.prefill_s")
         self._decode_hist = self.obs.registry.histogram("serve.decode_tick_s")
-        self._decode = api.decode_fn(cfg)
+        # the tick's step (``_decode``) and the prefill's (``_step``)
+        self._step = api.decode_fn(cfg)
+        if self.mesh is None:
+            self._decode = self._step
+            self._params_on = {self.device: params}
+            self._tick_params = params
+        else:
+            self._decode = _sharded_decode(cfg, self.mesh)
+            self._params_on = {
+                d: params if d == self.device else tree.tree_map(
+                    lambda t, d=d: t.to(d), params)
+                for d in self.mesh.distinct}
+            self._tick_params = [self._params_on[d]
+                                 for d in self.mesh.devices]
 
         # the slot axis of every cache leaf, by shape-diffing the state at
         # two batch sizes on the meta device (cache_len's shared clock maps
@@ -129,8 +194,21 @@ class Engine:
             n_shards=1 if mesh is None else dp_size(mesh),
             obs=self.obs, event_prefix="lm_", noun="request",
         )
-        self.state = api.init_decode_state(cfg, batch_slots, max_seq,
-                                           device=self.device)
+        if self.mesh is None:
+            self.state = api.init_decode_state(cfg, batch_slots, max_seq,
+                                               device=self.device)
+        else:
+            # each shard's zeroed state on its device, joined leaf by leaf
+            n = batch_slots // dp_size(self.mesh)
+            states = [api.init_decode_state(cfg, n, max_seq, device=d)
+                      for d in self.mesh.devices]
+            first = {d: self.mesh.devices.index(d)
+                     for d in self.mesh.distinct}
+            self.state = _unflat(tree_map(
+                lambda ax, *leaves: Replicated(
+                    {d: leaves[s] for d, s in first.items()}) if ax < 0
+                else ShardRows(leaves),
+                self._cache_axes, *map(_flat, states)), states[0])
         self.slot_req: list[Request | None] = [None] * batch_slots
         self.slot_remaining = np.zeros(batch_slots, np.int32)
         self.queue: list[Request] = []
@@ -164,9 +242,24 @@ class Engine:
         return (self._cache_axes, -1 if self._last_tok is None else 0)
 
     def shard(self, x, axis: int = 0):
-        """Every shard of a ``make_stream_mesh`` mesh lies on the one
-        device the params are on: nothing moves."""
-        return x
+        """Settle a leaf's slot ``axis`` onto the mesh: a whole tensor's S
+        blocks along it become a ``ShardRows``, each block copied to its
+        shard's device (nothing moves with no mesh)."""
+        if self.mesh is None or isinstance(x, ShardRows):
+            return x
+        return ShardRows(
+            b.to(d, copy=True, memory_format=torch.contiguous_format)
+            for b, d in zip(x.chunk(len(self.mesh.devices), axis),
+                            self.mesh.devices))
+
+    def _locate(self, slot: int) -> tuple[int, int]:
+        """``(shard, row within it)`` of pool slot ``slot``."""
+        return divmod(slot, self.slots // len(self.mesh.devices))
+
+    def _device_of(self, slot: int) -> torch.device:
+        if self.mesh is None:
+            return self.device
+        return self.mesh.devices[self._locate(slot)[0]]
 
     def apply_host_remap(self, remap: dict[int, int], new_cap: int) -> None:
         """Ride the host-side planes (request binding, budget counters)
@@ -190,19 +283,22 @@ class Engine:
 
     # -- prefill -------------------------------------------------------------
 
-    def _prefill_one(self, prompt: np.ndarray):
-        """Sequential prefill through the decode step, token by token,
-        into a fresh one-row state -> (state, last logits (padded_vocab,))
-        (the reference's scan of the decode step over the prompt)."""
-        st = api.init_decode_state(self.cfg, 1, self.max_seq,
-                                   device=self.device)
-        toks = torch.as_tensor(np.asarray(prompt, np.int32)).to(self.device)
-        last = None
-        for t in range(toks.shape[0]):
-            logits, st = self._decode(self.params, st, toks[t:t + 1, None])
-            last = logits[0, -1]
-        if last is None:
-            last = torch.zeros(self.cfg.padded_vocab, device=self.device)
+    def _prefill_one(self, prompt: np.ndarray, device: torch.device):
+        """Sequential prefill on ``device`` through the decode step, token
+        by token, into a fresh one-row state -> (state, last logits
+        (padded_vocab,)) (the reference's scan of the decode step over the
+        prompt)."""
+        params = self._params_on[device]
+        with current(device):
+            st = api.init_decode_state(self.cfg, 1, self.max_seq,
+                                       device=device)
+            toks = torch.as_tensor(np.asarray(prompt, np.int32)).to(device)
+            last = None
+            for t in range(toks.shape[0]):
+                logits, st = self._step(params, st, toks[t:t + 1, None])
+                last = logits[0, -1]
+            if last is None:
+                last = torch.zeros(self.cfg.padded_vocab, device=device)
         return st, last
 
     # -- queue management ------------------------------------------------------
@@ -225,7 +321,8 @@ class Engine:
             with self.obs.trace.span("prefill", rid=req.rid,
                                      tokens=len(req.prompt)):
                 t0 = time.perf_counter()
-                st1, last_logits = self._prefill_one(req.prompt)
+                st1, last_logits = self._prefill_one(
+                    req.prompt, self._device_of(slot))
                 tok = int(sampler.greedy(last_logits[None],
                                          self.cfg.vocab)[0])
                 self._prefill_hist.record(time.perf_counter() - t0)
@@ -236,9 +333,7 @@ class Engine:
                 # next async dispatch feeds the prefill's token; a copy,
                 # as the reference's ``.at[].set``: the old one is a view
                 # of an in-flight tick's tokens, which retire later
-                last = self._last_tok.clone()
-                last[slot, 0] = tok
-                self._last_tok = last
+                self._last_tok = self._set_row(self._last_tok, slot, tok)
             self.slot_req[slot] = req
             self.slot_remaining[slot] = req.max_new_tokens - 1
             self.obs.events.emit("lm_slot_fill", slot=slot, rid=req.rid,
@@ -246,13 +341,32 @@ class Engine:
             log.info("slot %d <- request %d (prompt %d toks)",
                      slot, req.rid, len(req.prompt))
 
+    def _set_row(self, last, slot: int, tok: int):
+        """A copy of the (slots, 1) feedback token with row ``slot`` set
+        to ``tok`` (over a mesh only the slot's shard's part is new)."""
+        if isinstance(last, ShardRows):
+            s, row = self._locate(slot)
+            parts = list(last.parts)
+            parts[s] = self._set_row(parts[s], row, tok)
+            return ShardRows(parts)
+        last = last.clone()
+        last[slot, 0] = tok
+        return last
+
     def _install(self, slot: int, st1: dict) -> None:
-        """Copy a one-row cache tree into batch row ``slot``, in place;
-        the shared clock merges with ``max``."""
+        """Copy a one-row cache tree into batch row ``slot``, in place
+        (over a mesh into the slot's shard's part, on its device); the
+        shared clock merges with ``max`` (on every device)."""
         def put(full, one, ax):
+            if isinstance(full, Replicated):
+                return full.map(lambda c: torch.maximum(c, one.to(c.device)))
             if ax < 0:
                 return torch.maximum(full, one)  # cache_len: shared clock
-            full.narrow(ax, slot, 1).copy_(one)
+            if isinstance(full, ShardRows):
+                s, row = self._locate(slot)
+                full.parts[s].narrow(ax, row, 1).copy_(one)
+            else:
+                full.narrow(ax, slot, 1).copy_(one)
             return full
 
         self.state = _unflat(tree_map(put, _flat(self.state), _flat(st1),
@@ -268,12 +382,35 @@ class Engine:
         self._slots.hop_barrier()
         self._slots.maybe_shrink()
 
-    def _feed(self) -> torch.Tensor:
-        """(slots, 1) int32 last tokens on the device (empty slots: 0)."""
-        return torch.tensor(
+    def _feed(self):
+        """(slots, 1) int32 last tokens on the device, over a mesh each
+        shard's on its own (empty slots: 0)."""
+        toks = torch.tensor(
             [(r.out_tokens[-1] if r is not None and r.out_tokens else 0)
-             for r in self.slot_req], dtype=torch.int32)[:, None].to(
-                 self.device)
+             for r in self.slot_req], dtype=torch.int32)[:, None]
+        if self.mesh is not None:
+            return self.mesh.split(toks)
+        return toks.to(self.device)
+
+    def _sample(self, logits):
+        """Greedy tokens (slots,) on the device(s) of the logits."""
+        if isinstance(logits, ShardRows):
+            return logits.map(
+                lambda lg: sampler.greedy(lg[:, -1], self.cfg.vocab))
+        return sampler.greedy(logits[:, -1], self.cfg.vocab)
+
+    def _fences(self) -> list:
+        """One event a card, recorded after the tick's work queued there
+        (none with no mesh, where the tokens' host copy fences)."""
+        if self.mesh is None:
+            return []
+        fences = []
+        for d in self.mesh.distinct:
+            if d.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(d))
+                fences.append(ev)
+        return fences
 
     # -- decode tick -----------------------------------------------------------
 
@@ -286,10 +423,11 @@ class Engine:
         last = self._feed()
         with self.obs.trace.span("decode", active=len(active)):
             t0 = time.perf_counter()
-            logits, self.state = self._decode(self.params, self.state, last)
-            # the tokens' copy to the host is the tick's one sync: the
-            # recorded tick is the decode step, not its enqueue
-            toks = sampler.greedy(logits[:, -1], self.cfg.vocab).cpu().numpy()
+            logits, self.state = self._decode(self._tick_params,
+                                              self.state, last)
+            # the tokens' copy to the host (one a device) is the tick's
+            # sync: the recorded tick is the decode step, not its enqueue
+            toks = self._sample(logits).cpu().numpy()
             self._decode_hist.record(time.perf_counter() - t0)
         finished = []
         for slot in active:
@@ -330,10 +468,13 @@ class Engine:
                 self._last_tok = self._feed()
             with self.obs.trace.span("decode_dispatch", active=len(active)):
                 t0 = time.perf_counter()
-                logits, self.state = self._decode(self.params, self.state,
-                                                  self._last_tok)
-                toks = sampler.greedy(logits[:, -1], self.cfg.vocab)
-                self._last_tok = toks[:, None]
+                logits, self.state = self._decode(
+                    self._tick_params, self.state, self._last_tok)
+                toks = self._sample(logits)
+                self._last_tok = (toks.map(lambda t: t[:, None])
+                                  if isinstance(toks, ShardRows)
+                                  else toks[:, None])
+                fences = self._fences()
             # bookkeeping happens at dispatch (retirement counts are
             # static), but the token lands at retire, one tick later
             snapshot = []
@@ -344,7 +485,7 @@ class Engine:
                 snapshot.append((slot, req, finishing))
                 if finishing:
                     self._release(slot)  # refill next tick
-            self._pending.push((toks, snapshot, t0))
+            self._pending.push((toks, snapshot, t0, fences))
         # finishes folded by an epoch barrier (a grow inside _fill_slots,
         # a shrink/rebalance at the tick boundary) surface here
         finished = self._take_barrier_finished()
@@ -364,9 +505,11 @@ class Engine:
     def _retire_tick(self, item, still_in_flight: bool) -> list[Request]:
         """Fence on the oldest in-flight tick and append its host-side
         tokens; emits ``lm_finish`` for requests that completed there."""
-        toks, snapshot, t0 = item
+        toks, snapshot, t0, fences = item
         with self.obs.trace.span("decode_retire", n=len(snapshot)):
-            toks_h = toks.cpu().numpy()  # fence + one bulk transfer
+            for ev in fences:
+                ev.synchronize()
+            toks_h = toks.cpu().numpy()  # fence + one copy a device
         self._decode_hist.record(time.perf_counter() - t0)
         finished = []
         for slot, req, finishing in snapshot:

@@ -82,7 +82,6 @@ single-device one.
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import time
 
@@ -92,7 +91,12 @@ import torch
 from repro_torch.core.cnn_spec import CNN1DSpec
 from repro_torch.kernels import conv_kernels, dispatch, ops
 from repro_torch.kernels.hop_megakernel import prepare_hop_weights
-from repro_torch.launch.mesh import ShardRows, canonical_device, dp_size
+from repro_torch.launch.mesh import (
+    ShardRows,
+    canonical_device,
+    current,
+    dp_size,
+)
 from repro_torch.obs import Observability
 from repro_torch.runtime.pool import SlotPool, tree_map
 from repro_torch.stream.detector import (
@@ -779,13 +783,6 @@ def _part(tree, s: int):
     return None if tree is None else tree.parts[s]
 
 
-def _current(device: torch.device):
-    """A context with ``device`` current (nothing to set for the CPU)."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
-
-
 def _join(results):
     """Per-shard results (nested tuples of tensors, alike) -> one nested
     tuple of ``ShardRows``."""
@@ -835,7 +832,7 @@ class _ShardedModel:
         into ``out``'s parts when given."""
         results = []
         for s, (d, m) in enumerate(zip(self._devices, self._shards)):
-            with _current(d):
+            with current(d):
                 results.append(m.step(*_part(args, s), emit=emit,
                                       out=_part(out, s)))
         return _join(results)
@@ -844,7 +841,7 @@ class _ShardedModel:
         """:meth:`_BatchedModel.finalize` on every shard's rows."""
         results = []
         for s, (d, m) in enumerate(zip(self._devices, self._shards)):
-            with _current(d):
+            with current(d):
                 results.append(m.finalize(*_part(args, s)))
         return _join(results)
 

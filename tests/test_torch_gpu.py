@@ -1250,23 +1250,18 @@ def _lm_run(cfg, params, asyn):
     eng = engine.Engine(cfg, params, batch_slots=2, max_seq=16)
     rows: dict = {}
     firsts: list = []
-    in_prefill = [False]       # the prefill runs the decode step too
     decode, prefill = eng._decode, eng._prefill_one
 
     def rec_decode(p, state, last):
         logits, state = decode(p, state, last)
-        if in_prefill[0]:
-            return logits, state
         out = logits[:, -1].float().cpu()
         for slot, req in enumerate(eng.slot_req):
             if req is not None:
                 rows.setdefault(req.rid, []).append(out[slot])
         return logits, state
 
-    def rec_prefill(prompt):
-        in_prefill[0] = True
-        state, last = prefill(prompt)
-        in_prefill[0] = False
+    def rec_prefill(*args):
+        state, last = prefill(*args)
         firsts.append(last.float().cpu())
         return state, last
 
@@ -1388,22 +1383,15 @@ def _lm_ticks(cfg, params, asyn):
 
     eng = engine.Engine(cfg, params, batch_slots=2, max_seq=32)
     feeds, rows = [], []
-    decode, prefill = eng._decode, eng._prefill_one
+    decode = eng._decode
 
-    def traced(p, state, last):
+    def traced(p, state, last):    # the ticks only: a prefill has its own
         logits, state = decode(p, state, last)
         feeds.append(last.cpu().ravel().tolist())
         rows.append(logits[:, -1].float().cpu())
         return logits, state
 
-    def untraced(prompt):
-        eng._decode = decode
-        try:
-            return prefill(prompt)
-        finally:
-            eng._decode = traced
-
-    eng._decode, eng._prefill_one = traced, untraced
+    eng._decode = traced
     rng = np.random.default_rng(0)
     for i in range(4):
         eng.submit(engine.Request(

@@ -710,18 +710,7 @@ def _traced_drive(eng, request, vocab, asyn):
         rows.append(np.asarray(logits[:, -1], np.float32))
         return logits, state
 
-    if hasattr(eng, "_make_prefill"):        # the reference's own prefill
-        eng._decode = traced
-    else:                                    # the port's runs the step
-        prefill = eng._prefill_one
-
-        def untraced(prompt):
-            eng._decode = decode
-            try:
-                return prefill(prompt)
-            finally:
-                eng._decode = traced
-        eng._decode, eng._prefill_one = traced, untraced
+    eng._decode = traced    # the ticks only: each prefill has its own step
     tokens, caps = serve._drive(eng, serve._requests(request, vocab), asyn)
     return tokens, caps, feeds, rows
 

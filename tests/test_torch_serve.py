@@ -296,8 +296,9 @@ def test_engine_event_sequence_matches_reference(models):
 @pytest.mark.parametrize("asyn", [False, True], ids=["sync", "async"])
 def test_engine_two_shards_match_one(models, asyn):
     """4 slots over a 2-shard CPU ``StreamMesh`` against the reference's
-    unsharded engine (the reference's own mesh engine needs two devices)
-    and the port's 1-shard run, token for token.  All six requests come
+    unsharded engine (its own mesh engine runs on forced host devices in
+    ``tests/test_torch_lm_mesh.py``) and the port's 1-shard run, token
+    for token.  All six requests come
     at once: requests 1 and 3, the short ones, land on shard 1 and leave
     it empty, so a rebalance migrates a live request."""
     mesh = make_stream_mesh(2, device="cpu")
@@ -313,16 +314,6 @@ def test_engine_rejects_a_mesh_on_another_device(models):
     _, _, cfg, params = models
     mesh = StreamMesh((torch.device("meta"),) * 2)
     with pytest.raises(ValueError, match="mesh"):
-        engine.Engine(cfg, params, mesh=mesh)
-
-
-def test_engine_refuses_a_mesh_over_several_devices(models):
-    """The LM engine over several devices is queue item A.9d: its MoE
-    dispatch ranks every row of a tick in one order, so its shards could
-    not decode on their own cards."""
-    _, _, cfg, params = models
-    mesh = StreamMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
-    with pytest.raises(NotImplementedError, match="A.9d"):
         engine.Engine(cfg, params, mesh=mesh)
 
 
