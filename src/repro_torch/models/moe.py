@@ -36,17 +36,26 @@ a policy each device routes and dispatches its own tokens
 (:func:`_apply_moe_sharded`).  ``FORCE_IMPL`` (read at call time) forces
 one dispatch everywhere.  The auxiliary load-balance loss is Switch-style:
 E * sum_e(f_e * p_e).
+
+Spans (``obs.span``, recorded when a caller's span is open): ``moe.route``,
+then in the capacity dispatches ``moe.dispatch``, ``moe.experts``,
+``moe.combine``, and ``moe.shared``.  :func:`expert_tally` collects each
+capacity dispatch's per-expert assignment counts for the LM engine's
+counters.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+import threading
 
 import torch
 
 from repro_torch.launch.mesh import current
 from repro_torch.models import layers
 from repro_torch.models.layers import COMPUTE_DTYPE
+from repro_torch.obs import span
 from repro_torch.sharding import act
 
 #: expert banks smaller than this (bytes, at bf16 after TP) dispatch with
@@ -57,6 +66,37 @@ GROUPED_BANK_BYTES = 4e9
 #: everywhere; capacity dropping depends on the batch's composition by
 #: design, so the dropping paths are not prefill/decode-consistent
 FORCE_IMPL: str | None = None
+
+#: this thread's open ``expert_tally`` list (``entries``), if any
+_tally = threading.local()
+
+
+@contextlib.contextmanager
+def expert_tally():
+    """Collect, on this thread, each capacity dispatch's per-expert
+    assignment counts while open: -> a list that gains one ``(counts,
+    capacity)`` entry a dispatch, ``counts`` the (..., E) int64 device
+    tensor that :func:`_positions` computes anyway (kept, not copied: no
+    kernel, no host sync) and ``capacity`` C.  The LM engine opens one
+    around a decode tick and reads it with the tick's tokens."""
+    prev = getattr(_tally, "entries", None)
+    _tally.entries = entries = []
+    try:
+        yield entries
+    finally:
+        _tally.entries = prev
+
+
+@contextlib.contextmanager
+def _tally_paused():
+    """No tally inside (the gathered dispatch's later devices repeat the
+    first one's rows)."""
+    prev = getattr(_tally, "entries", None)
+    _tally.entries = None
+    try:
+        yield
+    finally:
+        _tally.entries = prev
 
 
 def init_moe(generator, d_model: int, d_expert: int, n_experts: int,
@@ -147,12 +187,17 @@ def _positions(idx: torch.Tensor, e: int, cap: int):
         keep = pos < cap
         pos_list.append(torch.where(keep, pos, 0))
         keep_list.append(keep)
+    entries = getattr(_tally, "entries", None)
+    if entries is not None:
+        entries.append((counts, cap))
     return pos_list, keep_list
 
 
 def _shared(p: dict, x: torch.Tensor, out: torch.Tensor, quant_mode: str):
     if "shared" in p:
-        out = out + layers.apply_mlp(p["shared"], x, quant_mode).to(x.dtype)
+        with span("moe.shared"):
+            out = out + layers.apply_mlp(p["shared"], x,
+                                         quant_mode).to(x.dtype)
     return out
 
 
@@ -168,21 +213,23 @@ def dispatch_dropping(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
     e = p["router"].shape[-1]
     xf = x.reshape(n, d)
     cap = max(1, int(n * top_k / e * capacity_factor))
-    pos_list, keep_list = _positions(gate_idx, e, cap)
+    with span("moe.dispatch"):
+        pos_list, keep_list = _positions(gate_idx, e, cap)
+        xe = torch.zeros((e, cap, d), dtype=COMPUTE_DTYPE, device=x.device)
+        for k in range(top_k):
+            contrib = (xf * keep_list[k][:, None]).to(COMPUTE_DTYPE)
+            xe.index_put_((gate_idx[:, k], pos_list[k]), contrib,
+                          accumulate=True)
 
-    xe = torch.zeros((e, cap, d), dtype=COMPUTE_DTYPE, device=x.device)
-    for k in range(top_k):
-        contrib = (xf * keep_list[k][:, None]).to(COMPUTE_DTYPE)
-        xe.index_put_((gate_idx[:, k], pos_list[k]), contrib,
-                      accumulate=True)
+    with span("moe.experts"):
+        he = _expert_mlp(p, xe, quant_mode)
 
-    he = _expert_mlp(p, xe, quant_mode)
-
-    out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
-    for k in range(top_k):
-        yk = he[gate_idx[:, k], pos_list[k]].to(torch.float32)
-        out = out + yk * (gate_vals[:, k] * keep_list[k])[:, None]
-    out = out.reshape(b, s, d).to(x.dtype)
+    with span("moe.combine"):
+        out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
+        for k in range(top_k):
+            yk = he[gate_idx[:, k], pos_list[k]].to(torch.float32)
+            out = out + yk * (gate_vals[:, k] * keep_list[k])[:, None]
+        out = out.reshape(b, s, d).to(x.dtype)
     return _shared(p, x, out, quant_mode)
 
 
@@ -204,37 +251,40 @@ def dispatch_grouped(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
     idx_g = gate_idx.reshape(g, ng, top_k)
     val_g = gate_vals.reshape(g, ng, top_k)
     cap = max(1, int(ng * top_k / e * capacity_factor))
-    pos_list, keep_list = _positions(idx_g, e, cap)
+    with span("moe.dispatch"):
+        pos_list, keep_list = _positions(idx_g, e, cap)
 
-    # the slot -> token table by a scatter-max over the flat (G, E, C)
-    # index, as the reference's ``.at[].max``
-    dev = x.device
-    base = torch.arange(g, device=dev)[:, None] * (e * cap)
-    tok_ids = torch.arange(ng, device=dev).expand(g, ng)
-    slot_tok = torch.zeros(g * e * cap, dtype=torch.int64, device=dev)
-    slot_keep = torch.zeros(g * e * cap, dtype=torch.int64, device=dev)
-    for k in range(top_k):
-        flat = (base + idx_g[:, :, k] * cap + pos_list[k]).reshape(-1)
-        kmask = keep_list[k]
-        slot_tok.scatter_reduce_(0, flat, torch.where(
-            kmask, tok_ids, 0).reshape(-1), reduce="amax")
-        slot_keep.scatter_reduce_(0, flat, kmask.reshape(-1).long(),
-                                  reduce="amax")
-    slot_tok = slot_tok.reshape(g, e, cap)
-    slot_keep = slot_keep.reshape(g, e, cap).bool()
-    garange = torch.arange(g, device=dev)[:, None, None]
-    xe = xg[garange, slot_tok].to(COMPUTE_DTYPE) * slot_keep[..., None]
-    xe = act.constrain(xe, "dp", None, None, None)
+        # the slot -> token table by a scatter-max over the flat (G, E, C)
+        # index, as the reference's ``.at[].max``
+        dev = x.device
+        base = torch.arange(g, device=dev)[:, None] * (e * cap)
+        tok_ids = torch.arange(ng, device=dev).expand(g, ng)
+        slot_tok = torch.zeros(g * e * cap, dtype=torch.int64, device=dev)
+        slot_keep = torch.zeros(g * e * cap, dtype=torch.int64, device=dev)
+        for k in range(top_k):
+            flat = (base + idx_g[:, :, k] * cap + pos_list[k]).reshape(-1)
+            kmask = keep_list[k]
+            slot_tok.scatter_reduce_(0, flat, torch.where(
+                kmask, tok_ids, 0).reshape(-1), reduce="amax")
+            slot_keep.scatter_reduce_(0, flat, kmask.reshape(-1).long(),
+                                      reduce="amax")
+        slot_tok = slot_tok.reshape(g, e, cap)
+        slot_keep = slot_keep.reshape(g, e, cap).bool()
+        garange = torch.arange(g, device=dev)[:, None, None]
+        xe = xg[garange, slot_tok].to(COMPUTE_DTYPE) * slot_keep[..., None]
+        xe = act.constrain(xe, "dp", None, None, None)
 
-    he = _swiglu(xe, p["wi_gate"], p["wi_up"], p["wo"], "gecd,edf->gecf")
-    he = act.constrain(he, "dp", None, None, None)
+    with span("moe.experts"):
+        he = _swiglu(xe, p["wi_gate"], p["wi_up"], p["wo"], "gecd,edf->gecf")
+        he = act.constrain(he, "dp", None, None, None)
 
-    out = torch.zeros((g, ng, d), dtype=torch.float32, device=dev)
-    gidx = torch.arange(g, device=dev)[:, None]
-    for k in range(top_k):
-        yk = he[gidx, idx_g[:, :, k], pos_list[k]].to(torch.float32)
-        out = out + yk * (val_g[:, :, k] * keep_list[k])[..., None]
-    out = out.reshape(b, s, d).to(x.dtype)
+    with span("moe.combine"):
+        out = torch.zeros((g, ng, d), dtype=torch.float32, device=dev)
+        gidx = torch.arange(g, device=dev)[:, None]
+        for k in range(top_k):
+            yk = he[gidx, idx_g[:, :, k], pos_list[k]].to(torch.float32)
+            out = out + yk * (val_g[:, :, k] * keep_list[k])[..., None]
+        out = out.reshape(b, s, d).to(x.dtype)
     return _shared(p, x, out, quant_mode)
 
 
@@ -347,7 +397,8 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
         return _apply_moe_sharded(p, x, top_k=top_k, quant_mode=quant_mode,
                                   capacity_factor=capacity_factor,
                                   impl=impl)
-    gate_vals, gate_idx, aux = route(p, x, top_k)
+    with span("moe.route"):
+        gate_vals, gate_idx, aux = route(p, x, top_k)
     if impl == "dense":
         out = dispatch_dense(p, x, gate_vals, gate_idx,
                              quant_mode=quant_mode)
@@ -384,7 +435,9 @@ def apply_moe_gathered(ps: list, xs: list, *, top_k: int,
     outs: dict = {}
     for s, x in enumerate(xs):
         if x.device not in outs:
-            with current(x.device):
+            # an expert tally counts the rows once, on the first device
+            with current(x.device), (
+                    _tally_paused() if outs else contextlib.nullcontext()):
                 rows = torch.cat([t.to(x.device) for t in xs])
                 outs[x.device] = apply_moe(
                     ps[s], rows, top_k=top_k, quant_mode=quant_mode,

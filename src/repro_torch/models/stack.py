@@ -22,6 +22,7 @@ import functools
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import current
 from repro_torch.models import attention as attn
@@ -31,6 +32,10 @@ from repro_torch.models.scan_utils import scan
 from repro_torch.sharding import act
 
 AUX_LOSS_COEF = 0.01
+
+#: the decode step's span of each mixer's sublayer (``obs.span``)
+MIXER_SPANS = {"a": "layer.attn", "m": "layer.mamba", "M": "layer.mlstm",
+               "s": "layer.slstm"}
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +422,9 @@ def decode_shards(cfg: ArchConfig, params: list, states: list,
     N rows of the tick in pool order, as one batch's decode step does.
     -> (each shard's logits (n_s,1,V), each shard's new state), as
     :func:`decode_step` gives them; with one shard it is that step, op
-    for op."""
+    for op.  Spans (``obs.span``, over all shards): ``embed``, each
+    layer's mixer (``MIXER_SPANS``) and FFN (``layer.mlp`` or
+    ``layer.moe``), ``head``."""
     struct = block_structure(cfg)
     shards = range(len(states))
     # each shard's device made current while its ops issue (with one
@@ -426,14 +433,24 @@ def decode_shards(cfg: ArchConfig, params: list, states: list,
           else [contextlib.nullcontext()])
     hs = list(tokens)
     with layers.lm_precision():
-        for s in shards:
-            with on[s]:
-                hs[s] = _embed_inputs(cfg, params[s], tokens[s])
-                for p, cache in zip(params[s]["head_layers"],
-                                    states[s]["head"]):
-                    hs[s], _, _ = apply_layer(
-                        cfg, p, hs[s], "a", "dense", "decode", cache=cache,
-                        cache_len=states[s]["cache_len"])
+        with obs.span("embed"):
+            for s in shards:
+                with on[s]:
+                    hs[s] = _embed_inputs(cfg, params[s], tokens[s])
+        for i in range(len(params[0]["head_layers"])):
+            with obs.span("layer.attn"):
+                for s in shards:
+                    with on[s]:
+                        hs[s], _ = _mix_sublayer(
+                            cfg, params[s]["head_layers"][i], hs[s], "a",
+                            "decode", cache=states[s]["head"][i],
+                            cache_len=states[s]["cache_len"])
+            with obs.span("layer.mlp"):
+                for s in shards:
+                    with on[s]:
+                        hs[s] = _ffn_sublayer(
+                            cfg, params[s]["head_layers"][i], hs[s],
+                            "dense")[0]
         for r in range(n_repeats(cfg)):
             for pos, (mixer, ffn) in enumerate(struct):
                 views: dict = {}   # one view per params copy
@@ -441,36 +458,45 @@ def decode_shards(cfg: ArchConfig, params: list, states: list,
                     if id(p) not in views:
                         views[id(p)] = index_tree(p["blocks"][pos], r)
                 ps = [views[id(p)] for p in params]
-                caches, news, xs = [], [], []
-                for s in shards:
-                    caches.append(tuple(leaf[r]
-                                        for leaf in states[s]["layers"][pos]))
-                    with on[s]:
-                        hs[s], new = _mix_sublayer(
-                            cfg, ps[s], hs[s], mixer, "decode",
-                            cache=caches[s],
-                            cache_len=states[s]["cache_len"])
-                        if ffn == "moe":
-                            xs.append(_norm(hs[s], ps[s]["norm2"]))
-                        else:
-                            hs[s] = _ffn_sublayer(cfg, ps[s], hs[s], ffn)[0]
-                    news.append(new)
-                if ffn == "moe":
-                    outs = moe.apply_moe_gathered(
-                        [p["moe"] for p in ps], xs, top_k=cfg.moe.top_k,
-                        quant_mode=cfg.quant_mode)
+                caches, news = [], []
+                with obs.span(MIXER_SPANS[mixer]):
                     for s in shards:
+                        caches.append(tuple(
+                            leaf[r] for leaf in states[s]["layers"][pos]))
                         with on[s]:
-                            hs[s] = _residual(hs[s], outs[s])
+                            hs[s], new = _mix_sublayer(
+                                cfg, ps[s], hs[s], mixer, "decode",
+                                cache=caches[s],
+                                cache_len=states[s]["cache_len"])
+                        news.append(new)
+                if ffn == "moe":
+                    with obs.span("layer.moe"):
+                        xs = []
+                        for s in shards:
+                            with on[s]:
+                                xs.append(_norm(hs[s], ps[s]["norm2"]))
+                        outs = moe.apply_moe_gathered(
+                            [p["moe"] for p in ps], xs, top_k=cfg.moe.top_k,
+                            quant_mode=cfg.quant_mode)
+                        for s in shards:
+                            with on[s]:
+                                hs[s] = _residual(hs[s], outs[s])
+                elif ffn == "dense":
+                    with obs.span("layer.mlp"):
+                        for s in shards:
+                            with on[s]:
+                                hs[s] = _ffn_sublayer(cfg, ps[s], hs[s],
+                                                      ffn)[0]
                 if mixer != "a":
                     for s in shards:
                         with on[s]:
                             for old, nw in zip(caches[s], news[s]):
                                 old.copy_(nw)
         logits = []
-        for s in shards:
-            with on[s]:
-                logits.append(_logits(cfg, params[s], hs[s]))
+        with obs.span("head"):
+            for s in shards:
+                with on[s]:
+                    logits.append(_logits(cfg, params[s], hs[s]))
     new_states = [{"cache_len": st["cache_len"] + 1, "layers": st["layers"],
                    "head": st["head"]} for st in states]
     return logits, new_states

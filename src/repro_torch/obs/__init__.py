@@ -13,9 +13,13 @@ Three planes, one bundle:
 * ``MetricsRegistry`` (registry.py) — counters, gauges, fixed-bucket
   log-linear ``Histogram``\\ s (p50..p999 with bounded relative error)
   and exact-while-short ``Reservoir``\\ s, with strict-JSON snapshots.
-* ``Tracer`` (trace.py) — lightweight spans over the hop pipeline,
-  exported as Chrome trace-event JSON (open in Perfetto), with an
-  opt-in ``torch.profiler`` bridge for kernel-level drill-down.
+* ``Tracer`` (trace.py) — lightweight spans with parent links over the
+  hop pipeline, ingest, joins and the LM tick down to its layers,
+  exported as Chrome trace-event JSON (open in Perfetto); while a
+  ``torch.profiler`` profile records, every context-managed span is also
+  a ``record_function`` range there, beside the CUDA kernels.
+  ``span(name)`` records from code that holds no tracer (the model stack,
+  the MoE dispatch) into the tracer of the innermost open span.
 * ``EventLog`` (events.py) — JSONL lifecycle records (join / close /
   resize / rebalance / detection / mass-join) with monotonic
   timestamps, mirrored into ``utils.logging`` behind a per-kind rate
@@ -24,6 +28,9 @@ Three planes, one bundle:
 ``Observability`` glues them together; ``StreamScheduler`` and
 ``serve.Engine`` accept one via ``obs=`` (and build an enabled default
 otherwise, so instrumentation is always on and always bounded).
+``live()`` lists the bundles alive in the process, in order of creation
+(weak references), for an exporter or a benchmark's reader that holds no
+handle on the runtime.
 
     >>> from repro_torch.obs import Observability
     >>> obs = Observability.create()
@@ -36,6 +43,7 @@ otherwise, so instrumentation is always on and always bounded).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 from repro_torch.obs.events import EventLog
 from repro_torch.obs.registry import (
@@ -45,7 +53,15 @@ from repro_torch.obs.registry import (
     MetricsRegistry,
     Reservoir,
 )
-from repro_torch.obs.trace import Tracer, coverage, overlap_stats
+from repro_torch.obs.trace import Tracer, coverage, overlap_stats, span
+
+#: weak references to every bundle made, in order (dead ones pruned)
+_LIVE: list[weakref.ref] = []
+
+
+def live() -> list["Observability"]:
+    """The bundles alive in the process, oldest first."""
+    return [o for o in (r() for r in _LIVE) if o is not None]
 
 
 @dataclasses.dataclass
@@ -56,19 +72,21 @@ class Observability:
     trace: Tracer
     events: EventLog
 
+    def __post_init__(self) -> None:
+        _LIVE[:] = [r for r in _LIVE if r() is not None]
+        _LIVE.append(weakref.ref(self))
+
     @classmethod
     def create(cls, *, enabled: bool = True, trace_capacity: int = 65536,
                event_path=None, event_capacity: int = 4096,
-               torch_profiler: bool = False,
                mirror_events: bool = True) -> "Observability":
         """Build a bundle; ``enabled=False`` keeps the registry (metrics
-        stay cheap and bounded) but turns spans into no-ops and stops
-        event mirroring — the knob the overhead microbench compares
-        against."""
+        stay cheap and bounded) but turns spans into no-ops, stops event
+        mirroring and stops the LM engine's expert tally — the knob the
+        overhead microbench compares against."""
         return cls(
             registry=MetricsRegistry(),
-            trace=Tracer(capacity=trace_capacity, enabled=enabled,
-                         torch_profiler=torch_profiler),
+            trace=Tracer(capacity=trace_capacity, enabled=enabled),
             events=EventLog(path=event_path, capacity=event_capacity,
                             mirror=enabled and mirror_events),
         )
@@ -84,5 +102,7 @@ __all__ = [
     "Reservoir",
     "Tracer",
     "coverage",
+    "live",
     "overlap_stats",
+    "span",
 ]

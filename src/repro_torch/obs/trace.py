@@ -1,56 +1,169 @@
-"""Per-hop trace spans with Chrome trace-event export.
+"""Spans over the runtime's work, with parent links, Chrome trace-event
+export and ranges in a running ``torch.profiler`` trace.
 
 The streaming hop is a pipeline (pack -> dispatch -> device -> detector)
-and the ROADMAP's async-overlap work will be judged by *where inside the
-hop* the time goes, not by one aggregate number.  ``Tracer`` records
-lightweight spans into a bounded ring (O(1) memory over unbounded
-uptime, same discipline as the metrics registry) and exports them as
-Chrome trace-event JSON — load the file at ``ui.perfetto.dev`` (or
+and the LM tick a stack of layers; either is judged by *where inside* the
+time goes, not by one aggregate number.  ``Tracer`` records lightweight
+spans into a bounded ring (O(1) memory over unbounded uptime, same
+discipline as the metrics registry) and exports them as Chrome
+trace-event JSON: load the file at ``ui.perfetto.dev`` (or
 ``chrome://tracing``) to see every hop's phase breakdown on a timeline.
 
-Two recording APIs:
+Recording:
 
-* ``with tracer.span("pack"):`` — the general context-manager form
-  (lifecycle work: resize, rebalance, prime_batch, LM prefill).
-* ``tracer.add("pack", t0, dur)`` — raw form for the hop hot path,
-  where the caller already holds ``time.perf_counter()`` stamps for the
-  metrics phases and a second clock read per phase would be waste.
+* ``with tracer.span("push"):`` the context-manager form.  While a
+  ``torch.profiler`` profile records, the span also opens a
+  ``record_function`` range of its name, so it sits in the device trace,
+  on the profiler's clock, nested like the ring's spans; with no profile
+  recording this costs one check.  ``span.phases(names)`` stamps
+  back-to-back children of an open span (one clock read a phase, one
+  ``add_batch`` at the end), as ingest and a stream's join do.
+* ``tracer.add("pack", t0, dur)`` / ``add_batch`` the raw forms for the
+  hop hot path, where the caller already holds ``time.perf_counter()``
+  stamps for the metrics phases.  They are recorded after the fact, so
+  they are ring-only: a profile sees the ranges of the spans around them.
+* ``repro_torch.obs.span(name)`` for code that holds no tracer (the model
+  stack, the MoE dispatch): it records into the tracer whose span is the
+  innermost one open on this thread, and is a no-op when none is open or
+  that tracer is disabled.
 
-Timestamps are monotonic (``perf_counter``) relative to the tracer's
-epoch, exported in microseconds as the trace-event spec requires.
-Consecutive phases share boundary stamps, so the exported spans tile
-their parent ``hop`` span exactly (the bench asserts >= 95% coverage).
-
-``torch_profiler=True`` additionally wraps each ``span`` in
-``torch.profiler.record_function`` so the phase names show up inside a
-captured ``torch.profiler`` trace beside the CUDA kernels — opt-in, since
-it costs a profiler record even when no profile is being captured.
+Every span gets an id and its parent's: the innermost span of the same
+tracer open on this thread (a per-thread stack of open spans), or the
+parent ``add`` / ``add_batch`` are given.  Timestamps are monotonic
+(``perf_counter``) relative to the tracer's epoch, exported in
+microseconds as the trace-event spec requires.  Consecutive phases share
+boundary stamps, so the exported spans tile their parent exactly.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import json
 import threading
 import time
+from time import perf_counter as _clock
+
+from torch._C._autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+#: span ids, unique in the process (``next`` on a count is atomic)
+_ids = itertools.count(1)
+#: each thread's stack of open spans: ``[tracer, id]`` entries, the id
+#: None for a disabled tracer's span
+_local = threading.local()
+_NULL = contextlib.nullcontext()
+
+
+def _open_id(tracer) -> int | None:
+    """The id of ``tracer``'s innermost span open on this thread."""
+    for tr, sid in reversed(getattr(_local, "stack", ())):
+        if tr is tracer:
+            return sid
+    return None
+
+
+def span(name: str, **args):
+    """A span in the tracer of the innermost span open on this thread; a
+    shared no-op context when none is open or that tracer is disabled."""
+    st = getattr(_local, "stack", None)
+    if not st or st[-1][1] is None:
+        return _NULL
+    return _Span(st[-1][0], name, args)
+
+
+class _NoPhases:
+    """``phases`` of a disabled span: every call a no-op."""
+
+    __slots__ = ()
+
+    def mark(self) -> None:
+        pass
+
+    def record(self) -> None:
+        pass
+
+
+_NO_PHASES = _NoPhases()
+
+
+class Phases:
+    """Back-to-back children of an open span: ``mark()`` ends the running
+    phase (one clock read), ``record()`` adds every ended phase under the
+    span with one ``add_batch``.  The first phase starts at the span's own
+    start stamp, so the phases tile the span up to the last mark."""
+
+    __slots__ = ("_span", "_names", "_t")
+
+    def __init__(self, sp: "_Span", names: tuple[str, ...]) -> None:
+        self._span, self._names, self._t = sp, names, [sp.t0]
+
+    def mark(self) -> None:
+        self._t.append(_clock())
+
+    def record(self) -> None:
+        t = self._t
+        self._span.tracer.add_batch(
+            ((n, a, b - a, {}) for n, a, b in zip(self._names, t, t[1:])),
+            parent=self._span.id)
+
+
+class _Span:
+    """One open span (``Tracer.span``, ``obs.span``): ``id`` and ``t0``
+    (its ``perf_counter`` start) are set on entry."""
+
+    __slots__ = ("tracer", "name", "args", "id", "parent", "t0", "_range")
+
+    def __init__(self, tracer: "Tracer", name: str, args: dict) -> None:
+        self.tracer, self.name, self.args = tracer, name, args
+        self.id = None
+        self._range = None
+
+    def __enter__(self) -> "_Span":
+        tr = self.tracer
+        st = getattr(_local, "stack", None)
+        if st is None:
+            st = _local.stack = []
+        if not tr.enabled:
+            st.append((tr, None))
+            return self
+        self.parent = (st[-1][1] if st and st[-1][0] is tr
+                       else _open_id(tr))
+        self.id = next(_ids)
+        st.append((tr, self.id))
+        if _profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        self.t0 = _clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t1 = _clock()
+        _local.stack.pop()
+        if self.id is None:
+            return
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        self.tracer._append(self.name, self.t0, t1 - self.t0, self.args,
+                            self.id, self.parent)
+
+    def phases(self, names: tuple[str, ...]):
+        """Stamps for the back-to-back children ``names`` of this span
+        (a no-op object when the tracer is disabled)."""
+        return _NO_PHASES if self.id is None else Phases(self, names)
 
 
 class Tracer:
     """Bounded span recorder; disabled mode is a near-free no-op."""
 
     def __init__(self, capacity: int = 65536, enabled: bool = True,
-                 torch_profiler: bool = False,
                  process_name: str = "repro") -> None:
         self.enabled = enabled
         self.process_name = process_name
         self._events: collections.deque = collections.deque(maxlen=capacity)
         self._epoch = time.perf_counter()
         self.dropped = 0  # spans evicted from the ring (uptime > capacity)
-        self._record = None
-        if torch_profiler:
-            import torch.profiler  # deferred: opt-in only
-
-            self._record = torch.profiler.record_function
 
     @property
     def capacity(self) -> int:
@@ -61,20 +174,32 @@ class Tracer:
 
     # -- recording -----------------------------------------------------------
 
-    def add(self, name: str, t0: float, dur_s: float, **args) -> None:
-        """Record a completed span: ``t0`` is a ``time.perf_counter()``
-        stamp, ``dur_s`` its duration.  One deque append — cheap enough
-        for several calls per hop (the bench pins overhead <= 2% of hop
-        p50)."""
-        if not self.enabled:
-            return
+    def _append(self, name, t0, dur_s, args, sid, parent) -> None:
+        # empty args stored as None: a ring entry of atomic fields only
+        # is untracked by the cyclic collector, which then never walks it
         ev = self._events
         if len(ev) == ev.maxlen:
             self.dropped += 1
-        ev.append((name, t0 - self._epoch, dur_s, threading.get_ident(), args))
+        ev.append((name, t0 - self._epoch, dur_s, threading.get_ident(),
+                   args or None, sid, parent))
 
-    def add_batch(self, spans) -> None:
-        """Record several completed spans in one call.
+    def add(self, name: str, t0: float, dur_s: float, *,
+            parent: int | None = None, **args) -> int | None:
+        """Record a completed span: ``t0`` is a ``time.perf_counter()``
+        stamp, ``dur_s`` its duration, its parent ``parent`` or else the
+        innermost span of this tracer open on this thread.  One deque
+        append -> the span's id (None when disabled)."""
+        if not self.enabled:
+            return None
+        sid = next(_ids)
+        self._append(name, t0, dur_s, args, sid,
+                     _open_id(self) if parent is None else parent)
+        return sid
+
+    def add_batch(self, spans, parent: int | None = None) -> None:
+        """Record several completed spans in one call, each a child of
+        ``parent`` (default: the innermost span of this tracer open on this
+        thread).
 
         The hop hot path stamps every phase with consecutive
         ``perf_counter`` reads and hands them all over at once — one
@@ -87,34 +212,19 @@ class Tracer:
         epoch = self._epoch
         tid = threading.get_ident()
         maxlen = ev.maxlen
+        if parent is None:
+            parent = _open_id(self)
         for name, t0, dur_s, args in spans:
             if len(ev) == maxlen:
                 self.dropped += 1
-            ev.append((name, t0 - epoch, dur_s, tid, args))
+            ev.append((name, t0 - epoch, dur_s, tid, args or None,
+                       next(_ids), parent))
 
-    @contextlib.contextmanager
-    def span(self, name: str, **args):
-        """Context-managed span; body exceptions still close the span."""
-        if not self.enabled:
-            yield
-            return
-        if self._record is not None:
-            with self._record(name):
-                t0 = time.perf_counter()
-                try:
-                    yield
-                finally:
-                    self.add(name, t0, time.perf_counter() - t0, **args)
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, t0, time.perf_counter() - t0, **args)
-
-    def instant(self, name: str, **args) -> None:
-        """Zero-duration marker (joins, detections, ...)."""
-        self.add(name, time.perf_counter(), 0.0, **args)
+    def span(self, name: str, **args) -> _Span:
+        """Context-managed span (body exceptions still close it); entered,
+        it is the parent of what this thread records inside it, and while
+        a ``torch.profiler`` profile records, a range of the same name."""
+        return _Span(self, name, args)
 
     def reset(self) -> None:
         self._events.clear()
@@ -123,10 +233,13 @@ class Tracer:
     # -- reporting -----------------------------------------------------------
 
     def spans(self, name: str | None = None) -> list[dict]:
-        """Retained spans as dicts (seconds, tracer-epoch-relative)."""
+        """Retained spans as dicts (seconds, tracer-epoch-relative), in
+        the order recorded (a context-managed span after its children),
+        each with its ``id`` and its ``parent``'s (None at the top)."""
         return [
-            {"name": n, "t0": t0, "dur_s": dur, "tid": tid, "args": args}
-            for n, t0, dur, tid, args in self._events
+            {"name": n, "t0": t0, "dur_s": dur, "tid": tid,
+             "args": args or {}, "id": sid, "parent": parent}
+            for n, t0, dur, tid, args, sid, parent in self._events
             if name is None or n == name
         ]
 
@@ -144,7 +257,7 @@ class Tracer:
             events = events[-last:]
         tids = {}
         out = []
-        for name, t0, dur, tid, args in events:
+        for name, t0, dur, tid, args, _, _ in events:
             tids.setdefault(tid, len(tids))
             ev = {
                 "name": name,

@@ -44,7 +44,18 @@ engine's, not a fixed pool's).
 The engine runs where its params lie (over a mesh, on its devices; the
 params must lie on one of them); CUDA params with no card raise.  Every
 decode tick syncs with the host once per device, for the sampled
-tokens.  The
+tokens.
+
+Each tick is traced (``obs``): ``decode`` holds ``decode.issue`` (the
+model's step, which returns once its kernels are enqueued; the model's
+own ``embed``, ``layer.*``, ``moe.*`` and ``head`` spans hang under it),
+``decode.sample`` and ``decode.fence`` (the tokens' host copy, the wait
+on the card); ``step_async`` splits them over ``decode_dispatch`` and
+``decode_retire``, and a prefill's layer spans hang under ``prefill``.
+While the tracer is enabled, the MoE layers' expert counts of a decode
+tick (``moe.expert_tally``) are read with its tokens and folded into the
+registry's ``serve.moe_assigned`` / ``_kept`` / ``_rows`` /
+``_experts_hit`` / ``_layer_ticks`` counters.  The
 clock ``cache_len`` is shared by all slots and merged with ``max`` at an
 install, as in the reference (ROADMAP C.6, reproduced: a request
 installed while the clock is ahead attends to the zero rows between its
@@ -53,6 +64,7 @@ the last row).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -67,7 +79,7 @@ from repro_torch.launch.mesh import (
     current,
     dp_size,
 )
-from repro_torch.models import api
+from repro_torch.models import api, moe
 from repro_torch.obs import Observability
 from repro_torch.runtime import InFlightQueue, SlotPool, infer_slot_axes
 from repro_torch.runtime.pool import tree_map
@@ -414,6 +426,35 @@ class Engine:
 
     # -- decode tick -----------------------------------------------------------
 
+    def _tally(self):
+        """The MoE layers' expert tally over one tick's decode call
+        (``moe.expert_tally``); a no-op while the tracer is disabled."""
+        if not self.obs.trace.enabled:
+            return contextlib.nullcontext()
+        return moe.expert_tally()
+
+    def _fold_tally(self, tally) -> None:
+        """Fold one tick's expert tally into the registry, after its
+        tokens' copy: summed over its MoE layers, the (token, slot)
+        assignments, those kept under capacity, the E x C bucket rows
+        computed and the distinct experts hit, and the layer count."""
+        if not tally:
+            return
+        # one (groups, E) block of counts a layer: stacked as rows, each
+        # row with its layer's capacity
+        counts = torch.cat([c.reshape(-1, c.shape[-1]) for c, _ in tally]
+                           ).cpu().numpy()
+        groups = [c.numel() // c.shape[-1] for c, _ in tally]
+        caps = np.repeat([cap for _, cap in tally], groups)
+        per_layer = np.add.reduceat(counts, np.cumsum([0] + groups[:-1]))
+        reg = self.obs.registry
+        reg.counter("serve.moe_assigned").inc(int(counts.sum()))
+        reg.counter("serve.moe_kept").inc(
+            int(np.minimum(counts, caps[:, None]).sum()))
+        reg.counter("serve.moe_rows").inc(int(caps.sum()) * counts.shape[1])
+        reg.counter("serve.moe_experts_hit").inc(int((per_layer > 0).sum()))
+        reg.counter("serve.moe_layer_ticks").inc(len(tally))
+
     def step(self) -> list[Request]:
         """One continuous-batching tick: fill slots, decode, retire."""
         self._fill_slots()
@@ -421,13 +462,19 @@ class Engine:
         if not active:
             return []
         last = self._feed()
-        with self.obs.trace.span("decode", active=len(active)):
+        trace = self.obs.trace
+        with trace.span("decode", active=len(active)):
             t0 = time.perf_counter()
-            logits, self.state = self._decode(self._tick_params,
-                                              self.state, last)
+            with trace.span("decode.issue"), self._tally() as tally:
+                logits, self.state = self._decode(self._tick_params,
+                                                  self.state, last)
+            with trace.span("decode.sample"):
+                toks = self._sample(logits)
             # the tokens' copy to the host (one a device) is the tick's
             # sync: the recorded tick is the decode step, not its enqueue
-            toks = self._sample(logits).cpu().numpy()
+            with trace.span("decode.fence"):
+                toks = toks.cpu().numpy()
+                self._fold_tally(tally)
             self._decode_hist.record(time.perf_counter() - t0)
         finished = []
         for slot in active:
@@ -466,11 +513,14 @@ class Engine:
         if active:
             if self._last_tok is None:
                 self._last_tok = self._feed()
-            with self.obs.trace.span("decode_dispatch", active=len(active)):
+            trace = self.obs.trace
+            with trace.span("decode_dispatch", active=len(active)):
                 t0 = time.perf_counter()
-                logits, self.state = self._decode(
-                    self._tick_params, self.state, self._last_tok)
-                toks = self._sample(logits)
+                with trace.span("decode.issue"), self._tally() as tally:
+                    logits, self.state = self._decode(
+                        self._tick_params, self.state, self._last_tok)
+                with trace.span("decode.sample"):
+                    toks = self._sample(logits)
                 self._last_tok = (toks.map(lambda t: t[:, None])
                                   if isinstance(toks, ShardRows)
                                   else toks[:, None])
@@ -485,7 +535,7 @@ class Engine:
                 snapshot.append((slot, req, finishing))
                 if finishing:
                     self._release(slot)  # refill next tick
-            self._pending.push((toks, snapshot, t0, fences))
+            self._pending.push((toks, snapshot, t0, fences, tally))
         # finishes folded by an epoch barrier (a grow inside _fill_slots,
         # a shrink/rebalance at the tick boundary) surface here
         finished = self._take_barrier_finished()
@@ -505,11 +555,14 @@ class Engine:
     def _retire_tick(self, item, still_in_flight: bool) -> list[Request]:
         """Fence on the oldest in-flight tick and append its host-side
         tokens; emits ``lm_finish`` for requests that completed there."""
-        toks, snapshot, t0, fences = item
-        with self.obs.trace.span("decode_retire", n=len(snapshot)):
+        toks, snapshot, t0, fences, tally = item
+        trace = self.obs.trace
+        with trace.span("decode_retire", n=len(snapshot)), \
+                trace.span("decode.fence"):
             for ev in fences:
                 ev.synchronize()
             toks_h = toks.cpu().numpy()  # fence + one copy a device
+            self._fold_tally(tally)
         self._decode_hist.record(time.perf_counter() - t0)
         finished = []
         for slot, req, finishing in snapshot:

@@ -14,13 +14,13 @@ Step timing covers the whole per-hop pipeline *including* per-slot
 finalized logits: finalization runs inside the batched step (the fused
 tail), so there is no separate host-side peek bucket to account for — the
 step latency percentile IS the hop-to-logits latency.  Each step records
-the split between *host packing* (building the batched audio/mask from
-the shared ``RingArena`` — the part the vectorized ingest plane exists to
-shrink) and everything else (device step + transfers + batched detector),
-so a regression in either half is visible on its own
-(``host_pack_ms_p50`` / ``device_ms_p50`` in ``summary``), plus the
-finer per-phase split (pack / dispatch / device / detector) the
-scheduler's fenced trace spans measure.
+its fenced per-phase split, as the scheduler's trace spans stamp it:
+host pack (building the batched audio/mask from the shared
+``RingArena``), dispatch, device (the fence and the result copies) and
+the batched detector; ``phase_summary`` reports each phase's quantiles,
+total and share of the hop (``host_pack_ms_p50/p95`` also in
+``summary``).  Ingest (``push_audio_batch``) and joins are not hop
+phases: their split is in the scheduler's ``push.*`` / ``join.*`` spans.
 
 **Bounded over unbounded uptime.**  Nothing here grows with step count
 or stream count: latencies land in fixed-size ring ``Reservoir``\\ s
@@ -181,7 +181,9 @@ PHASES = ("pack", "dispatch", "device", "detector")
 
 
 class StreamMetrics:
-    """Aggregates per-stream counters + per-step wall latencies.
+    """Aggregates per-stream counters + per-step wall latencies and the
+    hop's fenced phase split (pack / dispatch / device / detector, the
+    ``phase_summary`` the scheduler's spans stamp).
 
     Under a mesh (``n_shards > 1``) each step also records how many ready
     streams each shard advanced, so ``shard_summary`` can report per-shard
@@ -218,10 +220,8 @@ class StreamMetrics:
         # latency series: exact ring reservoirs + all-sample histograms
         self._wall_res = Reservoir(reservoir)
         self._pack_res = Reservoir(reservoir)
-        self._dev_res = Reservoir(reservoir)   # wall - pack (legacy split)
         self._wall_hist = self._hist("stream.step_wall_s")
         self._pack_hist = self._hist("stream.step_pack_s")
-        self._dev_hist = self._hist("stream.step_device_s")
         # the fenced per-phase split (pack shares the series above)
         self._phase_res = {p: Reservoir(reservoir) for p in PHASES[1:]}
         self._phase_hist = {p: self._hist(f"stream.phase_{p}_s")
@@ -332,7 +332,6 @@ class StreamMetrics:
         assert len(shard_counts) == self.n_shards, (shard_counts, self.n_shards)
         self._rec(self._wall_res, self._wall_hist, wall_s)
         self._rec(self._pack_res, self._pack_hist, host_pack_s)
-        self._rec(self._dev_res, self._dev_hist, wall_s - host_pack_s)
         pt = self._phase_total
         pt["pack"] += host_pack_s
         for p, v in (("dispatch", dispatch_s), ("device", device_s),
@@ -417,10 +416,10 @@ class StreamMetrics:
         and the step/throughput aggregates (NOT lifecycle counters or the
         energy ledger, which stay cumulative).  Benches call this after
         warm-up so ``summary()`` reports steady-state quantiles."""
-        for r in (self._wall_res, self._pack_res, self._dev_res,
+        for r in (self._wall_res, self._pack_res,
                   *self._phase_res.values()):
             r.reset()
-        for h in (self._wall_hist, self._pack_hist, self._dev_hist,
+        for h in (self._wall_hist, self._pack_hist,
                   *self._phase_hist.values()):
             h.reset()
         self._phase_total = dict.fromkeys(PHASES, 0.0)
@@ -475,14 +474,10 @@ class StreamMetrics:
             "step_ms_p95": self._q(self._wall_res, self._wall_hist, 95),
             "step_ms_p99": self._q(self._wall_res, self._wall_hist, 99),
             "step_ms_p999": self._q(self._wall_res, self._wall_hist, 99.9),
-            # the hop's host/device split: pack = building the batched
-            # audio+mask from the arena; device = step + transfers +
-            # batched detector.  Regressions in either half show alone.
+            # host pack: building the batched audio+mask from the arena
+            # (the other phases: ``phase_summary``)
             "host_pack_ms_p50": self._q(self._pack_res, self._pack_hist, 50),
             "host_pack_ms_p95": self._q(self._pack_res, self._pack_hist, 95),
-            "device_ms_p50": self._q(self._dev_res, self._dev_hist, 50),
-            "device_ms_p95": self._q(self._dev_res, self._dev_hist, 95),
-            "device_ms_p99": self._q(self._dev_res, self._dev_hist, 99),
             "latency_estimated": float(self.latency_estimated),
             "mean_batch_occupancy": self.stream_hops_total / self.steps
             if self.steps else 0.0,
@@ -590,10 +585,8 @@ class StreamMetrics:
         plus an entry-count charge for the dict/deque containers.  The
         constant-memory-over-10k-steps test pins this value flat."""
         n = sum(r.nbytes for r in (self._wall_res, self._pack_res,
-                                   self._dev_res,
                                    *self._phase_res.values()))
         n += sum(h.nbytes for h in (self._wall_hist, self._pack_hist,
-                                    self._dev_hist,
                                     *self._phase_hist.values()))
         n += self._shard_hops.nbytes
         n += 64 * (len(self.streams) + len(self.retired)

@@ -121,6 +121,14 @@ BACKENDS = ("torch", "megakernel", "per_stage")
 #: pool row 0 always holds the scheduler's construction weights
 DEFAULT_MODEL = "default"
 
+#: the children of ``push_audio_batch``'s ``push`` span, back to back:
+#: sids to slots (and the coalesce), the arena's flatten / check /
+#: quantize, its index arrays, its scatter and counters
+PUSH_PHASES = ("push.resolve", "push.stage", "push.index", "push.scatter")
+#: the children of ``add_stream``'s ``join`` span, back to back
+JOIN_PHASES = ("join.alloc", "join.frontend", "join.detector",
+               "join.record")
+
 # ---------------------------------------------------------------------------
 # Memoized parameter prep (exported numpy dicts -> device tensors)
 # ---------------------------------------------------------------------------
@@ -1198,6 +1206,37 @@ class StreamScheduler:
         single-model."""
         sid = self._next_sid if sid is None else sid
         assert sid not in self._streams, f"stream {sid} already exists"
+        with self.obs.trace.span("join", sid=sid) as sp:
+            ph = sp.phases(JOIN_PHASES)
+            slot, model_id, midx = self._join_alloc(sid, model)
+            ph.mark()
+            self._next_sid = max(self._next_sid, sid) + 1
+            self._streams[sid] = _Stream(
+                sid=sid,
+                slot=slot,
+                frontend=AudioFrontend(frontend_cfg, arena=self._arena,
+                                       slot=slot),
+                events=[],
+                model=model_id,
+            )
+            self._slot_sid[slot] = sid
+            self._model_idx_v[slot] = midx
+            self._model_rows_dirty = True  # block fill happens at sync
+            ph.mark()
+            self._detector.reset_slot(slot)
+            ph.mark()
+            self._unprimed.add(sid)
+            self.metrics.on_join(sid)
+            self.obs.events.emit("join", sid=sid, slot=slot,
+                                 shard=slot // self._slots.shard_capacity)
+            ph.mark()
+        ph.record()
+        return sid
+
+    def _join_alloc(self, sid: int, model: str | None
+                    ) -> tuple[int, str, int]:
+        """A joining stream's tenant row and slot -> (slot, model id, pool
+        row)."""
         if self._pool is not None:
             model_id = DEFAULT_MODEL if model is None else model
             if model_id not in self._pool:
@@ -1219,24 +1258,7 @@ class StreamScheduler:
             if self._pool is not None:
                 self._pool.release(model_id)
             raise
-        self._next_sid = max(self._next_sid, sid) + 1
-        self._streams[sid] = _Stream(
-            sid=sid,
-            slot=slot,
-            frontend=AudioFrontend(frontend_cfg, arena=self._arena,
-                                   slot=slot),
-            events=[],
-            model=model_id,
-        )
-        self._slot_sid[slot] = sid
-        self._model_idx_v[slot] = midx
-        self._model_rows_dirty = True  # block fill happens at sync
-        self._detector.reset_slot(slot)
-        self._unprimed.add(sid)
-        self.metrics.on_join(sid)
-        self.obs.events.emit("join", sid=sid, slot=slot,
-                             shard=slot // self._slots.shard_capacity)
-        return sid
+        return slot, model_id, midx
 
     def _require(self, sid: int) -> _Stream:
         s = self._streams.get(sid)
@@ -1261,18 +1283,24 @@ class StreamScheduler:
         duplicate-sid chunks coalesce in arrival order (float chunks
         pre-quantized with the slot's gain), so the single scatter stays
         bit-identical to sequential pushes."""
-        streams = [self._require(sid) for sid in sids]
-        slots = np.fromiter((s.slot for s in streams), np.int64, len(streams))
-        if np.unique(slots).size != slots.size:
-            slots, chunks, extra = self._coalesce_chunks(slots, chunks)
-        else:
-            extra = None
-        self._arena.push_batch(slots, chunks)
-        if extra is not None:
-            # credit the chunks the coalesce merged away (push_batch
-            # counted one per slot) so chunks_in stays arrival-accurate
-            self._arena.chunks_in[slots] += extra
-            self._arena.total_chunks_in += int(extra.sum())
+        with self.obs.trace.span("push", n=len(sids)) as sp:
+            ph = sp.phases(PUSH_PHASES)
+            streams = [self._require(sid) for sid in sids]
+            slots = np.fromiter((s.slot for s in streams), np.int64,
+                                len(streams))
+            if np.unique(slots).size != slots.size:
+                slots, chunks, extra = self._coalesce_chunks(slots, chunks)
+            else:
+                extra = None
+            ph.mark()
+            self._arena.push_batch(slots, chunks, mark=ph.mark)
+            if extra is not None:
+                # credit the chunks the coalesce merged away (push_batch
+                # counted one per slot) so chunks_in stays arrival-accurate
+                self._arena.chunks_in[slots] += extra
+                self._arena.total_chunks_in += int(extra.sum())
+            ph.mark()
+        ph.record()
 
     def _coalesce_chunks(self, slots: np.ndarray, chunks: list[np.ndarray]
                          ) -> tuple[np.ndarray, list[np.ndarray], np.ndarray]:
@@ -1554,15 +1582,15 @@ class StreamScheduler:
         # union coverage (``coverage(mode="overlap")``) accounts for.
         # One batched call, B-independent.
         n_ready = int(ready_slots.size)
-        self.obs.trace.add_batch((
+        trace = self.obs.trace
+        trace.add_batch((
             ("pack", t0, t_pack - t0, {"n": n_ready}),
             ("dispatch", t_pack, t_dispatch - t_pack, {}),
             ("device", t_dispatch, t_device - t_dispatch,
              {"dispatches": dispatches}),
             ("detector", t_device, t_detector - t_device, {}),
             ("push_fold", t_detector, t_end - t_detector, {}),
-            ("hop", t0, t_end - t0, {"n": n_ready}),
-        ))
+        ), parent=trace.add("hop", t0, t_end - t0, n=n_ready))
         return HopBatch(sids=sids, frames=frames, logits=rows_logits,
                         posteriors=rows_post, detections=detections)
 

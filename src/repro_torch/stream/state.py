@@ -240,7 +240,8 @@ class RingArena:
         """Append one stream's chunk (float PCM or u8 codes)."""
         self.push_batch(np.array([slot], np.int64), [audio])
 
-    def push_batch(self, slots: np.ndarray, chunks: list[np.ndarray]) -> None:
+    def push_batch(self, slots: np.ndarray, chunks: list[np.ndarray],
+                   mark=None) -> None:
         """Append one chunk per slot for many streams in one call.
 
         Float chunks are quantized in a single vectorized pass (each
@@ -248,7 +249,9 @@ class RingArena:
         are range-checked in a single pass, and everything lands in the
         arena with ONE flat scatter — no python loop over samples.  Slots
         must be unique within a call (chunk order per slot would otherwise
-        be ambiguous).
+        be ambiguous).  ``mark`` (the caller's ``Phases.mark``) is called
+        once the samples are staged in one flat array and once the
+        scatter's index arrays are built.
         """
         slots = np.asarray(slots, np.int64)
         assert slots.size == len(chunks), (slots.size, len(chunks))
@@ -291,11 +294,15 @@ class RingArena:
                     f"min {codes.min()}, max {codes.max()}"
                 )
             flat[~sample_is_f] = codes.astype(np.uint8, copy=False)
+        if mark is not None:
+            mark()
         # flat scatter: (slot row, wrapped column) per sample
         starts = np.cumsum(lens) - lens
         rows = np.repeat(slots, lens)
         offs = np.arange(total) - np.repeat(starts, lens)
         cols = (np.repeat(self.wr[slots], lens) + offs) % self.capacity_samples
+        if mark is not None:
+            mark()
         with self._write():
             self.data[rows, cols] = flat
             self.wr[slots] += lens

@@ -5,6 +5,7 @@ reference's, on the same seeded inputs; plus the import guard that keeps
 the port free of ``jax`` and of the reference package."""
 import ast
 import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import _torch_port_cases as cases
 from repro.models import kws as ref_kws
@@ -23,6 +25,7 @@ from repro.stream import detector as ref_det
 from repro.stream import metrics as ref_metrics
 from repro.stream import state as ref_state
 from repro.kernels import ops as ref_ops
+from repro_torch import obs as port_obs
 from repro_torch.obs import Observability
 from repro_torch.runtime import pool as port_pool
 from repro_torch.runtime import remap as port_remap
@@ -232,11 +235,28 @@ def test_energy_ledgers_match(hf):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), fn
 
 
-def test_tracer_profiler_bridge_records_spans():
-    obs = Observability.create(torch_profiler=True, mirror_events=False)
-    with obs.trace.span("pack", n=3):
+def test_tracer_profiler_bridge_records_spans(tmp_path):
+    """Under a running profile every context-managed span (the tracer's
+    and ``obs.span``'s) is also a ``user_annotation`` range of its name,
+    nested as in the ring; outside one only the ring records."""
+    obs = Observability.create(mirror_events=False)
+    with obs.trace.span("outside"):
         pass
-    assert len(obs.trace) == 1
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.trace.span("push", n=3):
+            with port_obs.span("layer.moe"):
+                torch.zeros(4).add_(1)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ranges = {e["name"]: e for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"push", "layer.moe"} <= set(ranges)
+    assert "outside" not in ranges
+    outer, inner = ranges["push"], ranges["layer.moe"]
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    assert [s["name"] for s in obs.trace.spans()] == [
+        "outside", "layer.moe", "push"]
 
 
 # ---------------------------------------------------------------------------
