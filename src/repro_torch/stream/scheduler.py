@@ -123,7 +123,10 @@ DEFAULT_MODEL = "default"
 
 #: the children of ``push_audio_batch``'s ``push`` span, back to back:
 #: sids to slots (and the coalesce), the arena's flatten / check /
-#: quantize, its index arrays, its scatter and counters
+#: quantize, the landing coordinates and the landing with the counters.
+#: On ``RingArena.push_batch``'s block path the coordinates are one block
+#: index a row and the landing one block-row assignment; on its flat path
+#: they are index arrays of one entry a sample and a per-sample scatter.
 PUSH_PHASES = ("push.resolve", "push.stage", "push.index", "push.scatter")
 #: the children of ``add_stream``'s ``join`` span, back to back
 JOIN_PHASES = ("join.alloc", "join.frontend", "join.detector",
@@ -1024,8 +1027,8 @@ class StreamScheduler:
             inbox_samples if inbox_samples is not None
             else FrontendConfig().capacity_samples
         )
-        # whole hops only: keeps primed slots on pack_hops' block-aligned
-        # contiguous fast path (see RingArena.rebase)
+        # whole hops only: keeps primed slots on the block-aligned paths
+        # of pack_hops and push_batch (see RingArena.rebase)
         hop = self.plan.hop_samples
         self._inbox_samples = -(-base_inbox // hop) * hop
         self._arena = RingArena(cap0, self._inbox_samples)
@@ -1282,7 +1285,9 @@ class StreamScheduler:
         chunks may be mixed, and a sid may appear multiple times:
         duplicate-sid chunks coalesce in arrival order (float chunks
         pre-quantized with the slot's gain), so the single scatter stays
-        bit-identical to sequential pushes."""
+        bit-identical to sequential pushes.  The registry counts the
+        arena rows a call lands (``stream.push_rows``) and those that
+        took the arena's block path (``stream.push_block_rows``)."""
         with self.obs.trace.span("push", n=len(sids)) as sp:
             ph = sp.phases(PUSH_PHASES)
             streams = [self._require(sid) for sid in sids]
@@ -1293,7 +1298,10 @@ class StreamScheduler:
             else:
                 extra = None
             ph.mark()
-            self._arena.push_batch(slots, chunks, mark=ph.mark)
+            block = self._arena.push_batch(slots, chunks, mark=ph.mark)
+            reg = self.obs.registry
+            reg.counter("stream.push_rows").inc(int(slots.size))
+            reg.counter("stream.push_block_rows").inc(block)
             if extra is not None:
                 # credit the chunks the coalesce merged away (push_batch
                 # counted one per slot) so chunks_in stays arrival-accurate

@@ -138,6 +138,27 @@ def quantize_pcm(x: np.ndarray, gain=1.0) -> np.ndarray:
     return np.clip(q, 0, 255).astype(np.uint8)
 
 
+def _u8_codes(ints: list[np.ndarray]) -> np.ndarray:
+    """Integer chunks as one flat array of u8 codes.  A chunk whose dtype
+    is not an integer raises ``TypeError``, a code outside [0, 255]
+    ``ValueError``, before anything is written."""
+    for c in ints:
+        if c.dtype.kind not in "iu":
+            raise TypeError(
+                f"audio must be float PCM or integer u8 codes, "
+                f"got dtype {c.dtype}"
+            )
+    codes = np.concatenate(ints)
+    if codes.dtype != np.uint8 and codes.size and (
+        codes.min() < 0 or codes.max() > 255
+    ):
+        raise ValueError(
+            f"integer sample codes out of u8 range [0, 255]: "
+            f"min {codes.min()}, max {codes.max()}"
+        )
+    return codes.astype(np.uint8, copy=False)
+
+
 class RingArena:
     """Struct-of-arrays sample inbox shared by EVERY stream slot.
 
@@ -150,7 +171,8 @@ class RingArena:
     argument: one shared, layout-flexible buffer beats per-tenant buffers.
     Every hot-path operation is one vectorized call:
 
-      * ``push_batch``   quantize + scatter chunks for many streams at once
+      * ``push_batch``   quantize + land chunks for many streams at once
+                         (whole block rows when the pushes are hop-aligned)
       * ``ready_mask``   which slots hold >= n samples (one compare)
       * ``pack_hops``    gather every ready slot's hop window into the
                          batched ``(capacity_slots, hop)`` int32 step input
@@ -236,80 +258,108 @@ class RingArena:
 
     # -- ingest (quantize + scatter) -----------------------------------------
 
-    def push(self, slot: int, audio: np.ndarray) -> None:
-        """Append one stream's chunk (float PCM or u8 codes)."""
-        self.push_batch(np.array([slot], np.int64), [audio])
+    def push(self, slot: int, audio: np.ndarray) -> int:
+        """Append one stream's chunk (float PCM or u8 codes); 1 if it
+        took ``push_batch``'s block path, else 0."""
+        return self.push_batch(np.array([slot], np.int64), [audio])
 
     def push_batch(self, slots: np.ndarray, chunks: list[np.ndarray],
-                   mark=None) -> None:
+                   mark=None) -> int:
         """Append one chunk per slot for many streams in one call.
 
-        Float chunks are quantized in a single vectorized pass (each
-        stream's fixed gain repeated across its samples), integer chunks
-        are range-checked in a single pass, and everything lands in the
-        arena with ONE flat scatter — no python loop over samples.  Slots
-        must be unique within a call (chunk order per slot would otherwise
-        be ambiguous).  ``mark`` (the caller's ``Phases.mark``) is called
-        once the samples are staged in one flat array and once the
-        scatter's index arrays are built.
+        Float chunks are quantized in a single vectorized pass with each
+        stream's fixed gain, integer chunks are range-checked in a single
+        pass, and everything lands in the arena in ONE assignment — no
+        python loop over samples.  Slots must be unique within a call
+        (chunk order per slot would otherwise be ambiguous).  The call
+        stages as one flat u8 array; its landing takes one of two paths,
+        chosen by the call's shape and the arena's pointers alone, with
+        the same resulting state:
+
+          * block: every chunk has one length ``L``, ``L`` divides the
+            region and every slot's write offset is a multiple of ``L``,
+            so no chunk can wrap.  The staged array, reshaped to ``(n,
+            L)``, lands as whole block rows of a ``(slots, cap // L, L)``
+            view of the arena — the twin of ``pack_hops``' aligned
+            gather, with no per-sample index array.  The scheduler's
+            steady state is here: whole hops into inboxes sized in whole
+            hops and rebased at priming.  Chunks of any other length
+            (say 20 ms frames into an inbox of whole hops) stay flat.
+          * flat: anything else scatters the staged array through (row,
+            wrapped column) index arrays, one entry per sample.
+
+        ``mark`` (the caller's ``Phases.mark``) is called once the samples
+        are staged and once their landing coordinates are built (block
+        indices or index arrays).  Returns how many rows took the block
+        path: ``len(slots)`` or 0.
         """
         slots = np.asarray(slots, np.int64)
         assert slots.size == len(chunks), (slots.size, len(chunks))
         if slots.size == 0:
-            return
+            return 0
         if np.unique(slots).size != slots.size:
             raise ValueError("push_batch slots must be unique per call")
         chunks = [np.asarray(c).reshape(-1) for c in chunks]
         lens = np.array([c.size for c in chunks], np.int64)
-        free = self.capacity_samples - (self.wr[slots] - self.rd[slots])
+        cap = self.capacity_samples
+        free = cap - (self.wr[slots] - self.rd[slots])
         if (lens > free).any():
             worst = int(np.argmax(lens - free))
             raise MemoryError(
                 f"arena overflow: push {lens[worst]} into {free[worst]} "
-                f"free of {self.capacity_samples} samples (slot "
-                f"{slots[worst]})"
+                f"free of {cap} samples (slot {slots[worst]})"
             )
         is_f = np.array([c.dtype.kind == "f" for c in chunks], bool)
         total = int(lens.sum())
-        flat = np.empty(total, np.uint8)
-        sample_is_f = np.repeat(is_f, lens)
-        if is_f.any():
-            pcm = np.concatenate([c for c, f in zip(chunks, is_f) if f])
-            g = np.repeat(self.gain[slots[is_f]], lens[is_f])
-            flat[sample_is_f] = quantize_pcm(pcm, g)
-        if not is_f.all():
-            ints = [c for c, f in zip(chunks, is_f) if not f]
-            for c in ints:
-                if c.dtype.kind not in "iu":
-                    raise TypeError(
-                        f"audio must be float PCM or integer u8 codes, "
-                        f"got dtype {c.dtype}"
-                    )
-            codes = np.concatenate(ints)
-            if codes.dtype != np.uint8 and codes.size and (
-                codes.min() < 0 or codes.max() > 255
-            ):
-                raise ValueError(
-                    f"integer sample codes out of u8 range [0, 255]: "
-                    f"min {codes.min()}, max {codes.max()}"
-                )
-            flat[~sample_is_f] = codes.astype(np.uint8, copy=False)
+        # stage one flat u8 array: a call of one kind concatenates, only a
+        # mixed call places each kind through a per-sample mask
+        if is_f.all():
+            staged = self._quantize(slots, chunks, lens)
+        elif not is_f.any():
+            staged = _u8_codes(chunks)
+        else:
+            staged = np.empty(total, np.uint8)
+            sample_is_f = np.repeat(is_f, lens)
+            staged[sample_is_f] = self._quantize(
+                slots[is_f], [c for c, f in zip(chunks, is_f) if f],
+                lens[is_f])
+            staged[~sample_is_f] = _u8_codes(
+                [c for c, f in zip(chunks, is_f) if not f])
         if mark is not None:
             mark()
-        # flat scatter: (slot row, wrapped column) per sample
-        starts = np.cumsum(lens) - lens
-        rows = np.repeat(slots, lens)
-        offs = np.arange(total) - np.repeat(starts, lens)
-        cols = (np.repeat(self.wr[slots], lens) + offs) % self.capacity_samples
+        width = int(lens[0])
+        start = self.wr[slots] % cap
+        block = bool(width and cap % width == 0 and (lens == width).all()
+                     and not (start % width).any())
+        if block:
+            # block path: slot s's chunk is block start // width of its row
+            dst = self.data.reshape(self.capacity_slots, cap // width, width)
+            at = (slots, start // width)
+            staged = staged.reshape(slots.size, width)
+        else:
+            # flat scatter: (slot row, wrapped column) per sample
+            starts = np.cumsum(lens) - lens
+            rows = np.repeat(slots, lens)
+            offs = np.arange(total) - np.repeat(starts, lens)
+            cols = (np.repeat(self.wr[slots], lens) + offs) % cap
+            dst, at = self.data, (rows, cols)
         if mark is not None:
             mark()
         with self._write():
-            self.data[rows, cols] = flat
+            dst[at] = staged
             self.wr[slots] += lens
             self.samples_in[slots] += lens
             self.chunks_in[slots] += 1
             self.total_samples_in += total
             self.total_chunks_in += slots.size
+        return slots.size if block else 0
+
+    def _quantize(self, slots: np.ndarray, chunks: list[np.ndarray],
+                  lens: np.ndarray) -> np.ndarray:
+        """Float chunks as one flat array of u8 codes, each stream's fixed
+        gain repeated across its samples."""
+        return quantize_pcm(np.concatenate(chunks),
+                            np.repeat(self.gain[slots], lens))
 
     # -- drain ---------------------------------------------------------------
 
@@ -369,8 +419,9 @@ class RingArena:
         """Move one slot's live samples to offset 0 (pointers reset, data
         compacted).  The scheduler calls this once per stream right after
         priming: from then on the hot path only consumes whole hops, so
-        the slot's windows stay block-aligned and ``pack_hops`` takes the
-        contiguous fast path forever."""
+        the slot's windows stay block-aligned: ``pack_hops`` takes the
+        contiguous fast path forever, and ``push_batch`` its block path
+        for every whole-hop push."""
         self.rebase_batch(np.array([slot], np.int64))
 
     def rebase_batch(self, slots: np.ndarray) -> None:

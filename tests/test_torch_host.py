@@ -89,6 +89,124 @@ def test_ring_arena_pack_ready_remap_parity():
         ref_state.quantize_pcm(np.linspace(-2, 2, 41), 0.7))
 
 
+BLOCK_HOP, BLOCK_CAP = 16, 64
+
+
+def _block_rows(rng, case, n):
+    """``n`` chunks of ``BLOCK_HOP`` samples of one case's kind."""
+    def u8():
+        return rng.integers(0, 256, BLOCK_HOP, dtype=np.uint8)
+
+    def pcm(i):
+        x = rng.standard_normal(BLOCK_HOP) * 0.8
+        return x.astype(np.float32) if i % 2 else x
+
+    if case in ("u8", "single"):
+        return [u8() for _ in range(n)]
+    if case == "float":
+        return [pcm(i) for i in range(n)]
+    if case == "int16":
+        return [u8().astype(np.int16) for _ in range(n)]
+    return [pcm(i) if i % 2 else u8() for i in range(n)]   # mixed
+
+
+@pytest.mark.parametrize("case", ["u8", "float", "int16", "mixed",
+                                  "single"])
+def test_ring_arena_block_push_parity(case):
+    """Equal-length pushes at hop-aligned offsets take the block path
+    (the port counts every row) and leave the reference's state bit for
+    bit, across the region's end and through aligned packs."""
+    rng = np.random.default_rng(["u8", "float", "int16", "mixed",
+                                 "single"].index(case))
+    arenas = (ref_state.RingArena(6, BLOCK_CAP),
+              port_state.RingArena(6, BLOCK_CAP))
+    for a in arenas:
+        for slot in range(6):
+            a.set_gain(slot, 0.3 + 0.4 * slot)
+    for rnd in range(18):
+        if case == "single":
+            slot = rnd % 2
+            chunk = _block_rows(rng, case, 1)[0]
+            arenas[0].push(slot, chunk)
+            assert arenas[1].push(slot, chunk) == 1
+        else:
+            slots = np.sort(rng.choice(6, size=int(rng.integers(1, 7)),
+                                       replace=False))
+            chunks = _block_rows(rng, case, slots.size)
+            arenas[0].push_batch(slots, chunks)
+            assert arenas[1].push_batch(slots, chunks) == slots.size
+        _assert_arenas_equal(*arenas)
+        for _ in range(rnd % 3):   # inboxes hold 0-2 hops between packs
+            ready = np.nonzero(arenas[0].ready_mask(BLOCK_HOP))[0]
+            packed = [a.pack_hops(ready, BLOCK_HOP) for a in arenas]
+            np.testing.assert_array_equal(packed[1], packed[0])
+            _assert_arenas_equal(*arenas)
+    assert arenas[1].wr.max() > BLOCK_CAP   # some slot wrapped the region
+
+
+@pytest.mark.parametrize("case", ["unequal", "unaligned", "capacity"])
+def test_ring_arena_push_falls_back_to_flat(case):
+    """Unequal lengths, a write offset off the block grid, or a region
+    the length does not divide: the flat path, no block rows, and the
+    reference's state."""
+    cap = BLOCK_CAP - 4 if case == "capacity" else BLOCK_CAP
+    arenas = (ref_state.RingArena(4, cap), port_state.RingArena(4, cap))
+    rng = np.random.default_rng(9)
+    slots = np.arange(3)
+    if case == "unaligned":
+        head = [rng.integers(0, 256, 5, dtype=np.uint8)]
+        arenas[0].push_batch(slots[1:2], head)
+        assert arenas[1].push_batch(slots[1:2], head) == 0
+    for _ in range(3):
+        chunks = _block_rows(rng, "mixed", slots.size)
+        if case == "unequal":
+            chunks[1] = chunks[1][:BLOCK_HOP // 2]
+        arenas[0].push_batch(slots, chunks)
+        assert arenas[1].push_batch(slots, chunks) == 0
+        _assert_arenas_equal(*arenas)
+        ready = np.nonzero(arenas[0].ready_mask(BLOCK_HOP))[0]
+        for a in arenas:
+            a.pack_hops(ready, BLOCK_HOP)
+
+
+@pytest.mark.parametrize("bad", ["range", "overflow", "dtype"])
+def test_ring_arena_block_push_rejects_before_writing(bad):
+    """A push that meets the block path's shape but carries codes out
+    of u8 range, a non-integer dtype, or more than a slot's room raises
+    the reference's error before any state changes (the generation
+    included)."""
+    arenas = (ref_state.RingArena(4, BLOCK_CAP),
+              port_state.RingArena(4, BLOCK_CAP))
+    rng = np.random.default_rng(11)
+    slots = np.arange(3)
+    fill = _block_rows(rng, "u8", 3)
+    for a in arenas:
+        a.push_batch(slots, fill)
+        for _ in range(3):
+            a.push(0, fill[0])     # slot 0 full
+    chunks = _block_rows(rng, "int16", 3)
+    want = ValueError
+    if bad == "range":
+        chunks[2][5] = 300
+        slots = slots[1:]
+        chunks = chunks[1:]
+    elif bad == "dtype":
+        chunks[2] = chunks[2].astype(bool)
+        slots, chunks, want = slots[1:], chunks[1:], TypeError
+    else:
+        want = MemoryError
+    before = [np.copy(x) for x in _arena_state(arenas[1])]
+    errs = []
+    for a in arenas:
+        with pytest.raises(want) as err:
+            a.push_batch(slots, chunks)
+        errs.append(str(err.value))
+    assert errs[1] == errs[0]
+    for x, y in zip(before, _arena_state(arenas[1])):
+        np.testing.assert_array_equal(y, x)
+    _assert_arenas_equal(*arenas)
+
+
 def test_batched_detector_parity():
     rng = np.random.default_rng(4)
     dets = (ref_det.BatchedDetector(5, 12), port_det.BatchedDetector(5, 12))

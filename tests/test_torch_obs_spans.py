@@ -167,6 +167,15 @@ def test_push_and_join_phases_tile_their_spans(kws_cell):
         assert len(by[name]) == len(by[name.split(".")[0]])
 
 
+def test_every_round_lands_by_block_rows(kws_cell):
+    """The set-up's first push (prime and hop 1) goes flat; every warm
+    and window round lands each stream's hop by the arena's block path."""
+    reg = kws_cell.sched.obs.registry
+    rounds = kws_cell.traffic["warm_rounds"] + len(kws_cell.stats["push_s"])
+    assert reg.counter("stream.push_block_rows").value == kws_cell.n * rounds
+    assert reg.counter("stream.push_rows").value == kws_cell.n * (1 + rounds)
+
+
 def test_hop_phases_unchanged_under_their_hop(kws_cell):
     spans = kws_cell.sched.obs.trace.spans()
     by = _by_name(spans)
@@ -319,7 +328,7 @@ def test_tally_counts_gathered_rows_once():
 
 NEW = {"kws_saturated": ("push_resolve_ms.kws", "push_stage_ms.kws",
                          "push_index_ms.kws", "push_scatter_ms.kws",
-                         "join_ms.kws"),
+                         "join_ms.kws", "push_block_share.kws"),
        "moe_decode_b32": ("tick_issue_ms.lm", "tick_fence_ms.lm",
                           "attn_issue_ms.lm", "moe_issue_ms.lm",
                           "experts_hit.lm", "moe_row_fill.lm",
