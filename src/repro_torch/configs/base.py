@@ -23,6 +23,19 @@ class MoEConfig:
     d_shared: int = 0          # shared-expert ffn width (0 = n_shared*d_expert)
     every_k: int = 1           # MoE on every k-th layer (jamba: 2)
     first_k_dense: int = 0     # leading dense layers (deepseek-moe: 1)
+    # the k-th layers counted from this one past first_k_dense (jamba's
+    # published ``expert_layer_offset``: 1, the odd layers)
+    layer_offset: int = 0
+    # the experts [lo, hi) whose weights this device holds (expert
+    # parallelism: one rank's share); None = all of them.  The router
+    # keeps all n_experts, and capacity counts them all
+    held: tuple[int, int] | None = None
+    renorm_topk: bool = True   # the top-k gates renormalised to sum to 1
+
+    @property
+    def n_held(self) -> int:
+        lo, hi = self.held if self.held is not None else (0, self.n_experts)
+        return hi - lo
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +74,9 @@ class ArchConfig:
     superblock: tuple[str, ...] = ()
     d_state: int = 16
     ssm_expand: int = 2
+    # 'plain': the reference's Mamba mixer; 'jamba': the published Jamba
+    # mixer (conv1d and dt_proj biases, RMSNorms on dt, B and C)
+    mamba_variant: str = "plain"
     # modality frontend stub (vlm patches / audio frames), prepended tokens
     n_frontend_tokens: int = 0
     frontend_dim: int = 0      # 0 -> d_model (pre-projected embeddings)
@@ -96,7 +112,8 @@ class ArchConfig:
             ffn = "dense"
         elif li < self.moe.first_k_dense:
             ffn = "dense"
-        elif (li - self.moe.first_k_dense) % self.moe.every_k == 0:
+        elif (li - self.moe.first_k_dense) % self.moe.every_k == \
+                self.moe.layer_offset % self.moe.every_k:
             ffn = "moe"
         else:
             ffn = "dense"

@@ -117,7 +117,8 @@ def param_count(cfg: ArchConfig) -> int:
 
 def active_param_count(cfg: ArchConfig) -> int:
     """Active params per token (MoE: the top_k routed and the shared
-    experts only)."""
+    experts only; of a layer that holds a share of the experts, as if a
+    token's top_k were among them)."""
     total = param_count(cfg)
     if cfg.moe is None:
         return total
@@ -125,7 +126,7 @@ def active_param_count(cfg: ArchConfig) -> int:
     n_moe_layers = sum(1 for _, f in stack.block_structure(cfg)
                        if f == "moe") * stack.n_repeats(cfg)
     per_expert = 3 * cfg.d_model * m.d_expert
-    return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert
+    return total - n_moe_layers * (m.n_held - m.top_k) * per_expert
 
 
 # ---------------------------------------------------------------------------

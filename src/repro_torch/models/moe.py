@@ -42,6 +42,17 @@ then in the capacity dispatches ``moe.dispatch``, ``moe.experts``,
 ``moe.combine``, and ``moe.shared``.  :func:`expert_tally` collects each
 capacity dispatch's per-expert assignment counts for the LM engine's
 counters.
+
+Expert parallelism, one rank's share (``held=(lo, hi)``): the layer's
+router keeps all E experts (its published width) and its expert stacks
+only the ``hi - lo`` experts this device holds.  Routing, positions and
+the capacity C = max(1, int(N*K/E * cf)) count all E, as in the whole
+deployment; :func:`dispatch_dropping` then places only the (token, slot)
+pairs that land on held experts, and the layer's output is their part
+of the result (what the other ranks' experts add is theirs).  The other
+dispatches need every expert and refuse a share.  ``renorm=False`` keeps
+the top-k softmax probabilities as the gates (Jamba's router); the
+default renormalises them to sum to 1.
 """
 from __future__ import annotations
 
@@ -101,23 +112,24 @@ def _tally_paused():
 
 def init_moe(generator, d_model: int, d_expert: int, n_experts: int,
              n_shared: int = 0, d_shared: int | None = None, *, device,
-             lead=()) -> dict:
+             lead=(), n_held: int | None = None) -> dict:
     """A float32 router (d_model, E), the expert stacks ``wi_gate`` /
-    ``wi_up`` (E, d_model, d_expert) and ``wo`` (E, d_expert, d_model)
-    in bf16, and the optional shared SwiGLU of width ``d_shared`` (default
-    ``d_expert * n_shared``)."""
+    ``wi_up`` (E_held, d_model, d_expert) and ``wo`` (E_held, d_expert,
+    d_model) in bf16 (``n_held`` experts, default all E), and the
+    optional shared SwiGLU of width ``d_shared`` (default ``d_expert *
+    n_shared``)."""
     lead = tuple(lead)
+    n_held = n_experts if n_held is None else n_held
     p = {
         "router": layers.dense_init(generator, d_model, n_experts,
                                     device=device, lead=lead,
                                     dtype=torch.float32),
         "wi_gate": layers.dense_init(generator, d_model, d_expert,
-                                     device=device,
-                                     lead=(*lead, n_experts)),
+                                     device=device, lead=(*lead, n_held)),
         "wi_up": layers.dense_init(generator, d_model, d_expert,
-                                   device=device, lead=(*lead, n_experts)),
+                                   device=device, lead=(*lead, n_held)),
         "wo": layers.dense_init(generator, d_expert, d_model, device=device,
-                                lead=(*lead, n_experts)),
+                                lead=(*lead, n_held)),
     }
     if n_shared:
         ds = d_shared or d_expert * n_shared
@@ -126,16 +138,19 @@ def init_moe(generator, d_model: int, d_expert: int, n_experts: int,
     return p
 
 
-def _route_stats(p: dict, x: torch.Tensor, top_k: int):
+def _route_stats(p: dict, x: torch.Tensor, top_k: int, renorm: bool = True):
     """-> gates, experts, and the aux loss's two means over the tokens:
-    the routed fraction and the mean probability per expert."""
+    the routed fraction and the mean probability per expert.  The gates
+    are the top-k probabilities, renormalised to sum to 1 with
+    ``renorm``."""
     b, s, d = x.shape
     n = b * s
     logits = x.reshape(n, d).to(torch.float32) @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[:, :top_k], idx[:, :top_k]
-    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    if renorm:
+        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
     e = probs.shape[-1]
     onehot = torch.nn.functional.one_hot(gate_idx, e).to(torch.float32)
     frac = onehot.sum(dim=1).mean(dim=0) / top_k
@@ -143,11 +158,11 @@ def _route_stats(p: dict, x: torch.Tensor, top_k: int):
     return gate_vals, gate_idx, frac, imp
 
 
-def route(p: dict, x: torch.Tensor, top_k: int):
+def route(p: dict, x: torch.Tensor, top_k: int, renorm: bool = True):
     """(B,S,D) -> gates (N,K) float32, experts (N,K) int64, aux loss;
     N = B*S.  Ties in the top-k keep the lower expert first, as
     ``jax.lax.top_k`` does (a stable descending sort)."""
-    gate_vals, gate_idx, frac, imp = _route_stats(p, x, top_k)
+    gate_vals, gate_idx, frac, imp = _route_stats(p, x, top_k, renorm)
     aux = frac.shape[-1] * torch.sum(frac * imp)
     return gate_vals, gate_idx, aux
 
@@ -170,10 +185,13 @@ def _expert_mlp(p: dict, xe: torch.Tensor, quant_mode: str = "none"):
     return act.constrain(out, "dp", None, None)
 
 
-def _positions(idx: torch.Tensor, e: int, cap: int):
+def _positions(idx: torch.Tensor, e: int, cap: int,
+               held: tuple[int, int] | None = None):
     """Position-in-expert of each (token, slot), slot-major so that
     earlier slots win capacity; idx (..., N, K) over groups of N tokens.
-    -> (positions clamped to 0 where dropped, keep masks), one per slot."""
+    -> (positions clamped to 0 where dropped, keep masks), one per slot.
+    An open tally gains ``(counts, cap, held)``, ``held`` the experts
+    [lo, hi) whose buckets the dispatch computes (default all E)."""
     pos_list, keep_list = [], []
     counts = torch.zeros((*idx.shape[:-2], e), dtype=torch.int64,
                          device=idx.device)
@@ -189,7 +207,7 @@ def _positions(idx: torch.Tensor, e: int, cap: int):
         keep_list.append(keep)
     entries = getattr(_tally, "entries", None)
     if entries is not None:
-        entries.append((counts, cap))
+        entries.append((counts, cap, held or (0, e)))
     return pos_list, keep_list
 
 
@@ -201,25 +219,52 @@ def _shared(p: dict, x: torch.Tensor, out: torch.Tensor, quant_mode: str):
     return out
 
 
+def _share(p: dict, held: tuple[int, int] | None) -> tuple[int, int] | None:
+    """The held experts [lo, hi) (default all E the router routes to) as
+    a strict share of them, or None when the layer holds them all; raises
+    unless the expert stacks hold ``hi - lo`` experts."""
+    e = p["router"].shape[-1]
+    lo, hi = held if held is not None else (0, e)
+    n_held = p["wi_gate"].shape[-3]
+    if not 0 <= lo < hi <= e or hi - lo != n_held:
+        raise ValueError(f"experts [{lo}, {hi}) of {e} held, the stacks "
+                         f"hold {n_held}")
+    return None if (lo, hi) == (0, e) else (lo, hi)
+
+
 def dispatch_dropping(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
                       gate_idx: torch.Tensor, *, quant_mode: str = "none",
-                      capacity_factor: float = 1.25) -> torch.Tensor:
+                      capacity_factor: float = 1.25,
+                      held: tuple[int, int] | None = None) -> torch.Tensor:
     """x (B,S,D) on the given routing -> (B,S,D): the static-capacity
     dispatch.  A dropped (token, slot) adds zeros at its expert's row 0,
-    which leaves the row as it is (bf16 ``index_put_`` accumulate)."""
+    which leaves the row as it is (bf16 ``index_put_`` accumulate).
+    With a share ``held=(lo, hi)`` of the E experts the buckets are the
+    held experts' only: a pair on another expert is dropped here, as one
+    past capacity is, and the output is the held experts' part."""
     b, s, d = x.shape
     n = b * s
     top_k = gate_idx.shape[-1]
     e = p["router"].shape[-1]
+    share = _share(p, held)
     xf = x.reshape(n, d)
     cap = max(1, int(n * top_k / e * capacity_factor))
     with span("moe.dispatch"):
-        pos_list, keep_list = _positions(gate_idx, e, cap)
-        xe = torch.zeros((e, cap, d), dtype=COMPUTE_DTYPE, device=x.device)
+        pos_list, keep_list = _positions(gate_idx, e, cap, share)
+        if share is None:
+            rows = [gate_idx[:, k] for k in range(top_k)]
+        else:
+            lo, hi = share
+            local = [(gate_idx[:, k] >= lo) & (gate_idx[:, k] < hi)
+                     for k in range(top_k)]
+            keep_list = [kp & loc for kp, loc in zip(keep_list, local)]
+            rows = [torch.where(loc, gate_idx[:, k] - lo, 0)
+                    for k, loc in enumerate(local)]
+        xe = torch.zeros((p["wi_gate"].shape[-3], cap, d),
+                         dtype=COMPUTE_DTYPE, device=x.device)
         for k in range(top_k):
             contrib = (xf * keep_list[k][:, None]).to(COMPUTE_DTYPE)
-            xe.index_put_((gate_idx[:, k], pos_list[k]), contrib,
-                          accumulate=True)
+            xe.index_put_((rows[k], pos_list[k]), contrib, accumulate=True)
 
     with span("moe.experts"):
         he = _expert_mlp(p, xe, quant_mode)
@@ -227,7 +272,7 @@ def dispatch_dropping(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
     with span("moe.combine"):
         out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
         for k in range(top_k):
-            yk = he[gate_idx[:, k], pos_list[k]].to(torch.float32)
+            yk = he[rows[k], pos_list[k]].to(torch.float32)
             out = out + yk * (gate_vals[:, k] * keep_list[k])[:, None]
         out = out.reshape(b, s, d).to(x.dtype)
     return _shared(p, x, out, quant_mode)
@@ -241,6 +286,7 @@ def dispatch_grouped(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
     contiguous groups (1 when N does not divide), positions and the
     capacity C = max(1, int(N/G*K/E * cf)) counted within each group, the
     buckets gathered through an int32 (G, E, C) slot -> token table."""
+    _share(p, None)     # every expert held, or raise
     b, s, d = x.shape
     n = b * s
     top_k = gate_idx.shape[-1]
@@ -293,6 +339,7 @@ def dispatch_dense(p: dict, x: torch.Tensor, gate_vals: torch.Tensor,
                    quant_mode: str = "none") -> torch.Tensor:
     """Every expert on every token, combined by the gate weights: exact
     (no token dropping)."""
+    _share(p, None)     # every expert held, or raise
     b, s, d = x.shape
     e = p["router"].shape[-1]
     onehot = torch.nn.functional.one_hot(gate_idx, e).to(torch.float32)
@@ -381,10 +428,13 @@ def _apply_moe_sharded(p: dict, x, *, top_k: int, quant_mode: str,
 
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
               quant_mode: str = "none", capacity_factor: float = 1.25,
-              impl: str = "auto"):
+              impl: str = "auto", held: tuple[int, int] | None = None,
+              renorm: bool = True):
     """x (B,S,D) -> (out, aux_loss).  ``auto``: ``grouped`` at the DP
     size when a policy sets a DP axis and the bank over TP is at most
-    ``GROUPED_BANK_BYTES``, else ``dropping``."""
+    ``GROUPED_BANK_BYTES``, else ``dropping``.  A share ``held`` of the
+    experts runs only the ``dropping`` dispatch, on local tensors;
+    ``renorm=False`` keeps the top-k probabilities as the gates."""
     if FORCE_IMPL is not None:
         impl = FORCE_IMPL
     dp = act.axis_size("dp")
@@ -393,12 +443,20 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
         bank = 3 * e_ * d_ * f_ * 2 / max(act.axis_size("tp") or 1, 1)
         impl = "grouped" if (dp and bank <= GROUPED_BANK_BYTES) \
             else "dropping"
+    if _share(p, held) is not None and (impl != "dropping"
+                                        or act.sharded(x)):
+        raise ValueError(f"experts {held} of {p['router'].shape[-1]}: a "
+                         f"share runs the dropping dispatch on local "
+                         f"tensors, not {impl!r}")
     if act.sharded(x):
+        if not renorm:
+            raise ValueError("the sharded MoE renormalises its gates")
         return _apply_moe_sharded(p, x, top_k=top_k, quant_mode=quant_mode,
                                   capacity_factor=capacity_factor,
                                   impl=impl)
     with span("moe.route"):
-        gate_vals, gate_idx, aux = route(p, x, top_k)
+        gate_vals, gate_idx, aux = (route(p, x, top_k) if renorm else
+                                    route(p, x, top_k, renorm=False))
     if impl == "dense":
         out = dispatch_dense(p, x, gate_vals, gate_idx,
                              quant_mode=quant_mode)
@@ -410,7 +468,7 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
     elif impl == "dropping":
         out = dispatch_dropping(p, x, gate_vals, gate_idx,
                                 quant_mode=quant_mode,
-                                capacity_factor=capacity_factor)
+                                capacity_factor=capacity_factor, held=held)
     else:
         raise ValueError(f"unknown MoE dispatch {impl!r}")
     return out, aux
@@ -418,7 +476,9 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
 
 def apply_moe_gathered(ps: list, xs: list, *, top_k: int,
                        quant_mode: str = "none",
-                       capacity_factor: float = 1.25) -> list:
+                       capacity_factor: float = 1.25,
+                       held: tuple[int, int] | None = None,
+                       renorm: bool = True) -> list:
     """The MoE over the rows of S shards, as one batch in shard order.
 
     ``xs[s]`` is shard ``s``'s rows (n_s, 1, D) on its device and
@@ -427,10 +487,12 @@ def apply_moe_gathered(ps: list, xs: list, *, top_k: int,
     work queued there), runs :func:`apply_moe` on all N of them and keeps
     the blocks of its own shards, so that the routing, the positions and
     the capacity ``max(1, int(N*K/E*cf))`` are the whole batch's.  ->
-    each shard's output, on its device."""
+    each shard's output, on its device.  ``held`` and ``renorm`` as in
+    :func:`apply_moe`."""
+    kw = dict(top_k=top_k, quant_mode=quant_mode,
+              capacity_factor=capacity_factor, held=held, renorm=renorm)
     if len(xs) == 1:
-        return [apply_moe(ps[0], xs[0], top_k=top_k, quant_mode=quant_mode,
-                          capacity_factor=capacity_factor)[0]]
+        return [apply_moe(ps[0], xs[0], **kw)[0]]
     ends = list(itertools.accumulate(x.shape[0] for x in xs))
     outs: dict = {}
     for s, x in enumerate(xs):
@@ -439,8 +501,6 @@ def apply_moe_gathered(ps: list, xs: list, *, top_k: int,
             with current(x.device), (
                     _tally_paused() if outs else contextlib.nullcontext()):
                 rows = torch.cat([t.to(x.device) for t in xs])
-                outs[x.device] = apply_moe(
-                    ps[s], rows, top_k=top_k, quant_mode=quant_mode,
-                    capacity_factor=capacity_factor)[0]
+                outs[x.device] = apply_moe(ps[s], rows, **kw)[0]
     return [outs[x.device][end - x.shape[0]:end]
             for x, end in zip(xs, ends)]

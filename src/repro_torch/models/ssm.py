@@ -15,6 +15,13 @@ across chunks.  The mLSTM and Mamba chunk steps are checkpointed
 (``layers.checkpoint``, the reference's ``jax.checkpoint``): under a
 gradient each chunk's intermediates are recomputed in the backward.  Every
 state is float32.
+
+The Mamba mixer also comes as the published Jamba mixer
+(``init_mamba(variant="jamba")``: conv1d and dt_proj biases, RMSNorms on
+dt, B and C after the x projection), which its functions apply where the
+params hold those leaves; without them they are the reference's mixer op
+for op.  Its prefill and step record the spans ``mamba.proj``,
+``mamba.scan`` and ``mamba.out`` (``obs.span``).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.models.scan_utils import scan
+from repro_torch.obs import span
 from repro_torch.sharding import act
 
 
@@ -327,9 +335,14 @@ def slstm_step(p, x, state, *, n_heads: int = 0):
 
 def init_mamba(generator, d_model: int, d_state: int = 16, d_conv: int = 4,
                expand: int = 2, dt_rank: int | None = None, *, device,
-               lead=()) -> dict:
+               lead=(), variant: str = "plain") -> dict:
     """``conv_w``, ``w_dt``, ``a_log`` = log(1..N) per channel and
-    ``d_skip`` are float32; the three projections bf16."""
+    ``d_skip`` are float32; the three projections bf16.  ``variant``
+    ``"jamba"`` adds the published Jamba mixer's leaves, all float32: the
+    conv1d bias ``conv_b`` and the dt_proj bias ``dt_b`` (Di,), and the
+    gains of the RMSNorms on dt, B and C after ``w_x`` (``dt_norm`` (R,),
+    ``b_norm`` / ``c_norm`` (N,)); the mixer's functions apply them where
+    the params hold them."""
     d_inner = expand * d_model
     dt_rank = dt_rank or max(1, d_model // 16)
     lead = tuple(lead)
@@ -341,7 +354,7 @@ def init_mamba(generator, d_model: int, d_state: int = 16, d_conv: int = 4,
         a_log = torch.log(torch.arange(
             1, d_state + 1, dtype=torch.float32, device=device)).expand(
                 *lead, d_inner, d_state).contiguous()
-    return {
+    p = {
         "w_in": layers.dense_init(generator, d_model, 2 * d_inner,
                                   device=device, lead=lead),
         "conv_w": layers.normal(generator, (*lead, d_conv, d_inner), 0.1,
@@ -355,6 +368,20 @@ def init_mamba(generator, d_model: int, d_state: int = 16, d_conv: int = 4,
         "w_out": layers.dense_init(generator, d_inner, d_model,
                                    device=device, lead=lead),
     }
+    if variant == "jamba":
+        # dt_proj's bias about the published init's softplus^-1 of dt in
+        # [1e-3, 1e-1]
+        p.update(
+            conv_b=layers.normal(generator, (*lead, d_inner), 0.1, device,
+                                 torch.float32),
+            dt_b=layers.normal(generator, (*lead, d_inner), 1.0, device,
+                               torch.float32) - 4.0,
+            dt_norm=layers.ones((*lead, dt_rank), device),
+            b_norm=layers.ones((*lead, d_state), device),
+            c_norm=layers.ones((*lead, d_state), device))
+    elif variant != "plain":
+        raise ValueError(f"unknown Mamba variant {variant!r}")
+    return p
 
 
 def _scan_chunk(da, x_in):
@@ -426,6 +453,8 @@ def _bsd_axes(u):
 
 def _mamba_proj(p, xc, d_state):
     """xc (..., Di) float32 -> dt (softplus, float32), B, C (float32).
+    The published Jamba mixer (``dt_norm`` in ``p``) RMS-normalises dt's
+    low-rank part, B and C and adds the dt_proj bias before the softplus.
     Under a sharding policy the small projection is summed over TP
     (``w_x`` is row-parallel) and dt keeps the channels over TP."""
     proj = act.constrain(_mm(xc, p["w_x"]), "dp", None, None)
@@ -433,8 +462,18 @@ def _mamba_proj(p, xc, d_state):
     dt_r = proj[..., :dt_rank].to(torch.float32)
     b_in = proj[..., dt_rank:dt_rank + d_state].to(torch.float32)
     c_in = proj[..., dt_rank + d_state:].to(torch.float32)
-    dt = _softplus(act.matmul(dt_r, p["w_dt"]))
-    return act.constrain(dt, "dp", None, "tp"), b_in, c_in
+    dt = act.matmul(_jamba_norm(p, "dt_norm", dt_r), p["w_dt"])
+    if "dt_b" in p:
+        dt = dt + p["dt_b"]
+    dt = _softplus(dt)
+    return (act.constrain(dt, "dp", None, "tp"),
+            _jamba_norm(p, "b_norm", b_in), _jamba_norm(p, "c_norm", c_in))
+
+
+def _jamba_norm(p, name, x):
+    """The published mixer's RMSNorm ``name`` of x (float32), where the
+    params hold its gain; else x."""
+    return layers.rmsnorm(x, p[name]) if name in p else x
 
 
 def _mamba_gate_out(p, y, zg):
@@ -445,33 +484,43 @@ def _mamba_gate_out(p, y, zg):
 def mamba_prefill(p, x, *, d_state: int = 16, d_conv: int = 4,
                   expand: int = 2):
     """-> out (B,S,D), (final ssm state (B,Di,N), causal-conv tail
-    (B,d_conv-1,Di): the last d_conv-1 inputs, zero-padded)."""
+    (B,d_conv-1,Di): the last d_conv-1 inputs, zero-padded).  Spans
+    ``mamba.proj``, ``mamba.scan``, ``mamba.out``."""
     b, s, d = x.shape
     d_inner = expand * d
-    xi, zg = _up_split(x, p["w_in"], d_inner)
-    xc, tail = _causal_conv(xi.to(torch.float32), p["conv_w"], d_conv)
-    dt, b_in, c_in = _mamba_proj(p, xc, d_state)
-    a = -torch.exp(p["a_log"])
-    y, ssm_state = _mamba_ssm_scan(xc, dt, a, b_in, c_in, p["d_skip"])
-    out = _mamba_gate_out(p, y, zg)
+    with span("mamba.proj"):
+        xi, zg = _up_split(x, p["w_in"], d_inner)
+        xc, tail = _causal_conv(xi.to(torch.float32), p["conv_w"], d_conv,
+                                p.get("conv_b"))
+        dt, b_in, c_in = _mamba_proj(p, xc, d_state)
+    with span("mamba.scan"):
+        a = -torch.exp(p["a_log"])
+        y, ssm_state = _mamba_ssm_scan(xc, dt, a, b_in, c_in, p["d_skip"])
+    with span("mamba.out"):
+        out = _mamba_gate_out(p, y, zg)
     return out, (ssm_state, tail)
 
 
-def _causal_conv(xi, conv_w, d_conv):
-    """silu of the depthwise causal conv (d_conv taps, summed tap by tap)
-    of xi (B,S,Di) float32, and the conv tail (the last d_conv-1 inputs,
-    zero-padded).  On DTensors under a policy each device convolves its
-    own channels."""
+def _causal_conv(xi, conv_w, d_conv, conv_b=None):
+    """silu of the depthwise causal conv (d_conv taps, summed tap by tap,
+    plus ``conv_b`` where given) of xi (B,S,Di) float32, and the conv tail
+    (the last d_conv-1 inputs, zero-padded).  On DTensors under a policy
+    each device convolves its own channels."""
     if act.sharded(xi):
         bx, _, dx = _bsd_axes(xi)
         pl = act.spec_placements(3, bx, None, dx)
+        bias = () if conv_b is None else (conv_b,)
         return act.shard_map(
-            lambda x, w: _causal_conv(x, w, d_conv), (xi, conv_w),
-            (pl, act.spec_placements(2, None, dx)), (pl, pl))
+            lambda x, w, *bl: _causal_conv(x, w, d_conv, *bl),
+            (xi, conv_w, *bias),
+            (pl, act.spec_placements(2, None, dx),
+             *(act.spec_placements(1, dx) for _ in bias)), (pl, pl))
     s = xi.shape[1]
     xpad = F.pad(xi, (0, 0, d_conv - 1, 0))
     conv = sum(xpad[:, t:t + s] * conv_w[t][None, None]
                for t in range(d_conv))
+    if conv_b is not None:
+        conv = conv + conv_b
     return F.silu(conv), xpad[:, -(d_conv - 1):]
 
 
@@ -493,18 +542,25 @@ def mamba_init_state(batch: int, d_model: int, d_state: int = 16,
 
 def mamba_step(p, x, state, *, d_state: int = 16, d_conv: int = 4,
                expand: int = 2):
-    """Single-token Mamba update: O(1) state, the long-context decode."""
+    """Single-token Mamba update: O(1) state, the long-context decode.
+    Spans ``mamba.proj``, ``mamba.scan``, ``mamba.out``."""
     d_inner = expand * x.shape[-1]
     ssm_state, conv_tail = state
-    xi, zg = _up_split(x, p["w_in"], d_inner)
-    window = torch.cat([conv_tail, xi.to(torch.float32)], dim=1)
-    conv = torch.einsum("btd,td->bd", window, p["conv_w"])
-    xc = F.silu(conv)
-    dt, b_in, c_in = _mamba_proj(p, xc, d_state)
-    a = -torch.exp(p["a_log"])
-    da = torch.exp(dt[..., None] * a[None])
-    ssm_state = ssm_state * da + dt[..., None] * b_in[:, None, :] * \
-        xc[..., None]
-    y = torch.einsum("bdn,bn->bd", ssm_state, c_in) + xc * p["d_skip"][None]
-    out = _mamba_gate_out(p, y, zg[:, 0])[:, None]
+    with span("mamba.proj"):
+        xi, zg = _up_split(x, p["w_in"], d_inner)
+        window = torch.cat([conv_tail, xi.to(torch.float32)], dim=1)
+        conv = torch.einsum("btd,td->bd", window, p["conv_w"])
+        if "conv_b" in p:
+            conv = conv + p["conv_b"]
+        xc = F.silu(conv)
+        dt, b_in, c_in = _mamba_proj(p, xc, d_state)
+    with span("mamba.scan"):
+        a = -torch.exp(p["a_log"])
+        da = torch.exp(dt[..., None] * a[None])
+        ssm_state = ssm_state * da + dt[..., None] * b_in[:, None, :] * \
+            xc[..., None]
+        y = torch.einsum("bdn,bn->bd", ssm_state, c_in) + \
+            xc * p["d_skip"][None]
+    with span("mamba.out"):
+        out = _mamba_gate_out(p, y, zg[:, 0])[:, None]
     return out, (ssm_state, window[:, 1:])

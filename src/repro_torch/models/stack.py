@@ -36,6 +36,8 @@ AUX_LOSS_COEF = 0.01
 #: the decode step's span of each mixer's sublayer (``obs.span``)
 MIXER_SPANS = {"a": "layer.attn", "m": "layer.mamba", "M": "layer.mlstm",
                "s": "layer.slstm"}
+#: the span of a recurrent layer's state write-back into the slot pool
+STATE_SPANS = {"m": "mamba.state", "M": "mlstm.state", "s": "slstm.state"}
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +75,8 @@ def _init_layer(cfg: ArchConfig, generator, mixer: str, ffn: str, *,
     elif mixer == "m":
         p["mamba"] = ssm.init_mamba(generator, cfg.d_model,
                                     d_state=cfg.d_state,
-                                    expand=cfg.ssm_expand, **kw)
+                                    expand=cfg.ssm_expand,
+                                    variant=cfg.mamba_variant, **kw)
     elif mixer == "M":
         p["mlstm"] = ssm.init_mlstm(generator, cfg.d_model, cfg.n_heads,
                                     expand=cfg.ssm_expand, **kw)
@@ -90,7 +93,8 @@ def _init_layer(cfg: ArchConfig, generator, mixer: str, ffn: str, *,
         p["norm2"] = layers.ones((*lead, cfg.d_model), device)
         p["moe"] = moe.init_moe(generator, cfg.d_model, m.d_expert,
                                 m.n_experts, n_shared=m.n_shared,
-                                d_shared=m.d_shared or None, **kw)
+                                d_shared=m.d_shared or None,
+                                n_held=m.n_held, **kw)
     return p
 
 
@@ -163,10 +167,16 @@ def _ffn_sublayer(cfg: ArchConfig, p: dict, h, ffn: str):
                                           cfg.quant_mode))
     elif ffn == "moe":
         out, aux = moe.apply_moe(p["moe"], _norm(h, p["norm2"]),
-                                 top_k=cfg.moe.top_k,
-                                 quant_mode=cfg.quant_mode)
+                                 **_moe_kw(cfg))
         h = _residual(h, out)
     return h, aux
+
+
+def _moe_kw(cfg: ArchConfig) -> dict:
+    """The MoE layer's arguments from the config: its routing, its share
+    of the experts and whether the gates are renormalised."""
+    return dict(top_k=cfg.moe.top_k, quant_mode=cfg.quant_mode,
+                held=cfg.moe.held, renorm=cfg.moe.renorm_topk)
 
 
 def apply_layer(cfg: ArchConfig, p: dict, h, mixer: str, ffn: str, mode: str,
@@ -424,7 +434,8 @@ def decode_shards(cfg: ArchConfig, params: list, states: list,
     :func:`decode_step` gives them; with one shard it is that step, op
     for op.  Spans (``obs.span``, over all shards): ``embed``, each
     layer's mixer (``MIXER_SPANS``) and FFN (``layer.mlp`` or
-    ``layer.moe``), ``head``."""
+    ``layer.moe``), a recurrent layer's state write-back
+    (``STATE_SPANS``, after its FFN), ``head``."""
     struct = block_structure(cfg)
     shards = range(len(states))
     # each shard's device made current while its ops issue (with one
@@ -476,8 +487,7 @@ def decode_shards(cfg: ArchConfig, params: list, states: list,
                             with on[s]:
                                 xs.append(_norm(hs[s], ps[s]["norm2"]))
                         outs = moe.apply_moe_gathered(
-                            [p["moe"] for p in ps], xs, top_k=cfg.moe.top_k,
-                            quant_mode=cfg.quant_mode)
+                            [p["moe"] for p in ps], xs, **_moe_kw(cfg))
                         for s in shards:
                             with on[s]:
                                 hs[s] = _residual(hs[s], outs[s])
@@ -488,10 +498,11 @@ def decode_shards(cfg: ArchConfig, params: list, states: list,
                                 hs[s] = _ffn_sublayer(cfg, ps[s], hs[s],
                                                       ffn)[0]
                 if mixer != "a":
-                    for s in shards:
-                        with on[s]:
-                            for old, nw in zip(caches[s], news[s]):
-                                old.copy_(nw)
+                    with obs.span(STATE_SPANS[mixer]):
+                        for s in shards:
+                            with on[s]:
+                                for old, nw in zip(caches[s], news[s]):
+                                    old.copy_(nw)
         logits = []
         with obs.span("head"):
             for s in shards:

@@ -54,8 +54,10 @@ on the card); ``step_async`` splits them over ``decode_dispatch`` and
 ``decode_retire``, and a prefill's layer spans hang under ``prefill``.
 While the tracer is enabled, the MoE layers' expert counts of a decode
 tick (``moe.expert_tally``) are read with its tokens and folded into the
-registry's ``serve.moe_assigned`` / ``_kept`` / ``_rows`` /
-``_experts_hit`` / ``_layer_ticks`` counters.  The
+registry's ``serve.moe_assigned`` / ``_local`` / ``_kept`` / ``_rows`` /
+``_experts_hit`` / ``_layer_ticks`` counters (a layer that holds a share
+of the experts counts ``_local`` the assignments to its own, and the
+rest over those alone).  The
 clock ``cache_len`` is shared by all slots and merged with ``max`` at an
 install, as in the reference (ROADMAP C.6, reproduced: a request
 installed while the clock is ahead attends to the zero rows between its
@@ -436,22 +438,31 @@ class Engine:
     def _fold_tally(self, tally) -> None:
         """Fold one tick's expert tally into the registry, after its
         tokens' copy: summed over its MoE layers, the (token, slot)
-        assignments, those kept under capacity, the E x C bucket rows
-        computed and the distinct experts hit, and the layer count."""
+        assignments, those on the experts the layer holds (``local``),
+        those of them kept under capacity, the E_held x C bucket rows
+        computed and the distinct held experts hit, and the layer
+        count.  A layer that holds every expert counts local all its
+        assignments."""
         if not tally:
             return
         # one (groups, E) block of counts a layer: stacked as rows, each
-        # row with its layer's capacity
-        counts = torch.cat([c.reshape(-1, c.shape[-1]) for c, _ in tally]
+        # row with its layer's capacity and its held experts' columns
+        counts = torch.cat([c.reshape(-1, c.shape[-1]) for c, _, _ in tally]
                            ).cpu().numpy()
-        groups = [c.numel() // c.shape[-1] for c, _ in tally]
-        caps = np.repeat([cap for _, cap in tally], groups)
-        per_layer = np.add.reduceat(counts, np.cumsum([0] + groups[:-1]))
+        groups = [c.numel() // c.shape[-1] for c, _, _ in tally]
+        caps = np.repeat([cap for _, cap, _ in tally], groups)
+        held = np.zeros(counts.shape, bool)
+        starts = np.cumsum([0] + groups[:-1])
+        for r0, g, (_, _, (lo, hi)) in zip(starts, groups, tally):
+            held[r0:r0 + g, lo:hi] = True
+        local = np.where(held, counts, 0)
+        per_layer = np.add.reduceat(local, starts)
         reg = self.obs.registry
         reg.counter("serve.moe_assigned").inc(int(counts.sum()))
+        reg.counter("serve.moe_local").inc(int(local.sum()))
         reg.counter("serve.moe_kept").inc(
-            int(np.minimum(counts, caps[:, None]).sum()))
-        reg.counter("serve.moe_rows").inc(int(caps.sum()) * counts.shape[1])
+            int(np.minimum(local, caps[:, None]).sum()))
+        reg.counter("serve.moe_rows").inc(int((caps[:, None] * held).sum()))
         reg.counter("serve.moe_experts_hit").inc(int((per_layer > 0).sum()))
         reg.counter("serve.moe_layer_ticks").inc(len(tally))
 
