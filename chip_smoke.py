@@ -8,6 +8,7 @@ training on one CUDA card.
                                           # phase 9b only (a multi-card
                                           # machine's run)
     python3 chip_smoke.py --phase lm_cards  # phase 13b only
+    python3 chip_smoke.py --phase moe_dispatch  # phase 13c only
 
 Phases (each prints one line, any failure exits non-zero):
 
@@ -249,7 +250,20 @@ Phases (each prints one line, any failure exits non-zero):
               decode and the engine card vs CPU; one Mamba mixer at
               Jamba's width (d_model 8192), the prefill against
               token-by-token steps and the CPU.  No reference kernel is
-              launched.
+              launched (the MoE layers' own dispatch kernels are, outside
+              the runs whose routing ``RouterPin`` holds).
+13c. moe_dispatch — the MoE dispatch's kernels
+              (``kernels/moe_dispatch.py``) at both LM cells' decode
+              layers (``MDP_SHAPES``: DeepSeek-MoE-16B at 32 tokens, 2
+              shared experts; AI21-Jamba2-Mini at 64, 8 of 16 experts
+              held) against ``route`` + ``dispatch_dropping`` on the same
+              inputs: experts, positions, keep masks and counts equal,
+              the output within 2 bf16 ulps of the layer's scale; timed
+              beside the plain path, ``torch.bmm`` and the byte bound
+              (the ``kernels`` line's ``moe_dispatch`` entry); its
+              launches read from one decode tick of each cell's engine
+              at full width and a cut depth (``MDP_ENGINES``), one a MoE
+              layer.
 13b. lm_cards — the LM engine over several devices
               (``serve.engine.Engine(mesh=make_stream_mesh(S))``):
               Qwen3-0.6B and DeepSeek-MoE-16B whole (``api.init_params``
@@ -3300,6 +3314,16 @@ def lmf_check(ok, msg: str) -> None:
         raise RuntimeError(f"lm_families: {msg}")
 
 
+def reference_launches(dispatch) -> dict:
+    """The launches counted since the last reset of kernels that port a
+    reference kernel: all but the MoE dispatch's (``kernels/moe_dispatch.py``,
+    which ports none and which the LM path's MoE layers launch)."""
+    from repro_torch.kernels import moe_dispatch
+
+    return {k: v for k, v in dispatch.counts().items()
+            if k != moe_dispatch.KERNEL}
+
+
 class RouterPin:
     """Holds one run's MoE routing to another's.
 
@@ -3312,7 +3336,9 @@ class RouterPin:
     recorded experts,
     its gates re-normalised from this run's probabilities.  ``held``
     counts the rows taken over, ``worst`` the largest probability
-    difference met."""
+    difference met.  While it records or holds, every MoE layer takes the
+    plain dispatch (``moe_dispatch.engages`` off), whose ``moe.route``
+    calls it sees; the CUDA kernels route inside themselves."""
 
     def __init__(self, moe, torch):
         self.moe, self.torch = moe, torch
@@ -3328,12 +3354,14 @@ class RouterPin:
 
     @contextlib.contextmanager
     def _routed_by(self, route):
-        own = self.moe.route
+        own, engages = self.moe.route, self.moe.moe_dispatch.engages
         self.moe.route = route(own)
+        self.moe.moe_dispatch.engages = lambda *a, **k: False
         try:
             yield
         finally:
             self.moe.route = own
+            self.moe.moe_dispatch.engages = engages
 
     def record(self, on_device: bool = False):
         """``on_device``: keep the record on the device (no host sync,
@@ -3984,8 +4012,8 @@ def lm_families_phase(seed, dev, torch, dispatch, card):
         rec[key] = run()
         torch.cuda.empty_cache()
         split[key] = time.perf_counter() - t
-    lmf_check(not dispatch.counts(), f"the LM path launched a reference "
-              f"kernel: {dispatch.counts()}")
+    lmf_check(not reference_launches(dispatch), f"the LM path launched a "
+              f"reference kernel: {reference_launches(dispatch)}")
     phase_s = time.perf_counter() - t0
     phase("lm_families", "no reference kernel launched; phase took "
           f"{phase_s:.1f} s (" + ", ".join(f"{k} {v:.1f}"
@@ -3993,6 +4021,209 @@ def lm_families_phase(seed, dev, torch, dispatch, card):
           + f"); {card}")
     rec.update(phase_s=phase_s, phase_split_s=split, card=card)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 13c: the MoE dispatch's kernels at the LM cells' shapes
+# ---------------------------------------------------------------------------
+
+#: the LM cells' decode layers: (tokens N, top-k, experts E, D, F, shared
+#: experts, the held share, renorm) of DeepSeek-MoE-16B at 32 slots and
+#: AI21-Jamba2-Mini at 64 (8 of its 16 experts held)
+MDP_SHAPES = {
+    "deepseek_b32": (32, 6, 64, 2048, 1408, 2, None, True),
+    "jamba_b64": (64, 2, 16, 4096, 14336, 0, (0, 8), False),
+}
+#: the engines whose tick counts the launches: config, cut depth (whole
+#: blocks at full width), slots (the cells')
+MDP_ENGINES = (("deepseek-moe-16b", LMF_CUT_LAYERS, 32),
+               ("jamba2_mini", 8, 64))
+
+
+def mdp_check(ok, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"moe_dispatch: {msg}")
+
+
+def mdp_layer(name, seed, dev, torch):
+    """One MoE layer of ``MDP_SHAPES[name]`` on the card and its input."""
+    from repro_torch.models import moe
+
+    n, k, e, d, f, shared, held, renorm = MDP_SHAPES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = moe.init_moe(g, d, f, e, shared, device=dev,
+                     n_held=None if held is None else held[1] - held[0])
+    x = torch.randn(n, 1, d, generator=g, device=dev)
+    return p, x
+
+
+def mdp_compare(name, p, x, torch, dispatch):
+    """The wrapper and its kernels against ``route`` + ``dispatch_dropping``
+    on the same inputs: experts, positions, keep masks and counts equal,
+    the output within 2 bf16 ulps of the layer's scale (the GEMMs
+    accumulate in another order than cuBLAS, so g, u, h and y may each
+    round to the neighbouring bf16 value) -> the largest output
+    difference."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.models import layers, moe
+
+    n, k, e, d, f, shared, held, renorm = MDP_SHAPES[name]
+    share = moe._share(p, held)
+    cap = md.capacity(n, k, e, 1.25)
+    lo, hi = share or (0, e)
+    with torch.no_grad(), layers.lm_precision():
+        gv, gi, aux = moe.route(p, x, k, renorm)
+        with moe.expert_tally() as plain:
+            want = moe.dispatch_dropping(p, x, gv, gi, held=held)
+        pos, keep = moe._positions(gi, e, cap)
+        pos = torch.stack(pos, -1)
+        keep = torch.stack(keep, -1) & (gi >= lo) & (gi < hi)
+        before = dispatch.count(md.KERNEL)
+        with moe.expert_tally() as fused:
+            got, got_aux = moe.apply_moe(p, x, top_k=k, held=held,
+                                         renorm=renorm)
+        mdp_check(dispatch.count(md.KERNEL) - before == 1 and fused.fused == 1,
+                  f"{name}: the layer did not take the kernels once")
+        v = md.views(md._launch(p, x, top_k=k, cap=cap, share=share,
+                                renorm=renorm))
+    for key, a, b in (("experts", v["idx"], gi), ("positions", v["pos"], pos),
+                      ("keep masks", v["keep"], keep),
+                      ("counts", v["counts"], plain[0][0]),
+                      ("tally counts", fused[0][0], plain[0][0])):
+        mdp_check(torch.equal(a, b), f"{name}: {key} differ from the plain "
+                  "dispatch's")
+    mdp_check(fused[0][1:] == plain[0][1:], f"{name}: tally entry "
+              f"{fused[0][1:]} != {plain[0][1:]}")
+    mdp_check(torch.allclose(got_aux, aux, rtol=1e-5, atol=1e-7),
+              f"{name}: aux {float(got_aux)} != {float(aux)}")
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    mdp_check(bool(torch.isfinite(got).all()) and err <= 2 * 2 ** -8 * scale,
+              f"{name}: output differs by {err} at scale {scale}")
+    return err, scale
+
+
+def mdp_times(name, p, x, torch):
+    """The routed experts' dispatch (no shared experts): the kernels
+    (``md._launch``), ``apply_moe`` with the kernels refused (the plain
+    path, host-bound), ``torch.bmm`` of the same buckets (the library's
+    time for the experts' products), each between CUDA events over calls
+    issued back to back, and the byte bound -> record."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.models import layers, moe
+
+    n, k, e, d, f, shared, held, renorm = MDP_SHAPES[name]
+    p = {kk: v for kk, v in p.items() if kk != "shared"}
+    share = moe._share(p, held)
+    cap = md.capacity(n, k, e, 1.25)
+    e_held = p["wi_gate"].shape[0]
+    xe = torch.randn(e_held, cap, d, device=x.device).to(torch.bfloat16)
+
+    def kernels():
+        md._launch(p, x, top_k=k, cap=cap, share=share, renorm=renorm)
+
+    def plain():
+        engages, md.engages = md.engages, lambda *a, **kw: False
+        try:
+            moe.apply_moe(p, x, top_k=k, held=held, renorm=renorm)
+        finally:
+            md.engages = engages
+
+    def library():
+        g = torch.bmm(xe, p["wi_gate"])
+        u = torch.bmm(xe, p["wi_up"])
+        h = torch.nn.functional.silu(g.float()).to(torch.bfloat16) * u
+        torch.bmm(h, p["wo"])
+
+    # the experts' weights, the router, x read and the output written once
+    nbytes = (3 * e_held * d * f * 2 + d * e * 4
+              + x.numel() * x.element_size() * 2)
+    with torch.no_grad(), layers.lm_precision():
+        return dict(ms=call_ms(kernels, torch),
+                    plain_ms=call_ms(plain, torch, iters=5),
+                    library_ms=call_ms(library, torch),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def mdp_tick_launches(arch, layers_, slots, seed, dev, torch, dispatch):
+    """One decode tick of the serving engine at full width and a cut
+    depth, every slot live: the MoE dispatch's launches, and the tick's
+    ``serve.moe_fused`` and ``serve.moe_layer_ticks``, each equal to the
+    MoE layer count -> launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.jamba2_mini import CONFIG
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.models import api, stack
+    from repro_torch.serve import engine
+
+    cfg = CONFIG if arch == CONFIG.name else get_arch(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers_)
+    n_moe = stack.n_repeats(cfg) * sum(
+        1 for _, f in stack.block_structure(cfg) if f == "moe")
+    params = api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    eng = engine.Engine(cfg, params, batch_slots=slots, max_seq=32)
+    rng = np.random.default_rng(seed)
+    for i in range(slots):
+        eng.submit(engine.Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab, 2).astype(np.int32), max_new_tokens=8))
+    with torch.no_grad():
+        eng.step()       # fills every slot: the prefills and a first tick
+        reg = eng.obs.registry
+        was = {c: reg.counter(c).value
+               for c in ("serve.moe_fused", "serve.moe_layer_ticks")}
+        dispatch.reset()
+        eng.step()
+    launches = dispatch.count(md.KERNEL)
+    got = {c: reg.counter(c).value - v for c, v in was.items()}
+    mdp_check(launches == n_moe and set(got.values()) == {n_moe},
+              f"{arch}: a tick of {n_moe} MoE layers launched {launches}, "
+              f"counted {got}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_dispatch_phase(seed, dev, torch, dispatch, card):
+    """Phase 13c: the MoE dispatch's kernels (``kernels/moe_dispatch.py``)
+    at both LM cells' decode layers against the plain dispatch, timed
+    beside it, ``torch.bmm`` and the byte bound, and their launches in a
+    decode tick of each cell's engine -> (record, the ``kernels`` line's
+    entry)."""
+    t0 = time.perf_counter()
+    rec = {}
+    for i, name in enumerate(MDP_SHAPES):
+        p, x = mdp_layer(name, seed + 60 + i, dev, torch)
+        err, scale = mdp_compare(name, p, x, torch, dispatch)
+        rec[name] = dict(max_abs_err=err, out_scale=scale,
+                         **mdp_times(name, p, x, torch))
+        del p, x
+        torch.cuda.empty_cache()
+        r = rec[name]
+        phase("moe_dispatch", f"{name} {MDP_SHAPES[name][:5]}: experts, "
+              f"positions, keep masks and counts == route + "
+              f"dispatch_dropping, output within {err:.3e} (scale "
+              f"{scale:.3e}); kernels {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, torch.bmm {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms (bytes); {card}")
+    launches = {arch: mdp_tick_launches(arch, cut, slots, seed, dev, torch,
+                                        dispatch)
+                for arch, cut, slots in MDP_ENGINES}
+    phase("moe_dispatch", "one decode tick, every slot live, one launch a "
+          "MoE layer and serve.moe_fused == serve.moe_layer_ticks: "
+          + ", ".join(f"{a} {n}" for a, n in launches.items())
+          + f"; phase took {time.perf_counter() - t0:.1f} s")
+    rec.update(tick_launches=launches, card=card)
+    total = lambda key: sum(rec[n][key] for n in MDP_SHAPES)  # noqa: E731
+    entry = {"name": "moe_dispatch", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+             "replaces": None, "launches": sum(launches.values()),
+             "max_abs_err": max(rec[n]["max_abs_err"] for n in MDP_SHAPES),
+             "ms": total("ms"), "plain_ms": total("plain_ms"),
+             "bound_ms": total("bound_ms"), "bound_by": "bytes",
+             "library_ms": total("library_ms")}
+    return rec, entry
 
 
 # ---------------------------------------------------------------------------
@@ -4390,8 +4621,8 @@ def lm_cards_phase(seed, torch, dispatch, card):
         gc.collect()
         torch.cuda.empty_cache()
         rec[f"{arch}_s"] = time.perf_counter() - t_arch
-    lc_check(not dispatch.counts(), f"the LM path launched a reference "
-             f"kernel: {dispatch.counts()}")
+    lc_check(not reference_launches(dispatch), f"the LM path launched a "
+             f"reference kernel: {reference_launches(dispatch)}")
     peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
     rec.update(peak_allocated_bytes=peaks, card=card,
                phase_s=time.perf_counter() - t_phase)
@@ -5133,11 +5364,13 @@ def cards_only(seed: int, card: str, torch) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=("all", "cards", "lm_cards"),
+    ap.add_argument("--phase", choices=("all", "cards", "lm_cards",
+                                        "moe_dispatch"),
                     default="all",
                     help="cards: the build, the 1-shard drive and phase "
-                    "9b only; lm_cards: phase 13b only (it builds no "
-                    "kernel: the LM path launches none)")
+                    "9b only; lm_cards: phase 13b only (it builds only "
+                    "the MoE layers' dispatch kernels); moe_dispatch: "
+                    "phase 13c only")
     args = ap.parse_args()
 
     import torch
@@ -5171,11 +5404,16 @@ def main() -> int:
           f"{torch.cuda.device_count()}; nvidia-smi: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
 
-    if args.phase == "lm_cards":
-        rec = lm_cards_phase(args.seed, torch, dispatch, card)
+    if args.phase in ("lm_cards", "moe_dispatch"):
+        if args.phase == "lm_cards":
+            rec = lm_cards_phase(args.seed, torch, dispatch, card)
+        else:
+            rec, entry = moe_dispatch_phase(args.seed, dev, torch, dispatch,
+                                            card)
+            print(json.dumps({"kernels": [entry]}))
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
-        (out / "chip_smoke_lm_cards.json").write_text(json.dumps(
+        (out / f"chip_smoke_{args.phase}.json").write_text(json.dumps(
             rec, indent=1))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -5684,6 +5922,9 @@ def main() -> int:
     # 12. LM serving: Qwen3-0.6B through the continuous-batching engine
     lm_rec = lm_serve_phase(args.seed, dev, torch, dispatch, card)
     lmf_rec = lm_families_phase(args.seed, dev, torch, dispatch, card)
+    # 13c. the MoE dispatch's kernels at the LM cells' shapes
+    mdp_rec, mdp_entry = moe_dispatch_phase(args.seed, dev, torch, dispatch,
+                                            card)
     # 13b. the LM engine over every card (or shards of one)
     lc_rec = lm_cards_phase(args.seed, torch, dispatch, card)
     # 14. LM training: Qwen3-0.6B whole, DeepSeek-MoE cut, every family
@@ -5738,6 +5979,7 @@ def main() -> int:
             "bound_by": ("bytes" if agg["bytes_s"] >= agg["ops_s"]
                          else "operations"),
             "library_ms": agg["library_ms"]})
+    entries.append(mdp_entry)
     kernels = {"kernels": entries}
     record = dict(kernels, card=card, hop_ms_p50=p50, hops=len(hops),
                   hop_kernel_call_ms=hop_call_ms,
@@ -5766,7 +6008,8 @@ def main() -> int:
                   async_path=async_rec, tenants=tenant_rec,
                   sharded=shard_rec, cards=cards_rec, chip_twin=twin_rec,
                   train=train_rec,
-                  lm_serve=lm_rec, lm_families=lmf_rec, lm_cards=lc_rec,
+                  lm_serve=lm_rec, lm_families=lmf_rec,
+                  moe_dispatch=mdp_rec, lm_cards=lc_rec,
                   lm_train=lt_rec,
                   dryrun=dr_rec)
     out = ROOT / "chiprun_out"

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: ``hop_megakernel.py``, ``conv_kernels.py`` and ``twm_matmul.py``
-(the kernel bindings and their plain versions), ``ops.py`` (the public
+(the kernel bindings and their plain versions), ``moe_dispatch.py`` (the
+MoE layer's dropping dispatch, which ports no reference kernel and which
+``models/moe.py`` calls), ``ops.py`` (the public
 entry points), ``ref.py`` (plain oracles), ``dispatch.py`` (launch
 counters), ``build.py`` (nvcc + ctypes) and ``csrc/`` (the CUDA sources).
 

@@ -37,11 +37,18 @@ a policy each device routes and dispatches its own tokens
 one dispatch everywhere.  The auxiliary load-balance loss is Switch-style:
 E * sum_e(f_e * p_e).
 
+On the card, a local dropping dispatch that needs no gradient runs as
+the four CUDA kernels of ``kernels/moe_dispatch.py`` (route through
+combine, one host call) when ``moe_dispatch.engages`` says the call fits
+them; training, autograd, DTensors, the other dispatches and oversized
+batches keep the code below.
+
 Spans (``obs.span``, recorded when a caller's span is open): ``moe.route``,
 then in the capacity dispatches ``moe.dispatch``, ``moe.experts``,
-``moe.combine``, and ``moe.shared``.  :func:`expert_tally` collects each
-capacity dispatch's per-expert assignment counts for the LM engine's
-counters.
+``moe.combine``, and ``moe.shared`` (the kernels: ``moe.fused``, then
+``moe.shared``).  :func:`expert_tally` collects each capacity dispatch's
+per-expert assignment counts for the LM engine's counters, and how many
+of them the kernels ran.
 
 Expert parallelism, one rank's share (``held=(lo, hi)``): the layer's
 router keeps all E experts (its published width) and its expert stacks
@@ -63,6 +70,7 @@ import threading
 
 import torch
 
+from repro_torch.kernels import moe_dispatch
 from repro_torch.launch.mesh import current
 from repro_torch.models import layers
 from repro_torch.models.layers import COMPUTE_DTYPE
@@ -82,16 +90,23 @@ FORCE_IMPL: str | None = None
 _tally = threading.local()
 
 
+class Tally(list):
+    """An open tally's entries; ``fused`` counts the dispatches among them
+    that ran as ``kernels/moe_dispatch.py``'s kernels."""
+    fused = 0
+
+
 @contextlib.contextmanager
 def expert_tally():
     """Collect, on this thread, each capacity dispatch's per-expert
-    assignment counts while open: -> a list that gains one ``(counts,
-    capacity)`` entry a dispatch, ``counts`` the (..., E) int64 device
-    tensor that :func:`_positions` computes anyway (kept, not copied: no
-    kernel, no host sync) and ``capacity`` C.  The LM engine opens one
-    around a decode tick and reads it with the tick's tokens."""
+    assignment counts while open: -> a :class:`Tally` that gains one
+    ``(counts, capacity, held)`` entry a dispatch, ``counts`` the (..., E)
+    int64 device tensor that :func:`_positions` (or the kernels) compute
+    anyway (kept, not copied: no kernel, no host sync), ``capacity`` C and
+    ``held`` the experts [lo, hi) whose buckets it computes.  The LM engine
+    opens one around a decode tick and reads it with the tick's tokens."""
     prev = getattr(_tally, "entries", None)
-    _tally.entries = entries = []
+    _tally.entries = entries = Tally()
     try:
         yield entries
     finally:
@@ -108,6 +123,16 @@ def _tally_paused():
         yield
     finally:
         _tally.entries = prev
+
+
+def note_fused(entry: tuple) -> None:
+    """An open tally's record of a dispatch run by the kernels: it gains
+    ``entry``, the kernels' ``(counts, capacity, held)``, and counts one
+    fused dispatch."""
+    entries = getattr(_tally, "entries", None)
+    if entries is not None:
+        entries.append(entry)
+        entries.fused += 1
 
 
 def init_moe(generator, d_model: int, d_expert: int, n_experts: int,
@@ -434,7 +459,9 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
     size when a policy sets a DP axis and the bank over TP is at most
     ``GROUPED_BANK_BYTES``, else ``dropping``.  A share ``held`` of the
     experts runs only the ``dropping`` dispatch, on local tensors;
-    ``renorm=False`` keeps the top-k probabilities as the gates."""
+    ``renorm=False`` keeps the top-k probabilities as the gates.  A local
+    ``dropping`` call that ``moe_dispatch.engages`` takes runs as its
+    kernels."""
     if FORCE_IMPL is not None:
         impl = FORCE_IMPL
     dp = act.axis_size("dp")
@@ -454,6 +481,11 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int,
         return _apply_moe_sharded(p, x, top_k=top_k, quant_mode=quant_mode,
                                   capacity_factor=capacity_factor,
                                   impl=impl)
+    if impl == "dropping" and moe_dispatch.engages(p, x, top_k,
+                                                   capacity_factor):
+        return moe_dispatch.moe_dispatch(
+            p, x, top_k=top_k, quant_mode=quant_mode,
+            capacity_factor=capacity_factor, held=held, renorm=renorm)
     with span("moe.route"):
         gate_vals, gate_idx, aux = (route(p, x, top_k) if renorm else
                                     route(p, x, top_k, renorm=False))

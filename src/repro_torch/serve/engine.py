@@ -57,7 +57,8 @@ tick (``moe.expert_tally``) are read with its tokens and folded into the
 registry's ``serve.moe_assigned`` / ``_local`` / ``_kept`` / ``_rows`` /
 ``_experts_hit`` / ``_layer_ticks`` counters (a layer that holds a share
 of the experts counts ``_local`` the assignments to its own, and the
-rest over those alone).  The
+rest over those alone), and ``serve.moe_fused``, the layer dispatches
+that ran as ``kernels/moe_dispatch.py``'s kernels.  The
 clock ``cache_len`` is shared by all slots and merged with ``max`` at an
 install, as in the reference (ROADMAP C.6, reproduced: a request
 installed while the clock is ahead attends to the zero rows between its
@@ -440,9 +441,9 @@ class Engine:
         tokens' copy: summed over its MoE layers, the (token, slot)
         assignments, those on the experts the layer holds (``local``),
         those of them kept under capacity, the E_held x C bucket rows
-        computed and the distinct held experts hit, and the layer
-        count.  A layer that holds every expert counts local all its
-        assignments."""
+        computed and the distinct held experts hit, the layer count, and
+        the layers whose dispatch ran as the kernels.  A layer that holds
+        every expert counts local all its assignments."""
         if not tally:
             return
         # one (groups, E) block of counts a layer: stacked as rows, each
@@ -465,6 +466,7 @@ class Engine:
         reg.counter("serve.moe_rows").inc(int((caps[:, None] * held).sum()))
         reg.counter("serve.moe_experts_hit").inc(int((per_layer > 0).sum()))
         reg.counter("serve.moe_layer_ticks").inc(len(tally))
+        reg.counter("serve.moe_fused").inc(tally.fused)
 
     def step(self) -> list[Request]:
         """One continuous-batching tick: fill slots, decode, retire."""
